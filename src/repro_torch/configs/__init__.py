@@ -1,0 +1,18 @@
+"""Architecture registry of the port: the two dense pool models it serves.
+
+`base.py`, `qwen3_4b.py` and `h2o_danube_1_8b.py` are copies of the JAX
+package's config modules (`repro.configs`), kept here so the port imports
+nothing of `repro`."""
+from .base import ATTN_DENSE, ModelConfig, reduced
+from . import h2o_danube_1_8b, qwen3_4b
+
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (h2o_danube_1_8b, qwen3_4b)}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; options: {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+__all__ = ["ARCHS", "ATTN_DENSE", "ModelConfig", "get_config", "reduced"]

@@ -1,0 +1,209 @@
+"""The paper's protagonist in the port: the k-Nearest-Neighbour router with
+exact retrieval (mirrors `repro.core.routers.knn` for ``index="exact"``).
+
+Utility prediction: s_hat(x, m) = mean over the k nearest support rows of
+s(x_i, m) (optionally similarity-softmax weighted); identically for costs.
+Retrieval is the exact cosine top-k kernel (`kernels.knn_topk`) over the
+device-resident support rows.  ``serve_fused`` runs retrieval, utility,
+confidence and the per-request-lambda, availability-masked selection on
+the device and copies the results to the host at the end; the staged calls
+(``predict_utility``, ``confidence``, ``predict_with_confidence``) share
+the same tail functions, so both give the same numbers.
+
+Retrieval slots no support row fills (id -1) are excluded from averages
+and votes.  The IVF / IVF-PQ indexes, streaming updates and artifacts of
+the reference are not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.knn_topk.ops import knn_topk
+from ..dataset import RoutingDataset
+from .base import Router, normalize_rows
+from .spec import register
+
+
+# ---------------------------------------------------------------------------
+# neighbour -> decision tail, shared by the staged calls and serve_fused
+# ---------------------------------------------------------------------------
+
+def _utility(sims, idx, S, C, *, weights: str, temperature: float):
+    """Neighbour-weighted utility/cost estimates from one retrieval's
+    (sims, idx); empty slots (idx == -1) get zero weight."""
+    valid = idx >= 0
+    safe = idx.clamp_min(0).long()
+    s_nb = S[safe]                                           # (Q, k, M)
+    c_nb = C[safe]
+    if weights == "softmax":
+        fin = torch.where(valid, sims, torch.full_like(sims, float("-inf")))
+        mx = fin.max(dim=1, keepdim=True).values
+        mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+        w = torch.exp(temperature * (fin - mx))
+        w = w / w.sum(dim=1, keepdim=True).clamp_min(1e-12)
+    else:
+        v = valid.float()
+        w = v / v.sum(dim=1, keepdim=True).clamp_min(1.0)
+    s_hat = torch.einsum("qk,qkm->qm", w, s_nb)
+    c_hat = torch.einsum("qk,qkm->qm", w, c_nb)
+    return s_hat, c_hat
+
+
+def _confidence(sims, idx, S):
+    """(kth_sim, neighbour_agreement): the k-th similarity as the row min
+    (scores arrive sorted, so it equals the last column), and the mode
+    fraction of the valid neighbours' best-model votes."""
+    kth = sims.min(dim=1).values
+    valid = idx >= 0
+    best = S[idx.clamp_min(0).long()].argmax(dim=2)            # (Q, k)
+    M = S.shape[1]
+    votes = (best[..., None] == torch.arange(M, device=S.device)) \
+        & valid[..., None]
+    counts = votes.sum(dim=1)                                  # (Q, M)
+    agree = counts.max(dim=1).values.float() \
+        / valid.sum(dim=1).clamp_min(1).float()
+    return kth, agree
+
+
+def _select(s_hat, c_hat, lam, avail):
+    """Per-request-lambda utility argmax; models with ``avail`` False score
+    -inf.  Ties go to the first model, like `jnp.argmax`.  Returns
+    (choice, unmasked utilities)."""
+    util = s_hat - lam[:, None] * c_hat
+    masked = torch.where(avail[None, :], util,
+                         torch.full_like(util, float("-inf")))
+    return masked.argmax(dim=1), util
+
+
+def _serve_tail(sims, idx, S, C, lam, avail, *, weights: str,
+                temperature: float):
+    """Retrieval results -> (choice, s_hat, c_hat, kth, agree)."""
+    s_hat, c_hat = _utility(sims, idx, S, C, weights=weights,
+                            temperature=temperature)
+    kth, agree = _confidence(sims, idx, S)
+    choice, _ = _select(s_hat, c_hat, lam, avail)
+    return choice, s_hat, c_hat, kth, agree
+
+
+@register("knn", k_param="k")
+class KNNRouter(Router):
+    def __init__(self, k: int = 100, weights: str = "uniform",
+                 temperature: float = 20.0, device: str = "cuda"):
+        if weights not in ("uniform", "softmax"):
+            raise ValueError(f"weights must be 'uniform' or 'softmax', got "
+                             f"{weights!r}")
+        self.k = k
+        self.weights = weights
+        self.temperature = temperature
+        self.device = torch.device(device)
+        self._dev = {}           # device-resident support + mask cache
+
+    # ---- fit = store the support set ----
+    def fit(self, ds: RoutingDataset, seed: int = 0) -> "KNNRouter":
+        self._record_fit(ds, seed)
+        self._dev = {}
+        X, S, C = ds.part("train")
+        self._X = normalize_rows(X)
+        self._S = S.astype(np.float32)
+        self._C = C.astype(np.float32)
+        return self
+
+    @property
+    def support_size(self) -> int:
+        return 0 if getattr(self, "_S", None) is None else len(self._S)
+
+    def _support_dev(self):
+        """Device-resident (X, S, C), uploaded once per fit."""
+        sup = self._dev.get("support")
+        if sup is None:
+            sup = tuple(torch.from_numpy(a).to(self.device)
+                        for a in (self._X, self._S, self._C))
+            self._dev["support"] = sup
+        return sup
+
+    def _search(self, q):
+        """One retrieval over the device support: q (Q, D) unit rows on
+        the device -> (sims, idx) device tensors, (Q, min(k, N))."""
+        X = self._support_dev()[0]
+        return knn_topk(q, X, min(self.k, len(self._X)))
+
+    def _queries(self, X):
+        # repro: allow-host: input embeddings arrive as host data
+        X = np.atleast_2d(np.asarray(X, np.float32))
+        return torch.from_numpy(normalize_rows(X)).to(self.device)
+
+    def _neighbors(self, X):
+        """One retrieval pass -> numpy (sims, idx)."""
+        sims, idx = self._search(self._queries(X))
+        return sims.cpu().numpy(), idx.cpu().numpy()
+
+    # ---- utility ----
+    def _utility_from(self, sims, idx):
+        _, S, C = self._support_dev()
+        s_hat, c_hat = _utility(
+            torch.as_tensor(sims, device=self.device),
+            torch.as_tensor(idx, device=self.device), S, C,
+            weights=self.weights, temperature=float(self.temperature))
+        return s_hat.cpu().numpy(), c_hat.cpu().numpy()
+
+    def predict_utility(self, X: np.ndarray):
+        return self._utility_from(*self._neighbors(X))
+
+    # ---- practitioner diagnostics (§8): per-query confidence ----
+    def _confidence_from(self, sims, idx):
+        _, S, _ = self._support_dev()
+        kth, agree = _confidence(torch.as_tensor(sims, device=self.device),
+                                 torch.as_tensor(idx, device=self.device), S)
+        return kth.cpu().numpy(), agree.cpu().numpy()
+
+    def confidence(self, X: np.ndarray):
+        """(kth_sim, neighbour_agreement) per query."""
+        return self._confidence_from(*self._neighbors(X))
+
+    def predict_with_confidence(self, X: np.ndarray):
+        """One retrieval feeding both outputs: (s_hat, c_hat, kth_sim,
+        agreement)."""
+        sims, idx = self._neighbors(X)
+        s_hat, c_hat = self._utility_from(sims, idx)
+        kth, agree = self._confidence_from(sims, idx)
+        return s_hat, c_hat, kth, agree
+
+    # ---- device-side serving path ----
+    def _avail_dev(self, avail=None):
+        """Per-model availability mask (bool, (M,)) on the device; ``None``
+        means every model is up.  Cached by content."""
+        M = self._S.shape[1]
+        if avail is None:
+            a = np.ones((M,), bool)
+        else:
+            # repro: allow-host: availability arrives as host health metadata
+            a = np.asarray(avail, dtype=bool).reshape(-1)
+        if a.shape != (M,):
+            raise ValueError(f"availability mask must have shape ({M},) to "
+                             f"match the model axis, got {a.shape}")
+        if not a.any():
+            raise ValueError("availability mask excludes every model; "
+                             "routing has no candidate to select")
+        key = a.tobytes()
+        if self._dev.get("avail_key") != key:
+            self._dev["avail"] = torch.from_numpy(a).to(self.device)
+            self._dev["avail_key"] = key
+        return self._dev["avail"]
+
+    def serve_fused(self, X: np.ndarray, lam: np.ndarray, avail=None):
+        """One routed batch on the device: retrieval kernel, neighbour
+        utility, confidence and per-request-lambda availability-masked
+        selection, copied to the host once, at the end.  Returns numpy
+        (choice, s_hat, c_hat, kth_sim, agreement)."""
+        q = self._queries(X)
+        # repro: allow-host: lambdas arrive as host request metadata
+        lam_t = torch.from_numpy(np.asarray(lam, np.float32).reshape(-1)).to(
+            self.device)
+        _, S, C = self._support_dev()
+        av = self._avail_dev(avail)
+        sims, idx = self._search(q)
+        out = _serve_tail(sims, idx, S, C, lam_t, av, weights=self.weights,
+                          temperature=float(self.temperature))
+        # repro: allow-host: the single end-of-batch materialization
+        return tuple(o.cpu().numpy() for o in out)

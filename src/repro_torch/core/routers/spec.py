@@ -1,0 +1,135 @@
+"""Spec-addressable router construction (the ``<family><k?>[@key=val,...]``
+part of `repro.core.routers.spec`'s grammar; the ``-ivf``/``-ivfpq``
+suffixes wait for the port of the approximate indexes).
+
+    knn10               kNN router, k=10, exact retrieval
+    knn100@lam=0.5      ... with a default routing lambda of 0.5
+    knn10@weights=softmax,temperature=10.0
+
+``lam`` is reserved: it sets the router's default cost/quality trade-off
+used when a request carries no lambda of its own.  Constructor overrides
+passed to ``make_router`` (``make_router("knn10", device="cpu")``) apply on
+top of the spec's kwargs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import re
+from typing import Dict, Mapping, Optional
+
+RESERVED_KEYS = ("lam",)
+
+_SPEC_RE = re.compile(r"^(?P<family>[a-z][a-z0-9_]*?)(?P<k>\d+)?$")
+
+
+@dataclasses.dataclass(frozen=True)
+class RouterSpec:
+    family: str
+    k: Optional[int] = None
+    kwargs: Mapping[str, object] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class RouterFamily:
+    family: str
+    cls: type
+    k_param: Optional[str]
+    ctor_params: frozenset
+
+
+FAMILIES: Dict[str, RouterFamily] = {}
+
+
+def register(family: str, *, k_param: Optional[str] = None):
+    """Class decorator: declare ``cls`` as the implementation of ``family``."""
+    def deco(cls):
+        params = inspect.signature(cls.__init__).parameters
+        ctor = frozenset(p for p in params if p != "self")
+        if family in FAMILIES:
+            raise ValueError(f"router family {family!r} registered twice")
+        FAMILIES[family] = RouterFamily(family, cls, k_param, ctor)
+        cls.spec_family = family
+        return cls
+    return deco
+
+
+def _parse_value(raw: str):
+    """Typed kwarg values: int -> float -> bool -> str."""
+    if re.fullmatch(r"[+-]?\d+", raw):
+        return int(raw)
+    try:
+        return float(raw)
+    except ValueError:
+        pass
+    if raw.lower() in ("true", "false"):
+        return raw.lower() == "true"
+    return raw
+
+
+def parse_spec(spec: str) -> RouterSpec:
+    if not isinstance(spec, str) or not spec.strip():
+        raise ValueError(f"empty router spec: {spec!r}")
+    base, sep, kwstr = spec.strip().partition("@")
+    m = _SPEC_RE.fullmatch(base)
+    if not m:
+        raise ValueError(f"unparseable router spec {spec!r} "
+                         f"(grammar: <family><k?>[@key=val,...])")
+    family = m.group("family")
+    fam = FAMILIES.get(family)
+    if fam is None:
+        raise ValueError(f"unknown router family {family!r} in spec {spec!r}; "
+                         f"registered: {', '.join(sorted(FAMILIES))}")
+    k = int(m.group("k")) if m.group("k") else None
+    if k is not None and fam.k_param is None:
+        raise ValueError(f"family {family!r} takes no <k> suffix "
+                         f"(spec {spec!r})")
+    kwargs = {}
+    if sep:
+        for item in kwstr.split(","):
+            key, eq, raw = item.partition("=")
+            if not eq or not key or not raw:
+                raise ValueError(f"malformed kwarg {item!r} in spec {spec!r} "
+                                 f"(expected key=val)")
+            if key not in fam.ctor_params and key not in RESERVED_KEYS:
+                raise ValueError(
+                    f"unknown kwarg {key!r} for family {family!r} "
+                    f"(spec {spec!r}); constructor takes: "
+                    f"{', '.join(sorted(fam.ctor_params))}")
+            kwargs[key] = _parse_value(raw)
+    return RouterSpec(family, k=k, kwargs=kwargs)
+
+
+def format_spec(spec: RouterSpec) -> str:
+    s = spec.family + ("" if spec.k is None else str(spec.k))
+    if spec.kwargs:
+        s += "@" + ",".join(f"{k}={v}" for k, v in sorted(spec.kwargs.items()))
+    return s
+
+
+def make_router(spec, **overrides):
+    """Construct a router from a spec string or a RouterSpec."""
+    if isinstance(spec, str):
+        spec = parse_spec(spec)
+    fam = FAMILIES.get(spec.family)
+    if fam is None:
+        raise ValueError(f"unknown router family {spec.family!r}")
+    kw = {} if spec.k is None else {fam.k_param: spec.k}
+    kw.update(spec.kwargs)
+    kw.update(overrides)
+    lam = kw.pop("lam", None)
+    unknown = sorted(set(kw) - fam.ctor_params)
+    if unknown:
+        raise ValueError(f"unknown constructor kwargs {unknown} for family "
+                         f"{spec.family!r}; takes: "
+                         f"{', '.join(sorted(fam.ctor_params))}")
+    router = fam.cls(**kw)
+    if lam is not None:
+        router.default_lam = float(lam)
+    return router
+
+
+def spec_of(router) -> str:
+    fam = FAMILIES[router.spec_family]
+    k = getattr(router, fam.k_param) if fam.k_param else None
+    return format_spec(RouterSpec(fam.family, k=k))

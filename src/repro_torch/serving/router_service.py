@@ -1,0 +1,327 @@
+"""RouterService of the port (mirrors `repro.serving.router_service`): the
+paper's router as the front door of a multi-model serving deployment.
+
+  request text -> embed (encoder.py) -> KNNRouter.serve_fused ->
+  argmax_m  s_hat - lambda_r * c_hat  -> dispatch to that model's engine.
+
+The cost/quality trade-off ``lambda`` is per request (scalar or (n,)
+vector), falling back to the service default and then the router's
+spec-level ``default_lam``.  Per-engine circuit breakers feed an
+availability mask into the selection, and `execute` reroutes a failed
+wave's requests along each request's own utility order.  Observe /
+durability / artifacts and the scheduler of the reference are not ported
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.dataset import RoutingDataset
+from repro_torch.core.routers import Router, RouterSpec, make_router
+from repro_torch.core.routers.knn import _select
+from . import encoder as enc
+from .engine import IncompleteDrainError, Request, ServingEngine
+from .faults import (CircuitOpenError, EngineDeadlineExceeded, EngineHealth,
+                     ExecutionReport)
+
+
+@dataclasses.dataclass
+class RoutedResult:
+    uid: int
+    model: str
+    request: Request
+    predicted_score: float
+    predicted_cost: float
+    lam: float = 0.0
+    confidence: Optional[float] = None
+    #: full per-model predicted score/cost rows, kept so a failure can
+    #: reroute to the next-best-utility model
+    s_row: Optional[np.ndarray] = None
+    c_row: Optional[np.ndarray] = None
+    #: engines this request failed over from, in order
+    rerouted_from: List[str] = dataclasses.field(default_factory=list)
+
+
+def knn_service(ds: RoutingDataset, engines: Dict[str, ServingEngine],
+                k: int = 100, lam: float = 0.0, seed: int = 0,
+                fallback_model: Optional[str] = None,
+                confidence_floor: float = 0.02, encoder=None,
+                **router_kw) -> "RouterService":
+    """Fit an exact kNN router on ``ds`` and wrap it in a RouterService over
+    ``engines``.  ``router_kw`` are KNNRouter constructor kwargs."""
+    return RouterService(make_router(RouterSpec("knn", k=k), **router_kw),
+                         engines, ds=ds, lam=lam, seed=seed,
+                         fallback_model=fallback_model,
+                         confidence_floor=confidence_floor, encoder=encoder)
+
+
+class RouterService:
+    def __init__(self, router: Union[Router, RouterSpec, str],
+                 engines: Dict[str, ServingEngine], *,
+                 ds: Optional[RoutingDataset] = None,
+                 lam: Optional[float] = None,
+                 fallback_model: Optional[str] = None,
+                 confidence_floor: float = 0.02, seed: int = 0,
+                 breaker: Optional[Dict] = None,
+                 engine_timeout_s: Optional[float] = None,
+                 max_route_attempts: int = 3,
+                 retry_backoff_s: float = 0.0,
+                 encoder: Optional[enc.QueryEncoder] = None):
+        if isinstance(router, (str, RouterSpec)):
+            router = make_router(router)
+        if router.model_names is None and ds is None:
+            raise ValueError("router is not fitted; pass ds= to fit it here")
+        if ds is not None:
+            router.fit(ds, seed=seed)
+        self.router = router
+        self.engines = engines
+        self.model_names = self._validate_engines(router, engines)
+        self.default_lam = router.default_lam if lam is None else float(lam)
+        if fallback_model is not None and fallback_model not in engines:
+            raise ValueError(
+                f"fallback_model {fallback_model!r} has no serving engine "
+                f"(engines: {list(engines)})")
+        self.fallback_model = fallback_model
+        self.confidence_floor = confidence_floor
+        #: query encoder; defaults to the seeded one on the router's device
+        self.encoder = encoder if encoder is not None else \
+            enc.default_encoder(str(getattr(router, "device", "cuda")))
+        self._uid = 0
+        self.health: Dict[str, EngineHealth] = {
+            m: EngineHealth(m, **(breaker or {})) for m in self.model_names}
+        self.engine_timeout_s = engine_timeout_s
+        self.max_route_attempts = int(max_route_attempts)
+        self.retry_backoff_s = float(retry_backoff_s)
+
+    @staticmethod
+    def _validate_engines(router: Router, engines: Dict) -> List[str]:
+        names = list(router.model_names)
+        if len(names) != len(engines):
+            raise ValueError(
+                f"router predicts over {len(names)} models {names} but "
+                f"{len(engines)} engines were supplied ({list(engines)})")
+        missing = [m for m in names if m not in engines]
+        if missing:
+            raise ValueError(f"router models {missing} have no serving "
+                             f"engine (engines: {list(engines)})")
+        return names
+
+    # ---- health / availability ----
+    def availability_mask(self) -> Optional[np.ndarray]:
+        """Per-model availability from the breakers in ``model_names``
+        order, or None when every engine is up (or none is: routing then
+        proceeds on utilities and `execute` sheds with typed errors)."""
+        flags = [self.health[m].available() for m in self.model_names]
+        if all(flags) or not any(flags):
+            return None
+        # repro: allow-host: availability is host-side health metadata
+        return np.asarray(flags, bool)
+
+    # ---- routing ----
+    def _resolve_lam(self, lam, n: int) -> np.ndarray:
+        """None -> service default; scalar -> broadcast; (n,) vector as-is."""
+        if lam is None:
+            lam = self.default_lam
+        # repro: allow-host: lambdas arrive as host request metadata
+        arr = np.asarray(lam, np.float32)
+        if arr.ndim == 0:
+            return np.full((n,), float(arr), np.float32)
+        if arr.shape != (n,):
+            raise ValueError(f"lam must be a scalar or shape ({n},), got "
+                             f"shape {arr.shape}")
+        return arr
+
+    def _check_arity(self, s_hat: np.ndarray) -> None:
+        if s_hat.shape[1] != len(self.model_names):
+            raise ValueError(
+                f"router emitted {s_hat.shape[1]} model columns, expected "
+                f"{len(self.model_names)} ({self.model_names})")
+
+    def route_fused(self, emb: np.ndarray, lam=None) -> tuple:
+        """One routed batch through `KNNRouter.serve_fused` (retrieval,
+        utility, confidence and availability-masked selection on the
+        device).  Returns (choice, s_hat, c_hat, agreement, lam_r) as
+        numpy."""
+        # repro: allow-host: input embeddings arrive as host data
+        emb = np.atleast_2d(np.asarray(emb, np.float32))
+        lam_r = self._resolve_lam(lam, len(emb))
+        choice, s_hat, c_hat, _, agree = self.router.serve_fused(
+            emb, lam_r, avail=self.availability_mask())
+        self._check_arity(s_hat)
+        return choice, s_hat, c_hat, agree, lam_r
+
+    def route_legacy(self, emb: np.ndarray, lam=None) -> tuple:
+        """The staged chain (retrieval, then utility + confidence, then
+        selection, with host copies between), kept as the parity oracle of
+        `route_fused`.  Same return shape."""
+        emb = np.atleast_2d(np.asarray(emb, np.float32))
+        s_hat, c_hat, _, agree = self.router.predict_with_confidence(emb)
+        self._check_arity(s_hat)
+        lam_r = self._resolve_lam(lam, len(emb))
+        avail = self.availability_mask()
+        a = (np.ones(len(self.model_names), bool) if avail is None
+             else avail)
+        dev = getattr(self.router, "device", torch.device("cpu"))
+        choice, _ = _select(torch.from_numpy(s_hat).to(dev),
+                            torch.from_numpy(c_hat).to(dev),
+                            torch.from_numpy(lam_r).to(dev),
+                            torch.from_numpy(a).to(dev))
+        return choice.cpu().numpy(), s_hat, c_hat, agree, lam_r
+
+    def submit_texts(self, texts: Sequence[str], prompts_tokens=None,
+                     max_new_tokens: int = 8, lam=None) -> List[RoutedResult]:
+        emb = self.encoder.embed_texts(list(texts))
+        choice, s_hat, c_hat, conf, lam_r = self.route_fused(emb, lam)
+        results = []
+        for i, text in enumerate(texts):
+            mi = int(choice[i])
+            if (conf is not None and self.fallback_model
+                    and conf[i] < self.confidence_floor):
+                mi = self.model_names.index(self.fallback_model)
+            m = self.model_names[mi]
+            toks = (prompts_tokens[i] if prompts_tokens is not None
+                    else enc.hash_tokenize(text)[:16])
+            toks = np.asarray(toks, np.int32)
+            vocab = self.engines[m].cfg.vocab_size
+            req = Request(uid=self._uid, prompt_tokens=toks % vocab,
+                          max_new_tokens=max_new_tokens)
+            self._uid += 1
+            results.append(RoutedResult(
+                uid=req.uid, model=m, request=req,
+                predicted_score=float(s_hat[i, mi]),
+                predicted_cost=float(c_hat[i, mi]),
+                lam=float(lam_r[i]),
+                confidence=float(conf[i]) if conf is not None else None,
+                s_row=np.asarray(s_hat[i]).copy(),
+                c_row=np.asarray(c_hat[i]).copy()))
+        return results
+
+    # ---- execution ----
+    def _run_engine(self, m: str, reqs: List[Request]) -> int:
+        """One wave on one engine under the service deadline (a worker
+        thread and a join timeout when ``engine_timeout_s`` is set)."""
+        eng = self.engines[m]
+        if self.engine_timeout_s is None:
+            return eng.run_until_drained(reqs)
+        box: Dict = {}
+
+        def worker():
+            try:
+                box["steps"] = eng.run_until_drained(reqs)
+            except BaseException as exc:
+                box["exc"] = exc
+
+        t = threading.Thread(target=worker, daemon=True,
+                             name=f"engine-wave-{m}")
+        t.start()
+        t.join(self.engine_timeout_s)
+        if t.is_alive():
+            raise EngineDeadlineExceeded(m, self.engine_timeout_s)
+        if "exc" in box:
+            raise box["exc"]
+        return box["steps"]
+
+    def _next_best(self, r: RoutedResult, tried: Set[str]) -> Optional[str]:
+        """Next model along the request's own utility order, skipping
+        engines already tried and engines whose breaker is open."""
+        util = np.asarray(r.s_row, np.float32) - r.lam * np.asarray(
+            r.c_row, np.float32)
+        for mi in np.argsort(-util, kind="stable"):
+            m = self.model_names[int(mi)]
+            if m not in tried and self.health[m].available():
+                return m
+        return None
+
+    def _reroute(self, rs: List[RoutedResult], exc: BaseException,
+                 report: ExecutionReport, attempts: Dict[int, int],
+                 tried: Dict[int, Set[str]]
+                 ) -> List[Tuple[str, RoutedResult]]:
+        """Failover: each request goes to its next-best available engine as
+        a fresh Request, or lands in ``report.failed`` with a typed reason.
+        Never a silent drop."""
+        requeued = []
+        for r in rs:
+            tried.setdefault(r.uid, set()).add(r.model)
+            attempts[r.uid] = attempts.get(r.uid, 0) + 1
+            nxt = (self._next_best(r, tried[r.uid])
+                   if attempts[r.uid] < self.max_route_attempts else None)
+            if nxt is None:
+                if not r.request.error:
+                    r.request.error = type(exc).__name__
+                report.failed[r.uid] = f"{type(exc).__name__}: {exc}"
+                continue
+            report.rerouted.append((r.uid, r.model, nxt))
+            r.rerouted_from.append(r.model)
+            old = r.request
+            vocab = self.engines[nxt].cfg.vocab_size
+            r.request = Request(
+                uid=r.uid,
+                prompt_tokens=np.asarray(old.prompt_tokens,
+                                         np.int64) % vocab,
+                max_new_tokens=old.max_new_tokens)
+            r.model = nxt
+            mi = self.model_names.index(nxt)
+            r.predicted_score = float(r.s_row[mi])
+            r.predicted_cost = float(r.c_row[mi])
+            requeued.append((nxt, r))
+        return requeued
+
+    def execute(self, results: List[RoutedResult]) -> ExecutionReport:
+        """Dispatch routed requests to their engines, wave by wave and
+        engine by engine, isolating failures: an open breaker skips the
+        engine, a failure or timeout records to its breaker and reroutes
+        the affected requests, a success re-closes it."""
+        report = ExecutionReport()
+        queue: List[Tuple[str, RoutedResult]] = [(r.model, r)
+                                                 for r in results]
+        attempts: Dict[int, int] = {}
+        tried: Dict[int, Set[str]] = {}
+        while queue:
+            by_model: Dict[str, List[RoutedResult]] = {}
+            for m, r in queue:
+                by_model.setdefault(m, []).append(r)
+            queue = []
+            for m, rs in by_model.items():
+                health = self.health[m]
+                if not health.available():
+                    report.skipped[m] = report.skipped.get(m, 0) + 1
+                    exc = CircuitOpenError(
+                        m, retry_after_s=health.retry_after_s())
+                    queue.extend(self._reroute(rs, exc, report, attempts,
+                                               tried))
+                    continue
+                reqs = [r.request for r in rs]
+                try:
+                    steps = self._run_engine(m, reqs)
+                except IncompleteDrainError as exc:
+                    health.record_failure(exc)
+                    report.record_error(m, exc,
+                                        [q.uid for q in exc.survivors])
+                    surv = {id(q) for q in exc.survivors}
+                    failed_rs = [r for r in rs if id(r.request) in surv]
+                    queue.extend(self._reroute(failed_rs, exc, report,
+                                               attempts, tried))
+                except Exception as exc:
+                    health.record_failure(exc)
+                    report.record_error(m, exc, [r.uid for r in rs])
+                    if not isinstance(exc, EngineDeadlineExceeded):
+                        self.engines[m].release(reqs)
+                    queue.extend(self._reroute(rs, exc, report, attempts,
+                                               tried))
+                else:
+                    health.record_success()
+                    report[m] = report.get(m, 0) + steps
+            if queue and self.retry_backoff_s:
+                time.sleep(self.retry_backoff_s)
+        return report
+
+    def serve_texts(self, texts: Sequence[str], **kw):
+        results = self.submit_texts(texts, **kw)
+        self.execute(results)
+        return results
