@@ -15,18 +15,31 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      call computes the same function) the library call's time in ms, and
      the least time the card could take (bytes over 3.35 TB/s or flops over
      the dtype's peak, whichever is larger).
+     Kernels 4 and 5 (IVF scan, IVF-PQ ADC shortlist) run on synthetic
+     indexes at the main path's shape (70,000 rows in 265 lists of 400,
+     D 768, nprobe 8, k 100, kk 800, m 64) and at the edge cases: nbits 4,
+     Q 1 and 64, nprobe = C, and lists holding fewer than k rows.
   4. main path at full width: engines for qwen3-4b and h2o-danube-1.8b at
      their published widths in bf16 (seeded random weights), a 100,000-row
-     support set embedded by the port's query encoder, `knn10` fitted on
-     it, and 16 texts served at per-request lambdas through
-     `RouterService.serve_texts`.  The kernels' launch counters are zeroed
-     just before and read just after; each kernel must have run.  The
-     routing of all 16 texts is checked against the plain tail on the CPU
-     fed with the kernel's neighbours, the neighbours against the plain
-     retrieval, and a reduced engine's greedy tokens against the same
-     engine on the CPU.
+     support set embedded by the port's query encoder, and two paths over
+     it, each with the kernels' launch counters zeroed just before and
+     read just after:
+     a. `knn10` (exact retrieval) serving 16 texts at per-request lambdas
+        through `RouterService.serve_texts`.  The routing is checked
+        against the plain tail on the CPU fed with the kernel's neighbours,
+        the neighbours against the plain retrieval, and a reduced engine's
+        greedy tokens against the same engine on the CPU.
+     b. `knn100-ivfpq` fitted through `RoutingPipeline`, saved, and a
+        service re-booted from the artifact serving the same 16 texts;
+        `knn100-ivf` routing the same embeddings.  Both IVF kernels must
+        have run; the artifact service must choose as the in-memory one
+        does; recall@100 against the exact kernel (at nprobe 8, 32 and C,
+        with what the probe leaves reachable) and the choice agreement with
+        exact `knn100` are printed.  Kernels 4 and 5 are checked, timed and
+        bounded again on the fitted index and the 16 embedded texts.
 The line before the last is the kernels' JSON summary, the last line the
-device record.
+device record.  Its cases are the main path's: for kernels 4 and 5 the
+fitted phase-4 index (the synthetic one with --kernels).
 """
 from __future__ import annotations
 
@@ -51,7 +64,17 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/flash_attention/kernel.py:90"),
     "decode_attention": ("src/repro_torch/kernels/decode_attention/kernel.cu",
                          "src/repro/kernels/decode_attention/kernel.py:63"),
+    "ivf_topk": ("src/repro_torch/kernels/knn_ivf/kernel.cu",
+                 "src/repro/kernels/knn_ivf/kernel.py:65"),
+    "ivfpq_adc": ("src/repro_torch/kernels/knn_ivf/pq_kernel.cu",
+                  "src/repro/kernels/knn_ivf/pq_kernel.py:114"),
 }
+#: the main path's retrieval shape: 16 texts against the 70,000-row train
+#: split of a 100,000-row support set, ~sqrt(N) = 265 lists, lists capped at
+#: 1.5 N / C = 397 rows (L = 400 after rounding to 8), nprobe 8, D = 768;
+#: knn100 keeps k = 100 and re-ranks an ADC shortlist of 8 k = 800
+IVF_MAIN = dict(N=70_000, C=265, L=400, D=768, Q=16, P=8, k=100, kk=800,
+                m=64)
 
 
 def emit(phase, **kw):
@@ -250,6 +273,176 @@ def phase_kernels(torch):
         emit("kernel", name="decode_attention", **r)
         if i == 0:
             main["decode_attention"] = r
+    main.update(phase_ivf_kernels(torch, timer, gen))
+    return main
+
+
+def synthetic_index(np, pq, C, L, D, counts, m=64, nbits=8, seed=0):
+    """An IVF (or IVF-PQ) index at a given shape without the k-means build:
+    ``counts[c]`` unit rows in list c (the rest padding, id -1, inv 0),
+    centroids and anchors the lists' means, random codes and codebooks."""
+    from repro_torch.kernels.knn_ivf.ops import assemble_ivf, assemble_ivfpq
+    rng = np.random.default_rng(seed)
+    n = int(np.sum(counts))
+    X = rng.standard_normal((n, D), dtype=np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    sup = np.zeros((C, L, D), np.float32)
+    ids = np.full((C, L), -1, np.int32)
+    inv = np.zeros((C, L), np.float32)
+    cent = np.zeros((C, D), np.float32)
+    perm = rng.permutation(n)
+    at = 0
+    for c, cnt in enumerate(counts):
+        rows = perm[at:at + cnt]
+        at += cnt
+        sup[c, :cnt], ids[c, :cnt] = X[rows], rows
+        inv[c, :cnt] = 1.0 / np.linalg.norm(X[rows], axis=1)
+        cent[c] = X[rows].mean(0)
+    anchors = cent.copy()
+    cent /= np.maximum(np.linalg.norm(cent, axis=1, keepdims=True), 1e-12)
+    if not pq:
+        return assemble_ivf(cent, sup, ids, inv, n, "cuda"), X
+    codes = rng.integers(0, 256, (C, m * nbits // 8, L), dtype=np.uint8)
+    cb = 0.05 * rng.standard_normal((m, 2 ** nbits, D // m), dtype=np.float32)
+    return assemble_ivfpq(cent, anchors, codes, ids, inv, cb, X, n, m, nbits,
+                          "cuda"), X
+
+
+def tied_error(torch, out, ref, rtol, atol):
+    """Max abs score error of a kernel's (scores, ids) against its plain
+    version; fails unless scores agree within (rtol, atol), empty slots
+    agree (-inf / -1), and every differing id ties within the tolerance
+    with a score the plain version holds in the same row."""
+    ks, ki, rs, ri = (t.cpu() for t in (*out, *ref))
+    fin = torch.isfinite(rs)
+    assert torch.equal(fin, torch.isfinite(ks)), "empty slots differ"
+    assert torch.equal(ki < 0, ~fin), "ids of empty slots must be -1"
+    err = float((ks - rs)[fin].abs().max()) if fin.any() else 0.0
+    assert torch.allclose(ks[fin], rs[fin], rtol=rtol, atol=atol), err
+    diff = (ki != ri) & fin
+    for r, c in diff.nonzero().tolist():
+        near = (rs[r] - ks[r, c]).abs() <= atol + rtol * abs(float(ks[r, c]))
+        assert bool((ri[r][near] == ki[r, c]).any()), ("untied id", r, c)
+    return err, int(diff.sum()), int((~fin).sum())
+
+
+def unit_queries(torch, Q, D, gen):
+    q = torch.randn(Q, D, device="cuda", generator=gen)
+    return q / q.norm(dim=1, keepdim=True)
+
+
+def ivf_case(torch, timer, index, Q, P, k, tol, gen, label, rows=None,
+             q=None):
+    from repro_torch.kernels.knn_ivf.ops import ivf_scan
+    from repro_torch.kernels.knn_ivf.ref import ivf_probe, ivf_scan_plain
+    from repro_torch.kernels.knn_topk.ref import knn_topk_reference
+    C, L, D = index.sup_cm.shape
+    if q is None:
+        q = unit_queries(torch, Q, D, gen)
+    probe = ivf_probe(q, index.centroids, P)
+    args = (q, probe, index.sup_cm, index.ids_cm, index.inv_cm, k)
+    out = ivf_scan(*args)
+    ref = ivf_scan_plain(*args)
+    torch.cuda.synchronize()
+    err, swaps, empty = tied_error(torch, out, ref, 0.0, tol)
+    if rows is not None:        # nprobe = C: the exact scan's scores
+        ex = knn_topk_reference(q, torch.from_numpy(rows).cuda(), k)
+        fin = torch.isfinite(ex[0])
+        err = max(err, float((out[0] - ex[0])[fin].abs().max()))
+        assert err <= tol, ("nprobe = C differs from the exact scan", err)
+    ms = timer(lambda: ivf_scan(*args))
+    plain = timer(lambda: ivf_scan_plain(*args))
+    lists = int(probe.unique().numel())
+    b_ms, b_by = bound(Q * D * 4 + Q * P * 4 + lists * L * (D * 4 + 8)
+                       + Q * k * 8, 2 * Q * P * L * D, torch.float32)
+    return dict(case=f"{label}: Q={Q} C={C} L={L} D={D} P={P} k={k} "
+                     f"probed_lists={lists}",
+                max_abs_err=err, tol=tol, tied_id_swaps=swaps,
+                empty_slots=empty, ms=ms, plain_ms=plain, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def adc_case(torch, timer, index, Q, P, k, gen, label, q=None):
+    from repro_torch.kernels.knn_ivf.ops import ivfpq_adc
+    from repro_torch.kernels.knn_ivf.ref import ivf_probe, ivfpq_adc_plain
+    C, MB, L = index.codes_cm.shape
+    D, m, nbits = index.anchors.shape[1], index.m, index.nbits
+    K = 2 ** nbits
+    if q is None:
+        q = unit_queries(torch, Q, D, gen)
+    probe = ivf_probe(q, index.centroids, P)
+    args = (q, probe, index.codes_cm, index.ids_cm, index.inv_cm,
+            index.anchors, index.codebooks, k)
+    out = ivfpq_adc(*args, m=m, nbits=nbits)
+    ref = ivfpq_adc_plain(*args, m, nbits)
+    torch.cuda.synchronize()
+    err, swaps, empty = tied_error(torch, out, ref, 1e-4, 1e-5)
+    ms = timer(lambda: ivfpq_adc(*args, m=m, nbits=nbits))
+    plain = timer(lambda: ivfpq_adc_plain(*args, m, nbits))
+    lists = int(probe.unique().numel())
+    b_ms, b_by = bound(Q * D * 4 + Q * P * 4 + m * K * (D // m) * 4
+                       + lists * (MB * L + L * 8 + D * 4) + Q * k * 8,
+                       2 * Q * K * D + Q * P * L * (m + 2) + 2 * Q * P * D,
+                       torch.float32)
+    return dict(case=f"{label}: Q={Q} C={C} L={L} D={D} P={P} kk={k} m={m} "
+                     f"nbits={nbits} probed_lists={lists}",
+                max_abs_err=err, tol="rtol 1e-4, atol 1e-5",
+                tied_id_swaps=swaps, empty_slots=empty, ms=ms,
+                plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_ivf_kernels(torch, timer, gen):
+    """Kernels 4 and 5 at the main path's shape, then the edge cases:
+    nbits 4, Q = 1 and 64, nprobe = C on a small index, and probed lists
+    holding fewer than k rows (the tail must be -inf / -1)."""
+    import numpy as np
+    g = IVF_MAIN
+    counts = np.full(g["C"], g["N"] // g["C"])
+    counts[:g["N"] % g["C"]] += 1
+    main = {}
+    ivf, _ = synthetic_index(np, False, g["C"], g["L"], g["D"], counts)
+    for i, (Q, label) in enumerate([(16, "main"), (1, "Q=1"), (64, "Q=64")]):
+        r = ivf_case(torch, timer, ivf, Q, g["P"], g["k"], 1e-5, gen, label)
+        emit("kernel", name="ivf_topk", **r)
+        if i == 0:
+            main["ivf_topk"] = r
+    del ivf
+    small_counts = np.full(24, 40)
+    small, rows = synthetic_index(np, False, 24, 48, 128, small_counts,
+                                  seed=1)
+    emit("kernel", name="ivf_topk", **ivf_case(
+        torch, timer, small, 16, 24, 100, 1e-5, gen, "nprobe=C", rows=rows))
+    # 3-6 valid rows in lists of 64: more candidates (128) than k but
+    # fewer valid ones, so the selection's k-th key is an empty slot's
+    short, _ = synthetic_index(np, False, 32, 64, 128,
+                               np.arange(32) % 4 + 3, seed=2)
+    r = ivf_case(torch, timer, short, 16, 2, 100, 1e-5, gen, "short lists")
+    assert r["empty_slots"] > 0
+    emit("kernel", name="ivf_topk", **r)
+
+    pq8, _ = synthetic_index(np, True, g["C"], g["L"], g["D"], counts,
+                             m=g["m"], nbits=8)
+    for i, (Q, label) in enumerate([(16, "main"), (1, "Q=1"), (64, "Q=64")]):
+        r = adc_case(torch, timer, pq8, Q, g["P"], g["kk"], gen, label)
+        emit("kernel", name="ivfpq_adc", **r)
+        if i == 0:
+            main["ivfpq_adc"] = r
+    del pq8
+    pq4, _ = synthetic_index(np, True, g["C"], g["L"], g["D"], counts,
+                             m=g["m"], nbits=4, seed=3)
+    emit("kernel", name="ivfpq_adc", **adc_case(
+        torch, timer, pq4, 16, g["P"], g["kk"], gen, "nbits=4"))
+    del pq4
+    small, _ = synthetic_index(np, True, 24, 48, 128, small_counts, m=16,
+                               seed=1)
+    emit("kernel", name="ivfpq_adc", **adc_case(
+        torch, timer, small, 16, 24, 100, gen, "nprobe=C"))
+    short, _ = synthetic_index(np, True, 32, 64, 128, np.arange(32) % 4 + 3,
+                               m=16, seed=2)
+    r = adc_case(torch, timer, short, 16, 2, 100, gen, "short lists")
+    assert r["empty_slots"] > 0
+    emit("kernel", name="ivfpq_adc", **r)
     return main
 
 
@@ -257,34 +450,48 @@ def phase_kernels(torch):
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
 
-def phase_main_path(torch):
-    import numpy as np
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.core.routers import make_router
-    from repro_torch.core.routers.knn import _serve_tail
+def kernel_wrappers():
+    """Every kernel's wrapper, by the name in the kernels line."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.knn_ivf.ops import ivf_scan, ivfpq_adc
     from repro_torch.kernels.knn_topk.ops import knn_topk
-    from repro_torch.launch.serve import TOPICS, build_support
-    from repro_torch.models import model as M
-    from repro_torch.serving.encoder import QueryEncoder
-    from repro_torch.serving.engine import Request, ServingEngine
-    from repro_torch.serving.router_service import RouterService
+    return {"knn_topk": knn_topk, "flash_attention": flash_attention,
+            "decode_attention": decode_attention, "ivf_topk": ivf_scan,
+            "ivfpq_adc": ivfpq_adc}
 
-    wrappers = {"knn_topk": knn_topk, "flash_attention": flash_attention,
-                "decode_attention": decode_attention}
-    pool = ["qwen3-4b", "h2o-danube-1.8b"]
-    stages = {}
-    torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
 
+def stage_timer(torch, stages):
     def stage(name, fn):
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         stages[name] = time.perf_counter() - t0
         return out
+    return stage
+
+
+def phase_main_path(torch):
+    """Slice 1's path: `knn10` (exact retrieval) serving 16 texts.  Returns
+    the launch counts of this path and the context the next path reuses
+    (engines, encoder, support set, texts, lambdas)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.routers import make_router
+    from repro_torch.core.routers.knn import _serve_tail
+    from repro_torch.launch.serve import TOPICS, build_support
+    from repro_torch.models import model as M
+    from repro_torch.serving.encoder import QueryEncoder
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.router_service import RouterService
+
+    wrappers = kernel_wrappers()
+    pool = ["qwen3-4b", "h2o-danube-1.8b"]
+    stages = {}
+    torch.cuda.reset_peak_memory_stats()
+    stage = stage_timer(torch, stages)
+    for w in wrappers.values():
+        w.launches = 0
 
     engines = stage("engines_init_s", lambda: {
         name: ServingEngine(get_config(name), max_slots=4, cache_len=512,
@@ -322,7 +529,8 @@ def phase_main_path(torch):
     for r in results:
         vocab = engines[r.model].cfg.vocab_size
         assert all(0 <= t < vocab for t in r.request.output_tokens)
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in ("knn_topk", "flash_attention", "decode_attention")
+               if launches[n] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
 
     # routing, in two checks on the same embeddings.  (a) The card's
@@ -342,7 +550,7 @@ def phase_main_path(torch):
     assert [svc.model_names[c] for c in out[0]] == [r.model for r in results]
     k_s, k_i = svc.router._neighbors(emb)
     plain = make_router("knn10", device="cpu").fit(ds)
-    _, S_cpu, C_cpu = plain._support_dev()
+    S_cpu, C_cpu = plain._support_dev()
     tail = [t.numpy() for t in _serve_tail(
         torch.from_numpy(k_s), torch.from_numpy(k_i), S_cpu, C_cpu,
         torch.from_numpy(lams), torch.ones(2, dtype=torch.bool),
@@ -382,7 +590,239 @@ def phase_main_path(torch):
          route_choices_equal=int((out[0] == tail[0]).sum()),
          rows_with_tied_neighbour_swaps=int((~same).sum()),
          reduced_greedy_tokens_equal=True)
-    return launches
+    ctx = dict(engines=engines, encoder=encoder, ds=ds, texts=texts,
+               lams=lams)
+    return launches, ctx
+
+
+def recall_at_k(np, router, emb, X, exact_s, tol=1e-5):
+    """Recall@k of ``router``'s neighbours against the exact k nearest
+    (scores ``exact_s`` (Q, k)), counted by score: the support holds
+    near-duplicate texts, so a returned row counts when its exact score is
+    at least the exact k-th score minus ``tol``."""
+    _, idx = router._neighbors(emb)
+    qn = emb / np.linalg.norm(emb, axis=1, keepdims=True)
+    true = np.einsum("qkd,qd->qk", X[np.maximum(idx, 0)], qn)
+    hits = (true >= exact_s[:, -1:] - tol) & (idx >= 0)
+    return float(hits.sum() / exact_s.size)
+
+
+def route_walls(torch, fn, reps=7):
+    """Host-clock seconds of ``reps`` calls of ``fn`` after a warm one,
+    each ending in a device sync: median, min and max."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    walls.sort()
+    return dict(median_s=walls[reps // 2], min_s=walls[0], max_s=walls[-1])
+
+
+def device_profile(torch, fn, top=8):
+    """One call of ``fn`` (after a warm one) under `torch.profiler`: the
+    device time of each kernel by name, their sum, the call's host wall
+    with the profiler on, and the device's idle share of that one window
+    (1 - kernel time / wall).  Only a fault of the profiler itself is
+    caught, and then the measurement reads "not measured"; a fault of
+    ``fn`` fails the run."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:      # the profiler could not start
+        return {"not_measured": f"{type(exc).__name__}: {exc}"}
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        prof.stop()
+    try:
+        rows = []
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                t = getattr(e, "device_time_total", None)
+                if t is None:
+                    t = e.cuda_time_total
+                rows.append((t, e.key, e.count))
+    except Exception as exc:      # the profiler recorded nothing readable
+        return {"not_measured": f"{type(exc).__name__}: {exc}"}
+    if not rows:
+        return {"not_measured": "the profiler saw no device kernel"}
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    return dict(wall_with_profiler_s=wall, device_kernel_s=busy,
+                device_idle_share=1.0 - busy / wall,
+                kernels=[dict(name=k[:70], ms=t / 1e3, count=c)
+                         for t, k, c in rows[:top]])
+
+
+def probe_witness(torch, np, router, qn, X, exact_s, tol=1e-5):
+    """What the coarse probe leaves reachable on the real index, from the
+    host: per query, the exact neighbours (rows of ``X`` scoring at least
+    the exact k-th score ``exact_s[:, -1]`` minus ``tol``, as `recall_at_k`
+    counts them) that lie in the query's
+    probed lists, capped at k.  An IVF scan that is exact over its probed
+    rows has exactly this many hits.  Also the number of distinct lists
+    that hold a query's exact top k, and the queries whose probe set
+    differs from a float64 host probe other than by centroids tied within
+    1e-6."""
+    idx, k = router._ivf, router.k
+    cent = idx.centroids_h.astype(np.float64)
+    owner = np.empty(idx.n_rows, np.int64)
+    valid = idx.ids_h >= 0
+    owner[idx.ids_h[valid]] = np.nonzero(valid)[0]
+    from repro_torch.kernels.knn_ivf.ref import ivf_probe
+    probe = ivf_probe(torch.from_numpy(qn).to(idx.device), idx.centroids,
+                      router.nprobe).cpu().numpy()
+    cs = qn.astype(np.float64) @ cent.T
+    host = np.argsort(-cs, axis=1, kind="stable")[:, :router.nprobe]
+    untied = 0
+    for r in range(len(qn)):
+        diff = set(probe[r]) ^ set(host[r])
+        edge = cs[r, host[r, -1]]
+        untied += any(abs(cs[r, c] - edge) > 1e-6 for c in diff)
+    sims = X @ qn.T                                             # (N, Q)
+    reach, spread = [], []
+    for r in range(len(qn)):
+        order = np.argsort(-sims[:, r], kind="stable")
+        good = np.flatnonzero(sims[:, r] >= exact_s[r, -1] - tol)
+        reach.append(min(k, int(np.isin(owner[good], probe[r]).sum())))
+        spread.append(len(set(owner[order[:k]])))
+    return dict(reachable_hits=int(sum(reach)), of=len(qn) * k,
+                lists_holding_exact_top_k=dict(
+                    min=int(min(spread)), median=float(np.median(spread)),
+                    max=int(max(spread))),
+                probe_rows_differing_untied=int(untied))
+
+
+def phase_ivf_path(torch, ctx):
+    """Slice 2's path on the same engines, encoder and 100k support:
+    `knn100-ivfpq` fitted through `RoutingPipeline`, saved, a service
+    re-booted from the artifact serving the 16 texts, and `knn100-ivf`
+    routing the same embeddings with `route_fused`.  Counters are zeroed
+    just before and read just after.  Then: recall@100 of both against the
+    exact kernel at nprobe 8, 32 and C (the IVF scan must read 1.0 at C,
+    and at 8 exactly what its probe leaves reachable), choice agreement
+    with the exact router, the artifact service's choices against the
+    in-memory one's, and both kernels against their plain versions on the
+    real index and the 16 embedded texts, timed and bounded there.
+    Returns the launch counts and those two kernel cases."""
+    import numpy as np
+    from repro_torch.core.routers import make_router
+    from repro_torch.serving.pipeline import RoutingPipeline
+    from repro_torch.serving.router_service import RouterService
+
+    engines, encoder, ds = ctx["engines"], ctx["encoder"], ctx["ds"]
+    texts, lams = ctx["texts"], ctx["lams"]
+    wrappers = kernel_wrappers()
+    stages = {}
+    stage = stage_timer(torch, stages)
+    pipe = stage("ivfpq_index_build_s", lambda: RoutingPipeline(
+        "knn100-ivfpq", device="cuda").fit(ds))
+    ivf_router = stage("ivf_index_build_s", lambda: make_router(
+        "knn100-ivf", device="cuda").fit(ds))
+    path = stage("ivfpq_save_s", lambda: pipe.save(
+        ROOT / "build" / "chip_smoke" / "knn100-ivfpq"))
+    svc = stage("ivfpq_load_s", lambda: RouterService.from_artifact(
+        path, engines, device="cuda", encoder=encoder))
+    ivf_svc = RouterService(ivf_router, engines, encoder=encoder)
+
+    for w in wrappers.values():
+        w.launches = 0
+    results = stage("ivfpq_serve_texts_s", lambda: svc.serve_texts(
+        texts, lam=lams, max_new_tokens=8))
+    emb = stage("embed_16_texts_s", lambda: encoder.embed_texts(texts))
+    ivf_out = stage("ivf_route_16_texts_s",
+                    lambda: ivf_svc.route_fused(emb, lams))
+    launches = {n: w.launches for n, w in wrappers.items()}
+    pq_out = svc.route_fused(emb, lams)
+
+    mix = {}
+    for r in results:
+        mix[r.model] = mix.get(r.model, 0) + 1
+    assert all(r.request.done and r.request.error is None for r in results)
+    rerouted = [r.uid for r in results if r.rerouted_from]
+    assert not rerouted, f"requests rerouted: {rerouted}"
+    assert all(len(r.request.output_tokens) == 8 for r in results)
+    missing = [n for n in ("ivf_topk", "ivfpq_adc", "flash_attention",
+                           "decode_attention") if launches[n] == 0]
+    assert not missing, f"kernels not launched on the IVF path: {missing}"
+    for out in (ivf_out, pq_out):
+        assert out[1].shape == (16, 2) and np.isfinite(out[1]).all()
+    served = [r.model for r in results]
+    assert [svc.model_names[c] for c in pq_out[0]] == served
+    mem = pipe.serve(engines, encoder=encoder).route_fused(emb, lams)
+    assert [svc.model_names[c] for c in mem[0]] == served, \
+        "the artifact-booted service chose differently from the in-memory one"
+
+    exact = make_router("knn100", device="cuda").fit(ds)
+    e_s, _ = exact._neighbors(emb)
+    exact_choice = RouterService(exact, engines, encoder=encoder
+                                 ).route_fused(emb, lams)[0]
+    agree = {"knn100-ivfpq": int((pq_out[0] == exact_choice).sum()),
+             "knn100-ivf": int((ivf_out[0] == exact_choice).sum())}
+    # recall at the default nprobe, at 4x it and at every list; what the
+    # probe leaves reachable at the default, from the host
+    qn = emb / np.linalg.norm(emb, axis=1, keepdims=True)
+    recall, witness = {}, {}
+    for name, r in (("knn100-ivfpq", svc.router), ("knn100-ivf", ivf_router)):
+        witness[name] = probe_witness(torch, np, r, qn, exact._X, e_s)
+        default = r.nprobe
+        for nprobe in (default, 32, r._ivf.n_clusters):
+            r.nprobe = nprobe
+            recall[f"{name}@nprobe={nprobe}"] = recall_at_k(
+                np, r, emb, exact._X, e_s)
+        r.nprobe = default
+    ivf_all = recall[f"knn100-ivf@nprobe={ivf_router._ivf.n_clusters}"]
+    assert ivf_all == 1.0, f"IVF recall at nprobe = C is {ivf_all}"
+    w = witness["knn100-ivf"]
+    ivf_hits = round(recall[f"knn100-ivf@nprobe={ivf_router.nprobe}"]
+                     * w["of"])
+    assert ivf_hits == w["reachable_hits"], \
+        f"IVF hits {ivf_hits} != reachable {w['reachable_hits']}"
+    assert all(v["probe_rows_differing_untied"] == 0
+               for v in witness.values()), witness
+    routes = {"knn100 (exact)": lambda: exact.serve_fused(emb, lams),
+              "knn100-ivf": lambda: ivf_router.serve_fused(emb, lams),
+              "knn100-ivfpq": lambda: svc.router.serve_fused(emb, lams)}
+    route_s = {n: route_walls(torch, fn) for n, fn in routes.items()}
+    profiles = {n: device_profile(torch, routes[n])
+                for n in ("knn100-ivf", "knn100-ivfpq")}
+
+    # both kernels against their plain versions on the real index and the
+    # 16 embedded texts, timed and bounded there
+    timer = Timer(torch)
+    q = torch.from_numpy(qn).cuda()
+    idx = svc.router._ivf
+    real = {"ivf_topk": ivf_case(
+        torch, timer, ivf_router._ivf, 16, ivf_router.nprobe, 100, 1e-5,
+        None, "phase-4 index", q=q),
+            "ivfpq_adc": adc_case(
+        torch, timer, idx, 16, svc.router.nprobe, 800, None,
+        "phase-4 index", q=q)}
+    for n, r in real.items():
+        emit("kernel", name=n, **r)
+    emit("ivf_path", routing_mix=mix, stage_wall_s=stages,
+         launches=launches, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         index={"ivf": dict(C=ivf_router._ivf.n_clusters,
+                            L=ivf_router._ivf.list_size),
+                "ivfpq": dict(C=idx.n_clusters, L=idx.list_size, m=idx.m,
+                              nbits=idx.nbits)},
+         recall_at_100_vs_exact=recall, recall_tol=1e-5,
+         probe_witness_at_default_nprobe=witness,
+         choices_equal_to_exact_of_16=agree,
+         serve_fused_16_texts_s=route_s, serve_fused_profile=profiles,
+         artifact_choices_equal_in_memory=True,
+         tokens=[r.request.output_tokens for r in results])
+    return launches, real
 
 
 def main(argv=None):
@@ -417,7 +857,12 @@ def main(argv=None):
     main_cases = phase_kernels(torch)
     launches = {n: None for n in main_cases}
     if not args.kernels:
-        launches = phase_main_path(torch)
+        # each kernel's launches are read on the path that introduced it
+        first, ctx = phase_main_path(torch)
+        second, real = phase_ivf_path(torch, ctx)
+        main_cases.update(real)
+        launches = {n: (second if n in ("ivf_topk", "ivfpq_adc") else
+                        first)[n] for n in main_cases}
     assert "jax" not in sys.modules and "repro" not in sys.modules
 
     kernels = []

@@ -1,29 +1,50 @@
-"""The paper's protagonist in the port: the k-Nearest-Neighbour router with
-exact retrieval (mirrors `repro.core.routers.knn` for ``index="exact"``).
+"""The paper's protagonist in the port: the k-Nearest-Neighbour router
+(mirrors `repro.core.routers.knn`).
 
 Utility prediction: s_hat(x, m) = mean over the k nearest support rows of
 s(x_i, m) (optionally similarity-softmax weighted); identically for costs.
-Retrieval is the exact cosine top-k kernel (`kernels.knn_topk`) over the
-device-resident support rows.  ``serve_fused`` runs retrieval, utility,
-confidence and the per-request-lambda, availability-masked selection on
-the device and copies the results to the host at the end; the staged calls
-(``predict_utility``, ``confidence``, ``predict_with_confidence``) share
-the same tail functions, so both give the same numbers.
 
-Retrieval slots no support row fills (id -1) are excluded from averages
-and votes.  The IVF / IVF-PQ indexes, streaming updates and artifacts of
-the reference are not ported yet.
+Retrieval (``index=``):
+
+  * ``"exact"`` — the exact cosine top-k kernel (`kernels.knn_topk`) over
+    the device-resident support rows;
+  * ``"ivf"`` — inverted-file approximate retrieval (`kernels.knn_ivf`): a
+    spherical k-means coarse quantizer fit at ``fit`` time; each query
+    probes its ``nprobe`` nearest lists and kernel 4 scores only those;
+  * ``"ivfpq"`` — product-quantized IVF: kernel 5 scores the probed lists'
+    packed ``m``-byte codes by ADC into a shortlist of ``rerank * k``
+    candidates, re-scored exactly against the raw rows.
+
+``serve_fused`` runs retrieval, utility, confidence and the per-request-
+lambda, availability-masked selection on the device and copies the
+results to the host at the end; the staged calls (``predict_utility``,
+``confidence``, ``predict_with_confidence``) share the same tail
+functions, so both give the same numbers.  Retrieval slots no support row
+fills (id -1) are excluded from averages and votes.
+
+The reference's execution-backend knobs (``use_pallas``, ``backend``) are
+accepted so that spec strings and artifact manifests load; here a CUDA
+router always runs the kernels and a CPU router their plain versions.
+Streaming updates (``online=True``), the dispatch policy, degradation and
+the selection formulation are not ported yet.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.knn_ivf.ops import (DEFAULT_DELTA_CAP,
+                                             DEFAULT_NPROBE, DEFAULT_RERANK,
+                                             StreamingIndexNotPortedError,
+                                             build_ivf_index, check_backend,
+                                             build_ivfpq_index, ivf_topk,
+                                             ivfpq_topk)
 from repro_torch.kernels.knn_topk.ops import knn_topk
 from ..dataset import RoutingDataset
 from .base import Router, normalize_rows
 from .spec import register
 
+_INDEXES = ("exact", "ivf", "ivfpq")
 
 # ---------------------------------------------------------------------------
 # neighbour -> decision tail, shared by the staged calls and serve_fused
@@ -86,20 +107,46 @@ def _serve_tail(sims, idx, S, C, lam, avail, *, weights: str,
     return choice, s_hat, c_hat, kth, agree
 
 
-@register("knn", k_param="k")
+@register("knn", k_param="k", supports_ivf=True)
 class KNNRouter(Router):
+    state_attrs = ("_X", "_S", "_C", "_ivf", "_train_best", "_sel_lam")
+
     def __init__(self, k: int = 100, weights: str = "uniform",
-                 temperature: float = 20.0, device: str = "cuda"):
+                 use_pallas: bool = False, temperature: float = 20.0,
+                 index: str = "exact", n_clusters: int | None = None,
+                 nprobe: int = DEFAULT_NPROBE, m: int | None = None,
+                 nbits: int = 8, rerank: int = DEFAULT_RERANK,
+                 online: bool = False, delta_cap: int = DEFAULT_DELTA_CAP,
+                 backend: str | None = None, device: str = "cuda"):
         if weights not in ("uniform", "softmax"):
             raise ValueError(f"weights must be 'uniform' or 'softmax', got "
                              f"{weights!r}")
+        if index not in _INDEXES:
+            raise ValueError(f"index must be one of {_INDEXES}, "
+                             f"got {index!r}")
+        check_backend(backend)
+        if online:
+            raise StreamingIndexNotPortedError("KNNRouter(online=True)")
         self.k = k
         self.weights = weights
+        self.use_pallas = use_pallas
         self.temperature = temperature
+        self.index = index
+        self.n_clusters = n_clusters
+        self.nprobe = nprobe
+        self.m = m
+        self.nbits = nbits
+        self.rerank = rerank
+        self.online = bool(online)
+        self.delta_cap = int(delta_cap)
+        self.backend = backend
         self.device = torch.device(device)
+        #: the reference's fitted `DispatchPolicy`, kept as its manifest dict
+        #: so an artifact round trip writes it back unchanged; not read here
+        self.dispatch_policy = None
         self._dev = {}           # device-resident support + mask cache
 
-    # ---- fit = store the support set ----
+    # ---- fit = store the support set (+ coarse quantizer / PQ codebooks) --
     def fit(self, ds: RoutingDataset, seed: int = 0) -> "KNNRouter":
         self._record_fit(ds, seed)
         self._dev = {}
@@ -107,6 +154,14 @@ class KNNRouter(Router):
         self._X = normalize_rows(X)
         self._S = S.astype(np.float32)
         self._C = C.astype(np.float32)
+        self._ivf = None
+        if self.index == "ivf":
+            self._ivf = build_ivf_index(self._X, self.n_clusters, seed=seed,
+                                        device=self.device)
+        elif self.index == "ivfpq":
+            self._ivf = build_ivfpq_index(self._X, self.n_clusters, m=self.m,
+                                          nbits=self.nbits, seed=seed,
+                                          device=self.device)
         return self
 
     @property
@@ -114,19 +169,29 @@ class KNNRouter(Router):
         return 0 if getattr(self, "_S", None) is None else len(self._S)
 
     def _support_dev(self):
-        """Device-resident (X, S, C), uploaded once per fit."""
-        sup = self._dev.get("support")
-        if sup is None:
-            sup = tuple(torch.from_numpy(a).to(self.device)
-                        for a in (self._X, self._S, self._C))
-            self._dev["support"] = sup
-        return sup
+        """Device-resident (S, C), uploaded once per fit."""
+        sc = self._dev.get("SC")
+        if sc is None:
+            sc = tuple(torch.from_numpy(a).to(self.device)
+                       for a in (self._S, self._C))
+            self._dev["SC"] = sc
+        return sc
 
     def _search(self, q):
-        """One retrieval over the device support: q (Q, D) unit rows on
-        the device -> (sims, idx) device tensors, (Q, min(k, N))."""
-        X = self._support_dev()[0]
-        return knn_topk(q, X, min(self.k, len(self._X)))
+        """One retrieval over the device index: q (Q, D) unit rows on the
+        device -> (sims, idx) device tensors, (Q, k) with k clamped as the
+        reference clamps it (to the support size, and for the approximate
+        indexes to the ``nprobe * L`` rows a query can reach)."""
+        k = min(self.k, len(self._X))
+        if self.index == "ivf":
+            return ivf_topk(q, self._ivf, k, nprobe=self.nprobe)
+        if self.index == "ivfpq":
+            return ivfpq_topk(q, self._ivf, k, nprobe=self.nprobe,
+                              rerank=self.rerank)
+        X = self._dev.get("X")
+        if X is None:
+            X = self._dev["X"] = torch.from_numpy(self._X).to(self.device)
+        return knn_topk(q, X, k)
 
     def _queries(self, X):
         # repro: allow-host: input embeddings arrive as host data
@@ -140,7 +205,7 @@ class KNNRouter(Router):
 
     # ---- utility ----
     def _utility_from(self, sims, idx):
-        _, S, C = self._support_dev()
+        S, C = self._support_dev()
         s_hat, c_hat = _utility(
             torch.as_tensor(sims, device=self.device),
             torch.as_tensor(idx, device=self.device), S, C,
@@ -152,7 +217,7 @@ class KNNRouter(Router):
 
     # ---- practitioner diagnostics (§8): per-query confidence ----
     def _confidence_from(self, sims, idx):
-        _, S, _ = self._support_dev()
+        S, _ = self._support_dev()
         kth, agree = _confidence(torch.as_tensor(sims, device=self.device),
                                  torch.as_tensor(idx, device=self.device), S)
         return kth.cpu().numpy(), agree.cpu().numpy()
@@ -200,10 +265,28 @@ class KNNRouter(Router):
         # repro: allow-host: lambdas arrive as host request metadata
         lam_t = torch.from_numpy(np.asarray(lam, np.float32).reshape(-1)).to(
             self.device)
-        _, S, C = self._support_dev()
+        S, C = self._support_dev()
         av = self._avail_dev(avail)
         sims, idx = self._search(q)
         out = _serve_tail(sims, idx, S, C, lam_t, av, weights=self.weights,
                           temperature=float(self.temperature))
         # repro: allow-host: the single end-of-batch materialization
         return tuple(o.cpu().numpy() for o in out)
+
+    # ---- artifact contract: don't store the support rows twice ----
+    def state_dict(self):
+        """The approximate indexes already hold every support row (IVF-PQ's
+        flat cold tier, IVF's cluster-major lists), so ``_X`` is left out
+        for them and rebuilt at load, as the reference does."""
+        state = super().state_dict()
+        if self.index != "exact":
+            state.pop("_X", None)
+        return state
+
+    def load_state_dict(self, state):
+        super().load_state_dict(state)
+        self._dev = {}
+        if (getattr(self, "_X", None) is None
+                and getattr(self, "_ivf", None) is not None):
+            self._X = self._ivf.rows()             # exact float copies
+        return self

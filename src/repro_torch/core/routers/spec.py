@@ -1,15 +1,21 @@
-"""Spec-addressable router construction (the ``<family><k?>[@key=val,...]``
-part of `repro.core.routers.spec`'s grammar; the ``-ivf``/``-ivfpq``
-suffixes wait for the port of the approximate indexes).
+"""Spec-addressable router construction (mirrors
+`repro.core.routers.spec`)::
+
+    <family><k?>[-ivf|-ivfpq][@key=val,...]
 
     knn10               kNN router, k=10, exact retrieval
+    knn100-ivf          same, inverted-file approximate retrieval
+    knn100-ivfpq        same, product-quantized IVF (ADC + exact re-rank)
+    knn100-ivfpq@m=16,nbits=8,rerank=4   ... with explicit PQ knobs
     knn100@lam=0.5      ... with a default routing lambda of 0.5
     knn10@weights=softmax,temperature=10.0
 
 ``lam`` is reserved: it sets the router's default cost/quality trade-off
 used when a request carries no lambda of its own.  Constructor overrides
 passed to ``make_router`` (``make_router("knn10", device="cpu")``) apply on
-top of the spec's kwargs.
+top of the spec's kwargs.  ``parse_spec`` / ``format_spec`` round-trip;
+legacy underscore names (``knn10_ivf``) are accepted as aliases of the
+dashed form.
 """
 from __future__ import annotations
 
@@ -20,14 +26,19 @@ from typing import Dict, Mapping, Optional
 
 RESERVED_KEYS = ("lam",)
 
-_SPEC_RE = re.compile(r"^(?P<family>[a-z][a-z0-9_]*?)(?P<k>\d+)?$")
+_SPEC_RE = re.compile(
+    r"^(?P<family>[a-z][a-z0-9_]*?)(?P<k>\d+)?(?P<ivf>-ivf(?P<pq>pq)?)?$")
 
 
 @dataclasses.dataclass(frozen=True)
 class RouterSpec:
+    """Parsed form of a spec string.  ``pq`` refines ``ivf``: the ``-ivfpq``
+    suffix parses to ``ivf=True, pq=True``."""
     family: str
     k: Optional[int] = None
+    ivf: bool = False
     kwargs: Mapping[str, object] = dataclasses.field(default_factory=dict)
+    pq: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,20 +46,23 @@ class RouterFamily:
     family: str
     cls: type
     k_param: Optional[str]
+    supports_ivf: bool
     ctor_params: frozenset
 
 
 FAMILIES: Dict[str, RouterFamily] = {}
 
 
-def register(family: str, *, k_param: Optional[str] = None):
+def register(family: str, *, k_param: Optional[str] = None,
+             supports_ivf: bool = False):
     """Class decorator: declare ``cls`` as the implementation of ``family``."""
     def deco(cls):
         params = inspect.signature(cls.__init__).parameters
         ctor = frozenset(p for p in params if p != "self")
         if family in FAMILIES:
             raise ValueError(f"router family {family!r} registered twice")
-        FAMILIES[family] = RouterFamily(family, cls, k_param, ctor)
+        FAMILIES[family] = RouterFamily(family, cls, k_param, supports_ivf,
+                                        ctor)
         cls.spec_family = family
         return cls
     return deco
@@ -67,14 +81,24 @@ def _parse_value(raw: str):
     return raw
 
 
+def _format_value(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    return str(v)
+
+
 def parse_spec(spec: str) -> RouterSpec:
     if not isinstance(spec, str) or not spec.strip():
         raise ValueError(f"empty router spec: {spec!r}")
     base, sep, kwstr = spec.strip().partition("@")
+    if base.endswith("_ivfpq"):                    # legacy alias knn10_ivfpq
+        base = base[:-6] + "-ivfpq"
+    elif base.endswith("_ivf"):                    # legacy alias knn10_ivf
+        base = base[:-4] + "-ivf"
     m = _SPEC_RE.fullmatch(base)
     if not m:
         raise ValueError(f"unparseable router spec {spec!r} "
-                         f"(grammar: <family><k?>[@key=val,...])")
+                         f"(grammar: <family><k?>[-ivf|-ivfpq][@key=val,...])")
     family = m.group("family")
     fam = FAMILIES.get(family)
     if fam is None:
@@ -84,8 +108,14 @@ def parse_spec(spec: str) -> RouterSpec:
     if k is not None and fam.k_param is None:
         raise ValueError(f"family {family!r} takes no <k> suffix "
                          f"(spec {spec!r})")
+    ivf = m.group("ivf") is not None
+    pq = m.group("pq") is not None
+    if ivf and not fam.supports_ivf:
+        raise ValueError(f"family {family!r} has no IVF backend (spec {spec!r})")
     kwargs = {}
     if sep:
+        if not kwstr:
+            raise ValueError(f"dangling '@' in router spec {spec!r}")
         for item in kwstr.split(","):
             key, eq, raw = item.partition("=")
             if not eq or not key or not raw:
@@ -97,13 +127,17 @@ def parse_spec(spec: str) -> RouterSpec:
                     f"(spec {spec!r}); constructor takes: "
                     f"{', '.join(sorted(fam.ctor_params))}")
             kwargs[key] = _parse_value(raw)
-    return RouterSpec(family, k=k, kwargs=kwargs)
+    return RouterSpec(family, k=k, ivf=ivf, kwargs=kwargs, pq=pq)
 
 
 def format_spec(spec: RouterSpec) -> str:
+    """Canonical spec string (round-trips through ``parse_spec``)."""
     s = spec.family + ("" if spec.k is None else str(spec.k))
+    if spec.ivf:
+        s += "-ivfpq" if spec.pq else "-ivf"
     if spec.kwargs:
-        s += "@" + ",".join(f"{k}={v}" for k, v in sorted(spec.kwargs.items()))
+        s += "@" + ",".join(f"{k}={_format_value(v)}"
+                            for k, v in sorted(spec.kwargs.items()))
     return s
 
 
@@ -115,6 +149,8 @@ def make_router(spec, **overrides):
     if fam is None:
         raise ValueError(f"unknown router family {spec.family!r}")
     kw = {} if spec.k is None else {fam.k_param: spec.k}
+    if spec.ivf:
+        kw["index"] = "ivfpq" if spec.pq else "ivf"
     kw.update(spec.kwargs)
     kw.update(overrides)
     lam = kw.pop("lam", None)
@@ -130,6 +166,24 @@ def make_router(spec, **overrides):
 
 
 def spec_of(router) -> str:
+    """Canonical spec string of a router instance (family + k + index;
+    non-default constructor kwargs live in the artifact manifest config)."""
     fam = FAMILIES[router.spec_family]
     k = getattr(router, fam.k_param) if fam.k_param else None
-    return format_spec(RouterSpec(fam.family, k=k))
+    index = getattr(router, "index", None)
+    return format_spec(RouterSpec(fam.family, k=k,
+                                  ivf=index in ("ivf", "ivfpq"),
+                                  pq=index == "ivfpq"))
+
+
+def router_config(router) -> Dict[str, object]:
+    """Constructor kwargs reconstructing this instance (JSON-serializable).
+    The ``device`` is a handle of this process, not configuration: it is
+    left out, as the reference leaves out its ``mesh``, so a manifest
+    written here loads in the reference."""
+    cfg = {}
+    for p in sorted(FAMILIES[router.spec_family].ctor_params):
+        if p == "device" or not hasattr(router, p):
+            continue
+        cfg[p] = getattr(router, p)
+    return cfg

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel directory holds one ``kernel.cu`` with a plain C interface.  On
-first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-under ``build/torch_kernels/`` at the root of the checkout, named by a hash
-of its source, and loaded with `ctypes`.  Nothing here runs at import time:
+Each kernel is one ``.cu`` source with a plain C interface (`KERNELS` maps
+its name to the source).  On first use it is compiled with ``nvcc`` for
+``sm_90a`` into a shared library under ``build/torch_kernels/`` at the root
+of the checkout, named by a hash of its source and of the ``.cuh`` headers
+beside it, and loaded with `ctypes`.  Nothing here runs at import time:
 the CPU tests import every module on machines without ``nvcc`` or a GPU.
 
     python -c "from repro_torch.kernels import _build; print(_build.build_all())"
@@ -20,7 +21,12 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-KERNELS = ("knn_topk", "flash_attention", "decode_attention")
+#: kernel name -> its source, relative to this directory
+KERNELS = {"knn_topk": "knn_topk/kernel.cu",
+           "flash_attention": "flash_attention/kernel.cu",
+           "decode_attention": "decode_attention/kernel.cu",
+           "ivf_topk": "knn_ivf/kernel.cu",
+           "ivfpq_adc": "knn_ivf/pq_kernel.cu"}
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE.parents[2] / "build" / "torch_kernels"
@@ -43,12 +49,19 @@ def _nvcc() -> str:
 
 
 def source(name: str) -> Path:
-    return _HERE / name / "kernel.cu"
+    return _HERE / KERNELS[name]
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Build output of ``name``: its hash covers the source, every header
+    in the source's directory (an edited header rebuilds its includers)
+    and the flags."""
+    src = source(name)
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

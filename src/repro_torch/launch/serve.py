@@ -4,11 +4,14 @@ support set in the query encoder's embedding space, then serve a stream of
 text requests at per-request cost/quality lambdas.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --pool qwen3-4b h2o-danube-1.8b --requests 8 --router knn10
+      --pool qwen3-4b h2o-danube-1.8b --requests 8 --router knn100-ivfpq \\
+      --save-artifact /tmp/r
 
 Engines are reduced configs, as in the reference CLI (`chip_smoke.py`
 serves the published widths).  ``--device cpu`` runs everything with the
-kernels' plain versions.
+kernels' plain versions.  With ``--save-artifact`` the fitted router is
+persisted (npz + manifest, the reference's format) and the service is
+re-booted from the artifact before serving.
 """
 from __future__ import annotations
 
@@ -18,9 +21,9 @@ import numpy as np
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.dataset import RoutingDataset
-from repro_torch.core.routers import make_router
 from repro_torch.serving import encoder as enc
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.pipeline import RoutingPipeline
 from repro_torch.serving.router_service import RouterService
 
 TOPICS = ["python programming", "world history", "algebra proofs",
@@ -53,7 +56,11 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=6)
     ap.add_argument("--lam", type=float, default=1.0)
     ap.add_argument("--router", default="knn10",
-                    help="router spec string, e.g. knn10, knn100@lam=0.5")
+                    help="router spec string, e.g. knn10, "
+                         "knn100-ivfpq@lam=0.5")
+    ap.add_argument("--save-artifact", default=None,
+                    help="persist the fitted router here and re-boot the "
+                         "service from the artifact before serving")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -66,9 +73,16 @@ def main(argv=None):
 
     encoder = enc.default_encoder(args.device)
     ds = build_support(args.pool, encoder=encoder)
-    svc = RouterService(make_router(args.router, device=args.device),
-                        engines, ds=ds, fallback_model=args.pool[0],
-                        encoder=encoder)
+    pipe = RoutingPipeline(args.router, device=args.device).fit(ds)
+    if args.save_artifact:
+        path = pipe.save(args.save_artifact)
+        print(f"[artifact] saved {pipe.spec} -> {path}")
+        svc = RouterService.from_artifact(path, engines, device=args.device,
+                                          fallback_model=args.pool[0],
+                                          encoder=encoder)
+    else:
+        svc = pipe.serve(engines, fallback_model=args.pool[0],
+                         encoder=encoder)
 
     reqs = [f"{TOPICS[i % len(TOPICS)]} request number {i}"
             for i in range(args.requests)]

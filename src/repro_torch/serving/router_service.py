@@ -8,9 +8,10 @@ The cost/quality trade-off ``lambda`` is per request (scalar or (n,)
 vector), falling back to the service default and then the router's
 spec-level ``default_lam``.  Per-engine circuit breakers feed an
 availability mask into the selection, and `execute` reroutes a failed
-wave's requests along each request's own utility order.  Observe /
-durability / artifacts and the scheduler of the reference are not ported
-yet.
+wave's requests along each request's own utility order.  A service boots
+from a fitted router or from an artifact of either package
+(`RouterService.from_artifact`).  Observe / durability and the scheduler
+of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.dataset import RoutingDataset
-from repro_torch.core.routers import Router, RouterSpec, make_router
+from repro_torch.core.routers import (Router, RouterSpec, load_router,
+                                      make_router)
 from repro_torch.core.routers.knn import _select
 from . import encoder as enc
 from .engine import IncompleteDrainError, Request, ServingEngine
@@ -49,13 +51,17 @@ class RoutedResult:
 
 
 def knn_service(ds: RoutingDataset, engines: Dict[str, ServingEngine],
-                k: int = 100, lam: float = 0.0, seed: int = 0,
-                fallback_model: Optional[str] = None,
+                k: int = 100, index: str = "exact", lam: float = 0.0,
+                seed: int = 0, fallback_model: Optional[str] = None,
                 confidence_floor: float = 0.02, encoder=None,
                 **router_kw) -> "RouterService":
-    """Fit an exact kNN router on ``ds`` and wrap it in a RouterService over
-    ``engines``.  ``router_kw`` are KNNRouter constructor kwargs."""
-    return RouterService(make_router(RouterSpec("knn", k=k), **router_kw),
+    """Fit a kNN router on ``ds`` (building the IVF coarse quantizer, and
+    the PQ codebooks when ``index='ivfpq'``) and wrap it in a RouterService
+    over ``engines``.  ``router_kw`` are KNNRouter constructor kwargs
+    (weights, nprobe, m, nbits, rerank, device, ...)."""
+    spec = RouterSpec("knn", k=k, ivf=index in ("ivf", "ivfpq"),
+                      pq=index == "ivfpq")
+    return RouterService(make_router(spec, **router_kw),
                          engines, ds=ds, lam=lam, seed=seed,
                          fallback_model=fallback_model,
                          confidence_floor=confidence_floor, encoder=encoder)
@@ -98,6 +104,18 @@ class RouterService:
         self.engine_timeout_s = engine_timeout_s
         self.max_route_attempts = int(max_route_attempts)
         self.retry_backoff_s = float(retry_backoff_s)
+
+    @classmethod
+    def from_artifact(cls, path, engines: Dict[str, ServingEngine], *,
+                      device: str = "cuda", **kw) -> "RouterService":
+        """Boot a service from a `save_router` artifact (written by either
+        package) with its router on ``device`` — no training data."""
+        return cls(load_router(path, device=device), engines, **kw)
+
+    @property
+    def retrieval_backend(self) -> str:
+        """'exact' / 'ivf' / 'ivfpq': the router's retrieval index."""
+        return getattr(self.router, "index", "n/a")
 
     @staticmethod
     def _validate_engines(router: Router, engines: Dict) -> List[str]:

@@ -7,8 +7,9 @@ no CUDA device.  Run on the card with
 
 This file imports torch and numpy only, so it runs where JAX is not
 installed; the JAX parity of the plain versions is held in
-`test_torch_kernels.py` on the CPU.  Tolerances: 1e-5 for kNN scores,
-2e-5 for f32 attention, 5e-2 for bf16 (`tests/test_kernels.py`'s)."""
+`test_torch_kernels.py` and `test_torch_ivf.py` on the CPU.  Tolerances:
+1e-5 for kNN and IVF scores, rtol 1e-4 / atol 1e-5 for ADC scores, 2e-5
+for f32 attention, 5e-2 for bf16 (the reference tests')."""
 import numpy as np
 import pytest
 
@@ -18,6 +19,9 @@ from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E
 from repro_torch.kernels.decode_attention.ref import decode_attention_reference  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_reference  # noqa: E402
+from repro_torch.kernels.knn_ivf import ops as ivf_ops  # noqa: E402
+from repro_torch.kernels.knn_ivf.ref import (ivf_probe, ivf_scan_plain,  # noqa: E402
+                                             ivfpq_adc_plain)
 from repro_torch.kernels.knn_topk.ops import knn_topk  # noqa: E402
 from repro_torch.kernels.knn_topk.ref import knn_topk_reference  # noqa: E402
 
@@ -94,3 +98,105 @@ def test_gpu_decode_kernel_matches_plain(dtype, hd, ring, tol):
     out = decode_attention(q, ck, cv, pos, ring=ring)
     ref = decode_attention_reference(q, ck, cv, pos, ring=ring)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _ivf_index(pq, nbits=8, N=6000, D=128, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(16, D)) * 3
+    s = _unit(centers[rng.integers(0, 16, N)] + rng.normal(size=(N, D)))
+    q = _unit(centers[rng.integers(0, 16, 33)] + rng.normal(size=(33, D)))
+    build = ivf_ops.build_ivfpq_index if pq else ivf_ops.build_ivf_index
+    kw = {"m": 16, "nbits": nbits} if pq else {}
+    return torch.from_numpy(q).cuda(), build(s, 32, seed=seed,
+                                             device="cuda", **kw)
+
+
+def _check_tied(ks, ki, rs, ri, rtol, atol):
+    torch.testing.assert_close(ks, rs, rtol=rtol, atol=atol)
+    assert torch.equal(ki < 0, ri < 0)
+    ks, ki, rs, ri = (t.cpu().numpy() for t in (ks, ki, rs, ri))
+    for r, c in zip(*np.nonzero(ki != ri)):
+        near = np.abs(rs[r] - ks[r, c]) <= atol + rtol * abs(ks[r, c])
+        assert ki[r, c] in ri[r][near]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nprobe,k", [(4, 10), (8, 100), (32, 1024)])
+def test_gpu_ivf_scan_kernel_matches_plain(nprobe, k):
+    _need_cuda()
+    q, index = _ivf_index(pq=False)
+    probe = ivf_probe(q, index.centroids, nprobe)
+    args = (q, probe, index.sup_cm, index.ids_cm, index.inv_cm, k)
+    n0 = ivf_ops.ivf_scan.launches
+    ks, ki = ivf_ops.ivf_scan(*args)
+    assert ivf_ops.ivf_scan.launches == n0 + 1
+    _check_tied(ks, ki, *ivf_scan_plain(*args), 1e-5, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbits,nprobe,k", [(8, 8, 800), (4, 8, 100),
+                                            (8, 32, 1024)])
+def test_gpu_ivfpq_adc_kernel_matches_plain(nbits, nprobe, k):
+    _need_cuda()
+    q, index = _ivf_index(pq=True, nbits=nbits)
+    probe = ivf_probe(q, index.centroids, nprobe)
+    args = (q, probe, index.codes_cm, index.ids_cm, index.inv_cm,
+            index.anchors, index.codebooks, k)
+    n0 = ivf_ops.ivfpq_adc.launches
+    ks, ki = ivf_ops.ivfpq_adc(*args, m=index.m, nbits=nbits)
+    assert ivf_ops.ivfpq_adc.launches == n0 + 1
+    _check_tied(ks, ki, *ivfpq_adc_plain(*args, index.m, nbits), 1e-4, 1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_cuda_tensors_never_take_the_plain_version(monkeypatch):
+    _need_cuda()
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ivf_ops, "ivf_scan_plain", refuse)
+    monkeypatch.setattr(ivf_ops, "ivfpq_adc_plain", refuse)
+    for pq in (False, True):
+        q, index = _ivf_index(pq=pq, N=2000)
+        search = ivf_ops.ivfpq_topk if pq else ivf_ops.ivf_topk
+        sc, ix = search(q, index, 10)
+        assert sc.is_cuda and ix.is_cuda and (ix >= 0).all()
+    # m=256 subspaces at nbits 8: a 256 KB table does not fit; refused
+    z = dict(device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        ivf_ops.ivfpq_adc(torch.zeros((1, 256), **z),
+                          torch.zeros((1, 1), dtype=torch.int32, **z),
+                          torch.zeros((1, 256, 8), dtype=torch.uint8, **z),
+                          torch.zeros((1, 8), dtype=torch.int32, **z),
+                          torch.zeros((1, 8), **z), torch.zeros((1, 256), **z),
+                          torch.zeros((256, 256, 1), **z), 5, m=256, nbits=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pq", [False, True])
+def test_gpu_short_lists_fill_empty_slots(pq):
+    """40 rows in lists padded to 128: more candidates than k, fewer valid
+    ones, so the tail is -inf / -1 and the kernel still equals its plain
+    version."""
+    _need_cuda()
+    rng = np.random.default_rng(5)
+    s = _unit(rng.normal(size=(40, 64)))
+    q = torch.from_numpy(_unit(rng.normal(size=(6, 64)))).cuda()
+    if pq:
+        index = ivf_ops.build_ivfpq_index(s, 8, m=8, lane_pad=128,
+                                          device="cuda")
+        probe = ivf_probe(q, index.centroids, 8)
+        args = (q, probe, index.codes_cm, index.ids_cm, index.inv_cm,
+                index.anchors, index.codebooks, 100)
+        out = ivf_ops.ivfpq_adc(*args, m=8, nbits=8)
+        ref = ivfpq_adc_plain(*args, 8, 8)
+    else:
+        index = ivf_ops.build_ivf_index(s, 8, lane_pad=128, device="cuda")
+        probe = ivf_probe(q, index.centroids, 8)
+        args = (q, probe, index.sup_cm, index.ids_cm, index.inv_cm, 100)
+        out, ref = ivf_ops.ivf_scan(*args), ivf_scan_plain(*args)
+    assert index.list_size == 128 and probe.shape[1] * 128 > 100
+    _check_tied(*out, *ref, 1e-4, 1e-5)
+    assert (out[1][:, 40:] == -1).all() and torch.isinf(out[0][:, 40:]).all()
+    assert (out[1][:, :40] >= 0).all()

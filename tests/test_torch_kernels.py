@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_reference  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.knn_ivf.ops import ivf_scan, ivfpq_adc  # noqa: E402
 from repro_torch.kernels.knn_topk.ops import knn_topk  # noqa: E402
 
 
@@ -207,9 +208,26 @@ def test_decode_slot_with_no_valid_key_outputs_zero():
 # wrappers: CPU tensors take the plain version, never a CUDA launch
 # ---------------------------------------------------------------------------
 
+def _ivf_args(device="cpu", C=3, L=8, D=16, m=4, nbits=8):
+    """(queries, q_probe, sup_cm, ids_cm, inv_cm, codes_cm, anchors,
+    codebooks) of a tiny index."""
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return (t(_unit(rng.normal(size=(2, D)))),
+            t(np.array([[0, 2], [1, 0]], np.int32)),
+            t(rng.normal(size=(C, L, D)).astype(np.float32)),
+            t(np.arange(C * L, dtype=np.int32).reshape(C, L)),
+            t(np.ones((C, L), np.float32)),
+            t(rng.integers(0, 2 ** nbits, (C, m * nbits // 8, L)
+                           ).astype(np.uint8)),
+            t(rng.normal(size=(C, D)).astype(np.float32)),
+            t(rng.normal(size=(m, 2 ** nbits, D // m)).astype(np.float32)))
+
+
 def test_wrappers_on_cpu_run_plain_versions_and_count_no_launch():
     before = (knn_topk.launches, flash_attention.launches,
-              decode_attention.launches)
+              decode_attention.launches, ivf_scan.launches,
+              ivfpq_adc.launches)
     q, s = _knn_data(4, 40, 8, 2)
     knn_topk(torch.from_numpy(q), torch.from_numpy(s), 5)
     a, b, c = _attn_data(1, 32, 2, 2, 16, 0)
@@ -217,8 +235,12 @@ def test_wrappers_on_cpu_run_plain_versions_and_count_no_launch():
     dq, dk, dv = _decode_data(1, 16, 2, 1, 16, 0)
     decode_attention(torch.from_numpy(dq), torch.from_numpy(dk),
                      torch.from_numpy(dv), torch.tensor([3], dtype=torch.int32))
+    q, probe, sup, ids, inv, codes, anchors, cb = _ivf_args()
+    ivf_scan(q, probe, sup, ids, inv, 5)
+    ivfpq_adc(q, probe, codes, ids, inv, anchors, cb, 5, m=4, nbits=8)
     assert (knn_topk.launches, flash_attention.launches,
-            decode_attention.launches) == before
+            decode_attention.launches, ivf_scan.launches,
+            ivfpq_adc.launches) == before
 
 
 def test_wrappers_never_fall_back_on_a_non_cpu_tensor():
@@ -234,3 +256,8 @@ def test_wrappers_never_fall_back_on_a_non_cpu_tensor():
     with pytest.raises(ValueError, match="unsupported device"):
         decode_attention(torch.zeros((1, 2, 64), device="meta"), a, a,
                          torch.zeros((1,), dtype=torch.int32, device="meta"))
+    q, probe, sup, ids, inv, codes, anchors, cb = _ivf_args("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ivf_scan(q, probe, sup, ids, inv, 5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ivfpq_adc(q, probe, codes, ids, inv, anchors, cb, 5, m=4, nbits=8)

@@ -14,8 +14,9 @@ from repro.core.dataset import RoutingDataset as JaxDataset  # noqa: E402
 from repro.core.routers import knn as jknn  # noqa: E402
 from repro.core.routers import make_router as jax_make_router  # noqa: E402
 from repro_torch.core.dataset import RoutingDataset  # noqa: E402
-from repro_torch.core.routers import (KNNRouter, make_router,  # noqa: E402
-                                      parse_spec, spec_of)
+from repro_torch.core.routers import (KNNRouter, format_spec,  # noqa: E402
+                                      make_router, parse_spec, router_config,
+                                      spec_of)
 from repro_torch.core.routers import knn as tknn  # noqa: E402
 
 TOL = 1e-5
@@ -140,11 +141,37 @@ def test_spec_grammar_and_router_construction():
     assert isinstance(r, KNNRouter) and r.k == 10 and r.default_lam == 0.5
     assert r.weights == "softmax" and spec_of(r) == "knn10"
     assert parse_spec("knn100").k == 100
-    for bad in ("knn10-ivf", "mlp", "knn10@nope=1", "knn10@"):
+    for bad in ("knn10-ivfp", "mlp", "knn10@nope=1", "knn10@", "knn-pq"):
         with pytest.raises(ValueError):
             make_router(bad)
-    with pytest.raises(TypeError):
-        KNNRouter(index="ivf")          # the IVF indexes are not ported
+    with pytest.raises(ValueError, match="index"):
+        KNNRouter(index="hnsw")
+    with pytest.raises(ValueError, match="backend"):
+        KNNRouter(index="ivf", backend="gpu")
+
+
+@pytest.mark.parametrize("spec,index", [
+    ("knn100-ivf", "ivf"), ("knn100-ivfpq", "ivfpq"),
+    ("knn100-ivfpq@m=16,nbits=4,rerank=4", "ivfpq"),
+    ("knn10-ivf@lam=0.5,nprobe=4", "ivf"), ("knn10_ivf", "ivf"),
+    ("knn10_ivfpq@backend=pallas,use_pallas=true", "ivfpq")])
+def test_ivf_spec_grammar_round_trips_like_reference(spec, index):
+    from repro.core.routers.spec import format_spec as jax_format
+    from repro.core.routers.spec import parse_spec as jax_parse
+    from repro.core.routers.spec import router_config as jax_config
+    from repro.core.routers.spec import spec_of as jax_spec_of
+    ps, js = parse_spec(spec), jax_parse(spec)
+    assert (ps.family, ps.k, ps.ivf, ps.pq, dict(ps.kwargs)) == (
+        js.family, js.k, js.ivf, js.pq, dict(js.kwargs))
+    assert format_spec(ps) == jax_format(js)
+    assert parse_spec(format_spec(ps)) == ps
+    r, jr = make_router(spec, device="cpu"), jax_make_router(spec)
+    assert r.index == index == jr.index
+    assert spec_of(r) == jax_spec_of(jr)
+    assert router_config(r) == jax_config(jr)
+    # the config rebuilds the same router in both packages
+    assert router_config(KNNRouter(**router_config(jr), device="cpu")) \
+        == router_config(r)
 
 
 def test_availability_mask_validation():
@@ -156,3 +183,36 @@ def test_availability_mask_validation():
     with pytest.raises(ValueError, match="shape"):
         tr.serve_fused(Q, np.zeros(len(Q), np.float32),
                        avail=np.ones(2, bool))
+
+
+@pytest.mark.parametrize("spec", ["knn20-ivf", "knn20-ivf@nprobe=2",
+                                  "knn20-ivfpq@m=8",
+                                  "knn20-ivfpq@m=8,nbits=4,rerank=0"])
+def test_ivf_router_serve_fused_matches_reference(spec):
+    jds, tds, Q = _datasets(N=900)
+    jr = jax_make_router(spec).fit(jds)
+    tr = make_router(spec, device="cpu").fit(tds)
+    np.testing.assert_array_equal(tr._X, jr._X)
+    lam = np.linspace(0, 50, len(Q)).astype(np.float32)
+    jo = jr.serve_fused(Q, lam)
+    to = tr.serve_fused(Q, lam)
+    np.testing.assert_array_equal(to[0], jo[0])
+    for t, j in zip(to[1:], jo[1:]):
+        np.testing.assert_allclose(t, np.asarray(j), atol=TOL)
+    s_hat, _, kth, _ = tr.predict_with_confidence(Q)
+    np.testing.assert_allclose(s_hat, to[1], atol=TOL)
+    np.testing.assert_allclose(kth, to[3], atol=TOL)
+
+
+def test_ivf_router_k_above_candidates_clamps_like_reference():
+    """k above the rows a query's probed lists hold clamps to
+    ``nprobe * L`` exactly as the reference's router does."""
+    jds, tds, Q = _datasets(N=200)
+    jr = jax_make_router("knn100-ivfpq@nprobe=1,m=8").fit(jds)
+    tr = make_router("knn100-ivfpq@nprobe=1,m=8", device="cpu").fit(tds)
+    L = tr._ivf.list_size
+    assert L < 100
+    assert tr._neighbors(Q)[1].shape == jr._neighbors(Q)[1].shape == (
+        len(Q), L)
+    np.testing.assert_allclose(tr.predict_utility(Q)[0],
+                               jr.predict_utility(Q)[0], atol=TOL)

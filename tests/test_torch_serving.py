@@ -36,6 +36,9 @@ def test_port_imports_without_jax():
             "import repro_torch.kernels.knn_topk.ops\n"
             "import repro_torch.kernels.flash_attention.ops\n"
             "import repro_torch.kernels.decode_attention.ops\n"
+            "import repro_torch.kernels.knn_ivf.ops, repro_torch.persist\n"
+            "import repro_torch.core.routers.artifacts\n"
+            "import repro_torch.serving.pipeline\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\n"
@@ -61,7 +64,8 @@ def _synchronous(fn):
     return lambda *args: jax.block_until_ready(fn(*args))
 
 
-def test_serve_texts_matches_reference_text_to_tokens():
+@pytest.mark.parametrize("spec", ["knn10", "knn100-ivfpq"])
+def test_serve_texts_matches_reference_text_to_tokens(spec):
     from repro.core.routers import make_router as jax_make_router
     from repro.launch.serve import build_support as jax_build_support
     from repro.serving.engine import ServingEngine as JaxEngine
@@ -91,11 +95,12 @@ def test_serve_texts_matches_reference_text_to_tokens():
         ["python programming", "world history", "algebra proofs",
          "poetry writing", "biology facts", "python programming"])]
     lam = np.array([0.0, 1.0, 0.0, 50.0, 0.5, 200.0], np.float32)
-    jsvc = JaxService(jax_make_router("knn10"), j_engines, ds=jds)
+    jsvc = JaxService(jax_make_router(spec), j_engines, ds=jds)
     tsvc = RouterService(
-        make_router("knn10", device="cpu"), t_engines, ds=tds,
+        make_router(spec, device="cpu"), t_engines, ds=tds,
         encoder=QueryEncoder(params_from_jax(_jax_encoder_params(),
                                              ENCODER_CFG), device="cpu"))
+    assert tsvc.retrieval_backend == jsvc.retrieval_backend
     jres = jsvc.serve_texts(texts, lam=lam, max_new_tokens=5)
     tres = tsvc.serve_texts(texts, lam=lam, max_new_tokens=5)
     assert [r.model for r in tres] == [r.model for r in jres]
@@ -191,3 +196,16 @@ def test_serve_cli_runs_on_cpu(capsys):
                           "--max-new", "2"])
     assert len(results) == 3 and all(r.request.done for r in results)
     assert "[routing mix]" in capsys.readouterr().out
+
+
+def test_serve_cli_saves_and_boots_from_artifact(tmp_path, capsys):
+    from repro.core.routers import load_router as jax_load
+    from repro_torch.launch import serve
+    art = tmp_path / "router"
+    results = serve.main(["--device", "cpu", "--router", "knn100-ivfpq",
+                          "--save-artifact", str(art), "--requests", "3",
+                          "--max-new", "2"])
+    assert len(results) == 3 and all(r.request.done for r in results)
+    out = capsys.readouterr().out
+    assert "[artifact] saved knn100-ivfpq" in out and "[routing mix]" in out
+    assert jax_load(art).index == "ivfpq"       # the reference reads it
