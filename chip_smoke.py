@@ -37,9 +37,26 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
         with what the probe leaves reachable) and the choice agreement with
         exact `knn100` are printed.  Kernels 4 and 5 are checked, timed and
         bounded again on the fitted index and the 16 embedded texts.
+     Kernel 6 (the Mamba-2 SSD intra-chunk pass) and its gradient run at
+     the training path's shape (batch 4 x 2,048: 8 chunks of 256, 32 heads
+     of 64, state 128) and at two groups, Q = 12 and S = 384 padded; exact
+     top-k at k = 200 and 1,024 (the keyed path) at the main path's shape.
+  5. mamba2-370m (slice 3), at its published widths with seeded weights:
+     a. `repro_torch.launch.train.main` trains 10 steps in bf16 (batch 4 x
+        2,048, zipf stream) with the counters zeroed just before and read
+        just after: the loss must stay finite and fall, and both SSD
+        kernels must have run (>= 480 forward, 480 backward launches);
+        then one step under `torch.profiler`.
+     b. in f32, `forward` over 384 tokens against 384 `decode_step`s of
+        the recurrence (rtol / atol 2e-3).
+     c. a bf16 Mamba engine joins phase 4's engines as the reference's
+        three-model pool behind `knn10` for the 16 texts; then 16 prompts
+        admitted into its 4 slots while others are mid-stream must decode
+        the tokens each decodes served alone.
 The line before the last is the kernels' JSON summary, the last line the
 device record.  Its cases are the main path's: for kernels 4 and 5 the
-fitted phase-4 index (the synthetic one with --kernels).
+fitted phase-4 index (the synthetic one with --kernels); kernel 6's
+launches are read on phase 5a's training path.
 """
 from __future__ import annotations
 
@@ -68,6 +85,12 @@ KERNEL_SOURCES = {
                  "src/repro/kernels/knn_ivf/kernel.py:65"),
     "ivfpq_adc": ("src/repro_torch/kernels/knn_ivf/pq_kernel.cu",
                   "src/repro/kernels/knn_ivf/pq_kernel.py:114"),
+    "ssd_intra": ("src/repro_torch/kernels/ssd_scan/kernel.cu",
+                  "src/repro/kernels/ssd_scan/kernel.py:59"),
+    # the gradient of kernel 6: the JAX trainer differentiates the jnp SSD
+    # whose intra-chunk part the kernel computes (ref.py:27-82)
+    "ssd_intra_bwd": ("src/repro_torch/kernels/ssd_scan/bwd_kernel.cu",
+                      "src/repro/kernels/ssd_scan/kernel.py:59"),
 }
 #: the main path's retrieval shape: 16 texts against the 70,000-row train
 #: split of a 100,000-row support set, ~sqrt(N) = 265 lists, lists capped at
@@ -236,6 +259,87 @@ def decode_case(torch, timer, pos, S, KV, G, hd, dtype, ring, tol, gen):
                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
+def ssd_case(torch, timer, Bs, H, nc, Q, P, G, N, valid, gen, label):
+    """Kernel 6 and its gradient against their plain versions on one
+    input, rtol / atol 3e-4 (the reference's SSD kernel test).  ``valid``
+    zeroes the rows at or past it, as `ssm_full` pads a short tail.  Bounds
+    count each input read once, each output written once, and the
+    products the causal mask leaves: Q (Q + 1) / 2 (i, j) pairs a block."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_bwd, ssd_intra_fwd
+    from repro_torch.kernels.ssd_scan.ref import (ssd_intra_bwd_plain,
+                                                  ssd_intra_plain)
+    f = lambda *sh: torch.randn(*sh, device="cuda", generator=gen)
+    x, dt = f(Bs, H, nc, Q, P), torch.nn.functional.softplus(
+        f(Bs, H, nc, Q, 1))
+    A = -torch.exp(f(H) * 0.3)
+    Bm, Cm = f(Bs, G, nc, Q, N) * 0.3, f(Bs, G, nc, Q, N) * 0.3
+    if valid is not None:
+        keep = (torch.arange(nc * Q, device="cuda").reshape(nc, Q)
+                < valid).float()[..., None]
+        x, dt, Bm, Cm = x * keep, dt * keep, Bm * keep, Cm * keep
+    gy, gst, gcs = f(Bs, H, nc, Q, P), f(Bs, H, nc, P, N), f(Bs, H, nc, Q, 1)
+    ins = [t.contiguous() for t in (x, dt, A, Bm, Cm)]
+    out = ssd_intra_fwd(*ins)
+    ref = ssd_intra_plain(*ins)
+    g = ssd_intra_bwd(*ins, ref[2], gy, gst, gcs)
+    gr = ssd_intra_bwd_plain(*ins, ref[2], gy, gst, gcs)
+    torch.cuda.synchronize()
+    # max abs error, and the largest |kernel - plain| / (atol + rtol |plain|)
+    # (<= 1 passes): gradients such as gA sum thousands of terms and reach
+    # 1e3-1e4, so their absolute error says little alone
+    errs, ratios = [], []
+    for a, b in ((out, ref), (g, gr)):
+        e = r = 0.0
+        for u, v in zip(a, b):
+            assert u.shape == v.shape
+            d = (u - v).abs()
+            e = max(e, float(d.max()))
+            r = max(r, float((d / (3e-4 + 3e-4 * v.abs())).max()))
+        assert r <= 1.0, (label, e, r)
+        errs.append(e)
+        ratios.append(r)
+    del gr
+    fwd_ms = timer(lambda: ssd_intra_fwd(*ins))
+    fwd_plain = timer(lambda: ssd_intra_plain(*ins), iters=3)
+    bwd_ms = timer(lambda: ssd_intra_bwd(*ins, ref[2], gy, gst, gcs))
+    bwd_plain = timer(lambda: ssd_intra_bwd_plain(*ins, ref[2], gy, gst,
+                                                  gcs), iters=3)
+    blocks, pairs = Bs * H * nc, Q * (Q + 1) // 2
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    f_ms, f_by = bound(nbytes(*ins, *out),
+                       blocks * (pairs * 2 * (N + P) + 2 * Q * P * N),
+                       torch.float32)
+    b_ms, b_by = bound(nbytes(*ins, ref[2], gy, gst, gcs, *g),
+                       blocks * (pairs * (4 * P + 6 * N) + 4 * Q * P * N),
+                       torch.float32)
+    case = f"{label}: B={Bs} H={H} nc={nc} Q={Q} P={P} G={G} N={N}" + (
+        f" valid={valid}" if valid is not None else "")
+    common = dict(case=case, tol="rtol 3e-4, atol 3e-4", library_ms=None)
+    return (dict(common, max_abs_err=errs[0], err_over_tol=ratios[0],
+                 ms=fwd_ms, plain_ms=fwd_plain, bound_ms=f_ms, bound_by=f_by),
+            dict(common, max_abs_err=errs[1], err_over_tol=ratios[1],
+                 ms=bwd_ms, plain_ms=bwd_plain, bound_ms=b_ms, bound_by=b_by))
+
+
+def phase_ssd_kernels(torch, timer, gen):
+    """Kernel 6 and its gradient at the training path's shape (batch 4 of
+    2,048 tokens: 8 chunks of 256, 32 heads of 64, state 128, one group),
+    then two groups, a chunk shorter than a tile (Q = 12) and S = 384
+    padded by `ssm_full` to two chunks of 256."""
+    main = {}
+    for i, args in enumerate([
+            (4, 32, 8, 256, 64, 1, 128, None, "main"),
+            (2, 32, 2, 256, 64, 2, 128, None, "G=2"),
+            (2, 32, 1, 12, 64, 1, 128, None, "Q=12"),
+            (2, 32, 2, 256, 64, 1, 128, 384, "S=384 padded")]):
+        fwd, bwd = ssd_case(torch, timer, *args[:8], gen, args[8])
+        emit("kernel", name="ssd_intra", **fwd)
+        emit("kernel", name="ssd_intra_bwd", **bwd)
+        if i == 0:
+            main.update(ssd_intra=fwd, ssd_intra_bwd=bwd)
+    return main
+
+
 def phase_kernels(torch):
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -274,6 +378,11 @@ def phase_kernels(torch):
         if i == 0:
             main["decode_attention"] = r
     main.update(phase_ivf_kernels(torch, timer, gen))
+    main.update(phase_ssd_kernels(torch, timer, gen))
+    # exact top-k above k = 128: the keyed pass and the shared selection
+    for k in (200, 1024):
+        emit("kernel", name="knn_topk", **knn_case(
+            torch, timer, 16, 70_000, 768, k, f32, 1e-5, gen))
     return main
 
 
@@ -456,9 +565,11 @@ def kernel_wrappers():
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.knn_ivf.ops import ivf_scan, ivfpq_adc
     from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra, ssd_intra_bwd
     return {"knn_topk": knn_topk, "flash_attention": flash_attention,
             "decode_attention": decode_attention, "ivf_topk": ivf_scan,
-            "ivfpq_adc": ivfpq_adc}
+            "ivfpq_adc": ivfpq_adc, "ssd_intra": ssd_intra,
+            "ssd_intra_bwd": ssd_intra_bwd}
 
 
 def stage_timer(torch, stages):
@@ -825,6 +936,179 @@ def phase_ivf_path(torch, ctx):
     return launches, real
 
 
+# ---------------------------------------------------------------------------
+# phase 5: mamba2-370m trains and serves (slice 3)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGS = ["--arch", "mamba2-370m", "--steps", "10", "--batch", "4",
+              "--seq", "2048", "--log-every", "1"]
+
+
+def phase_train(torch):
+    """5a: `repro_torch.launch.train.main` at mamba2-370m's published
+    widths in bf16 (seeded weights, the zipf stream, batch 4 x 2,048
+    tokens, 10 steps, per-layer remat), with the SSD kernels' counters
+    zeroed just before and read just after.  Then one more step of the same
+    configuration under `torch.profiler` for the device time by kernel and
+    the idle share of that step."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import make_train_step
+
+    wrappers = kernel_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    hist = train.main(TRAIN_ARGS)
+    wall = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    walls = [h["wall_s"] for h in hist]
+    tokens = 4 * 2048
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    emit("train", arch="mamba2-370m", dtype="bfloat16", batch=4, seq=2048,
+         loss=losses, grad_norm=[h["grad_norm"] for h in hist],
+         step_wall_s=walls, median_step_wall_s_after_first=steady,
+         tokens_per_s=tokens / steady, run_wall_s=wall,
+         max_memory_allocated=peak,
+         launches={n: launches[n] for n in ("ssd_intra", "ssd_intra_bwd")},
+         other_launches={n: v for n, v in launches.items()
+                         if n not in ("ssd_intra", "ssd_intra_bwd")})
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    assert launches["ssd_intra"] >= 480 and launches["ssd_intra_bwd"] == 480, \
+        launches
+    torch.cuda.empty_cache()
+
+    cfg = get_config("mamba2-370m")
+    lm = M.init_params(cfg, seed=0, device="cuda")
+    opt_state = O.init(dict(lm.named_parameters()))
+    step_fn = make_train_step(cfg, O.OptConfig(lr=1e-3, warmup_steps=1,
+                                               total_steps=10))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2049))).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    prof = device_profile(torch, lambda: step_fn(lm, opt_state, batch),
+                          top=10)
+    emit("train_profile", one_step=prof)
+    del lm, opt_state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_forward_decode(torch):
+    """5b: mamba2-370m at its published widths in f32, batch 2, S = 384
+    (a full chunk of 256 and one padded to 256): `forward`'s logits against
+    384 `decode_step`s of the O(1) recurrence, rtol / atol 2e-3 (the
+    reference's test_models decode check).  This holds kernel 6 against an
+    independent computation through 48 layers."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("mamba2-370m").replace(dtype="float32")
+    lm = M.init_params(cfg, seed=7, device="cuda")
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 384))).cuda()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = M.forward(lm, cfg, {"tokens": toks})[0]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    caches = M.init_caches(cfg, 2, 384, device="cuda")
+    err, scale, argmax_equal = 0.0, 0.0, 0
+    worst = 0.0
+    for t in range(384):
+        logits, caches = M.decode_step(lm, cfg, caches, toks[:, t:t + 1],
+                                       torch.full((2,), t, device="cuda"))
+        ref = full[:, t]
+        d = (logits - ref).abs()
+        err = max(err, float(d.max()))
+        worst = max(worst, float((d - 2e-3 * ref.abs()).max()))
+        scale = max(scale, float(ref.abs().max()))
+        argmax_equal += int((logits.argmax(-1) == ref.argmax(-1)).sum())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    emit("forward_vs_decode", arch="mamba2-370m", dtype="float32", batch=2,
+         seq=384, max_abs_err=err, max_abs_logit=scale,
+         tol="rtol 2e-3, atol 2e-3", argmax_equal=argmax_equal, of=2 * 384,
+         forward_s=t1 - t0, decode_384_steps_s=t2 - t1)
+    assert worst <= 2e-3, ("forward and decode differ", err, worst)
+    del lm, caches, full
+    torch.cuda.empty_cache()
+
+
+def phase_mamba_serving(torch, ctx):
+    """5c: a full-width bf16 mamba2-370m engine (4 slots, 512 positions)
+    joins phase 4's engines as the reference's three-model pool; `knn10`
+    fitted on a 100,000-row support for the three serves the 16 texts.
+    Then the Mamba engine alone: 16 prompts with staggered lengths, admitted
+    as slots free while others are mid-stream, must each decode the tokens
+    they decode served alone."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.routers import make_router
+    from repro_torch.launch.serve import build_support
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.router_service import RouterService
+
+    pool = ["qwen3-4b", "mamba2-370m", "h2o-danube-1.8b"]
+    wrappers = kernel_wrappers()
+    stages = {}
+    stage = stage_timer(torch, stages)
+    mamba = stage("mamba_engine_init_s", lambda: ServingEngine(
+        get_config("mamba2-370m"), max_slots=4, cache_len=512, seed=2,
+        device="cuda"))
+    engines = {"qwen3-4b": ctx["engines"]["qwen3-4b"], "mamba2-370m": mamba,
+               "h2o-danube-1.8b": ctx["engines"]["h2o-danube-1.8b"]}
+    encoder, texts, lams = ctx["encoder"], ctx["texts"], ctx["lams"]
+    ds = stage("support_embed_100k_s", lambda: build_support(
+        pool, n=100_000, encoder=encoder))
+    svc = RouterService(make_router("knn10", device="cuda"), engines, ds=ds,
+                        encoder=encoder)
+    for w in wrappers.values():
+        w.launches = 0
+    results = stage("serve_texts_s", lambda: svc.serve_texts(
+        texts, lam=lams, max_new_tokens=8))
+    launches = {n: w.launches for n, w in wrappers.items()}
+    mix = {}
+    for r in results:
+        mix[r.model] = mix.get(r.model, 0) + 1
+    assert all(r.request.done and r.request.error is None for r in results)
+    assert not [r.uid for r in results if r.rerouted_from]
+    assert all(len(r.request.output_tokens) == 8 for r in results)
+    for r in results:
+        vocab = engines[r.model].cfg.vocab_size
+        assert all(0 <= t < vocab for t in r.request.output_tokens)
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, 50_000, 4 + 3 * (i % 6)) for i in range(16)]
+    new = [4 + i % 5 for i in range(16)]
+    t0 = time.perf_counter()
+    alone = []
+    for p, n in zip(prompts, new):
+        req = Request(uid=0, prompt_tokens=p, max_new_tokens=n)
+        mamba.run_until_drained([req])
+        alone.append(req.output_tokens)
+    t1 = time.perf_counter()
+    reqs = [Request(uid=i, prompt_tokens=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, new))]
+    steps = mamba.run_until_drained(reqs)
+    t2 = time.perf_counter()
+    same = [r.output_tokens == a for r, a in zip(reqs, alone)]
+    emit("mamba_serving", pool=pool, routing_mix=mix, stage_wall_s=stages,
+         launches=launches, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         tokens=[r.request.output_tokens for r in results],
+         isolation=dict(requests=16, slots=4, decode_waves_shared=steps,
+                        alone_s=t1 - t0, shared_s=t2 - t1,
+                        tokens_equal_to_alone=sum(same)))
+    assert all(same), "a request's tokens depend on the other slots"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -861,8 +1145,12 @@ def main(argv=None):
         first, ctx = phase_main_path(torch)
         second, real = phase_ivf_path(torch, ctx)
         main_cases.update(real)
-        launches = {n: (second if n in ("ivf_topk", "ivfpq_adc") else
-                        first)[n] for n in main_cases}
+        third = phase_train(torch)
+        phase_forward_decode(torch)
+        phase_mamba_serving(torch, ctx)
+        path_of = {"ivf_topk": second, "ivfpq_adc": second,
+                   "ssd_intra": third, "ssd_intra_bwd": third}
+        launches = {n: path_of.get(n, first)[n] for n in main_cases}
     assert "jax" not in sys.modules and "repro" not in sys.modules
 
     kernels = []

@@ -1,12 +1,14 @@
-"""Architecture registry of the port: the two dense pool models it serves.
+"""Architecture registry of the port: the three pool models it serves (two
+dense, one Mamba-2 SSM).
 
-`base.py`, `qwen3_4b.py` and `h2o_danube_1_8b.py` are copies of the JAX
-package's config modules (`repro.configs`), kept here so the port imports
-nothing of `repro`."""
-from .base import ATTN_DENSE, ModelConfig, reduced
-from . import h2o_danube_1_8b, qwen3_4b
+`base.py`, `qwen3_4b.py`, `h2o_danube_1_8b.py` and `mamba2_370m.py` are
+copies of the JAX package's config modules (`repro.configs`), kept here so
+the port imports nothing of `repro`."""
+from .base import ATTN_DENSE, SSM, ModelConfig, reduced
+from . import h2o_danube_1_8b, mamba2_370m, qwen3_4b
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (h2o_danube_1_8b, qwen3_4b)}
+ARCHS = {m.CONFIG.name: m.CONFIG
+         for m in (h2o_danube_1_8b, mamba2_370m, qwen3_4b)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -15,4 +17,5 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ATTN_DENSE", "ModelConfig", "get_config", "reduced"]
+__all__ = ["ARCHS", "ATTN_DENSE", "SSM", "ModelConfig", "get_config",
+           "reduced"]

@@ -26,7 +26,9 @@ KERNELS = {"knn_topk": "knn_topk/kernel.cu",
            "flash_attention": "flash_attention/kernel.cu",
            "decode_attention": "decode_attention/kernel.cu",
            "ivf_topk": "knn_ivf/kernel.cu",
-           "ivfpq_adc": "knn_ivf/pq_kernel.cu"}
+           "ivfpq_adc": "knn_ivf/pq_kernel.cu",
+           "ssd_intra": "ssd_scan/kernel.cu",
+           "ssd_intra_bwd": "ssd_scan/bwd_kernel.cu"}
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE.parents[2] / "build" / "torch_kernels"
@@ -54,11 +56,11 @@ def source(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     """Build output of ``name``: its hash covers the source, every header
-    in the source's directory (an edited header rebuilds its includers)
-    and the flags."""
+    of the kernels' tree (an edited header rebuilds its includers, also
+    across directories) and the flags."""
     src = source(name)
     h = hashlib.sha256(src.read_bytes())
-    for hdr in sorted(src.parent.glob("*.cuh")):
+    for hdr in sorted(_HERE.rglob("*.cuh")):
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()[:16]
@@ -94,14 +96,16 @@ def _finish(name: str, proc, out: Path, tmp) -> str:
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every kernel not yet built, one nvcc per source, all started
     together.  Returns the wall seconds of the whole build under "total"
-    and the ptxas register/shared-memory report of each new build."""
+    and the ptxas register, shared-memory and spill report of each new
+    build."""
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names}
     logs = {n: _finish(n, *started[n]) for n in names}
     report = {"total_s": time.perf_counter() - t0}
     for n, log in logs.items():
         report[n] = [ln.strip() for ln in log.splitlines()
-                     if "Used" in ln and "registers" in ln]
+                     if ("Used" in ln and "registers" in ln)
+                     or "spill" in ln]
     return report
 
 

@@ -26,9 +26,17 @@
 //           of its candidates; repeated until one list of k remains.
 // Ragged Q and N edges are masked in the kernel; no padding is needed.
 // Ties are broken towards the lower row id, like `lax.top_k`.
+//
+// k > 128 (up to 1,024): the warp selection keeps k candidates in
+// registers and stops at 128, so pass 1 instead writes one 64-bit key per
+// (query, support row) (order-preserving score bits, then ~id) and the
+// shared per-query radix select of the IVF kernels (`select.cuh`) picks the
+// top k, ties again to the lower id.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
+
+#include "../knn_ivf/select.cuh"
 
 namespace {
 
@@ -113,10 +121,13 @@ __device__ void warp_topk(float (&v)[PER], int (&id)[PER], int k,
   }
 }
 
-template <typename T>
+// KEYS: write the chunk's selection keys to keys (Q, N) instead of its
+// top-k candidates
+template <typename T, bool KEYS>
 __global__ void __launch_bounds__(P1_THREADS)
 knn_chunk_kernel(const float* __restrict__ q, const T* __restrict__ s,
                  float* __restrict__ cand_s, int* __restrict__ cand_i,
+                 unsigned long long* __restrict__ keys,
                  int Q, int N, int D, int k, int nch) {
   extern __shared__ __align__(16) float smem[];
   float* Ss = smem;                   // [TN][TD + 1] support tile
@@ -170,6 +181,16 @@ knn_chunk_kernel(const float* __restrict__ q, const T* __restrict__ s,
   }
   __syncthreads();
 
+  if (KEYS) {
+    for (int e = tid; e < BQ * CH; e += P1_THREADS) {
+      const int qi = e / CH, c = e % CH, qq = q0 + qi, n = n0 + c;
+      if (qq < Q && n < N) {
+        const float x = Sc[qi * CH + c];
+        keys[(size_t)qq * N + n] = make_key(x, n, x == x);
+      }
+    }
+    return;
+  }
   for (int qi = warp; qi < BQ; qi += P1_THREADS / 32) {
     const int qq = q0 + qi;
     if (qq >= Q) break;                       // warp-uniform
@@ -216,24 +237,43 @@ knn_merge_kernel(const float* __restrict__ in_s, const int* __restrict__ in_i,
   warp_topk<MERGE / 32>(v, id, k, out_s + base, out_i + base);
 }
 
-template <typename T>
-int launch(const float* q, const T* s, float* out_s, int* out_i,
-           float* buf_s0, int* buf_i0, float* buf_s1, int* buf_i1,
-           int Q, int N, int D, int k, cudaStream_t st) {
+template <typename T, bool KEYS>
+cudaError_t chunk_pass(const float* q, const T* s, float* cand_s, int* cand_i,
+                       unsigned long long* keys, int Q, int N, int D, int k,
+                       cudaStream_t st) {
   static bool configured = false;
   const int smem = (TN * (TD + 1) + TD * BQ + BQ * CH) * (int)sizeof(float);
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        knn_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
+        knn_chunk_kernel<T, KEYS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return e;
     configured = true;
+  }
+  const int nch = (N + CH - 1) / CH;
+  knn_chunk_kernel<T, KEYS><<<dim3((Q + BQ - 1) / BQ, nch), P1_THREADS, smem,
+                              st>>>(q, s, cand_s, cand_i, keys, Q, N, D, k,
+                                    nch);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch(const float* q, const T* s, float* out_s, int* out_i,
+           float* buf_s0, int* buf_i0, float* buf_s1, int* buf_i1,
+           unsigned long long* keys, int Q, int N, int D, int k,
+           cudaStream_t st) {
+  if (k > KMAX) {
+    cudaError_t e = chunk_pass<T, true>(q, s, nullptr, nullptr, keys, Q, N, D,
+                                        k, st);
+    if (e != cudaSuccess) return (int)e;
+    select_topk_kernel<<<Q, SEL_THREADS, 0, st>>>(keys, N, k, out_s, out_i);
+    return (int)cudaGetLastError();
   }
   const int nch = (N + CH - 1) / CH;
   float* dst_s = nch == 1 ? out_s : buf_s0;
   int* dst_i = nch == 1 ? out_i : buf_i0;
-  knn_chunk_kernel<T><<<dim3((Q + BQ - 1) / BQ, nch), P1_THREADS, smem, st>>>(
-      q, s, dst_s, dst_i, Q, N, D, k, nch);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = chunk_pass<T, false>(q, s, dst_s, dst_i, nullptr, Q, N, D,
+                                       k, st);
   if (e != cudaSuccess || nch == 1) return (int)e;
   int L = nch * k;
   const float* src_s = buf_s0;
@@ -260,11 +300,13 @@ int launch(const float* q, const T* s, float* out_s, int* out_i,
 extern "C" {
 
 // q (Q, D) f32; s (N, D) f32 or bf16 (s_bf16 != 0); out (Q, k).
-// buf0 holds (Q, ceil(N / 512), k) candidates, buf1 the first merge level.
+// k <= 128: buf0 holds (Q, ceil(N / 512), k) candidates, buf1 the first
+// merge level.  128 < k <= 1024: keys holds (Q, N) selection keys.
 int knn_topk_launch(const void* q, const void* s, int s_bf16, void* out_s,
                     void* out_i, void* buf_s0, void* buf_i0, void* buf_s1,
-                    void* buf_i1, int Q, int N, int D, int k, void* stream) {
-  if (k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
+                    void* buf_i1, void* keys, int Q, int N, int D, int k,
+                    void* stream) {
+  if (k < 1 || k > SEL_KMAX) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto qf = static_cast<const float*>(q);
   auto os = static_cast<float*>(out_s);
@@ -273,11 +315,12 @@ int knn_topk_launch(const void* q, const void* s, int s_bf16, void* out_s,
   auto i0 = static_cast<int*>(buf_i0);
   auto s1 = static_cast<float*>(buf_s1);
   auto i1 = static_cast<int*>(buf_i1);
+  auto kp = static_cast<unsigned long long*>(keys);
   if (s_bf16)
     return launch(qf, static_cast<const __nv_bfloat16*>(s), os, oi, s0, i0, s1,
-                  i1, Q, N, D, k, st);
-  return launch(qf, static_cast<const float*>(s), os, oi, s0, i0, s1, i1, Q, N,
-                D, k, st);
+                  i1, kp, Q, N, D, k, st);
+  return launch(qf, static_cast<const float*>(s), os, oi, s0, i0, s1, i1, kp,
+                Q, N, D, k, st);
 }
 
 }  // extern "C"

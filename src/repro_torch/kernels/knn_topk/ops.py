@@ -4,8 +4,11 @@
 Contract: scores (Q, k) f32 sorted descending, ids (Q, k) int32, and
 -inf / -1 in the slots no support row fills (k > N).  k is not clamped to N
 here: callers that want at most N results clamp it themselves, as
-`KNNRouter` does.  CPU tensors take the plain version (`ref.py`); CUDA
-tensors launch the kernel or raise.
+`KNNRouter` does.  CPU tensors take the plain version (`ref.py`), which
+takes any k >= 1, as the reference does; CUDA tensors launch the kernel
+(k <= 128: warp selection per chunk and merges; 128 < k <= 1,024: one key
+per support row and the radix select shared with the IVF kernels) or
+raise.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import torch
 from .. import _build
 from .ref import knn_topk_reference
 
-KMAX = 128     # kernel.cu: KMAX
+KMAX_WARP = 128  # kernel.cu: KMAX, the chunk-and-merge path
+KMAX = 1024      # select.cuh: SEL_KMAX, the keyed path
 _CHUNK = 512   # kernel.cu: CH, support rows per pass-1 block
 _MERGE = 1024  # kernel.cu: MERGE, candidates per warp in a merge pass
 _GRID_Y_MAX = 65535
@@ -28,7 +32,7 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
     return lib
 
@@ -43,10 +47,12 @@ def knn_topk(queries: torch.Tensor, support: torch.Tensor, k: int):
                          f"{tuple(support.shape)}")
     if queries.device != support.device:
         raise ValueError("knn_topk: queries and support on different devices")
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"knn_topk supports 1 <= k <= {KMAX}, got k={k}")
+    if k < 1:
+        raise ValueError(f"knn_topk needs k >= 1, got k={k}")
     if queries.device.type == "cpu":
         return knn_topk_reference(queries, support, k)
+    if k > KMAX:
+        raise ValueError(f"knn_topk supports 1 <= k <= {KMAX}, got k={k}")
     if queries.device.type != "cuda":
         raise ValueError(f"knn_topk: unsupported device {queries.device}")
     if queries.dtype != torch.float32 \
@@ -63,21 +69,23 @@ def knn_topk(queries: torch.Tensor, support: torch.Tensor, k: int):
         raise ValueError(f"knn_topk: N={N} rows and Q={Q} queries must be "
                          f"<= {_GRID_Y_MAX * _CHUNK} and {_GRID_Y_MAX} "
                          f"(grid axes)")
-    n1 = -(-nch * k // _MERGE)
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0 or N == 0:
         return out_s.fill_(float("-inf")), out_i.fill_(-1)
-    buf_s0 = torch.empty((Q * nch * k,), dtype=torch.float32, device=dev)
-    buf_i0 = torch.empty((Q * nch * k,), dtype=torch.int32, device=dev)
-    buf_s1 = torch.empty((Q * n1 * k,), dtype=torch.float32, device=dev)
-    buf_i1 = torch.empty((Q * n1 * k,), dtype=torch.int32, device=dev)
+    if k <= KMAX_WARP:
+        n1 = -(-nch * k // _MERGE)
+        bufs = [torch.empty((Q * n * k,), dtype=dt, device=dev)
+                for n in (nch, n1) for dt in (torch.float32, torch.int32)]
+        keys = None
+    else:
+        bufs = [None] * 4
+        keys = torch.empty((Q, N), dtype=torch.int64, device=dev)
+    ptr = [0 if t is None else t.data_ptr() for t in (*bufs, keys)]
     err = _lib().knn_topk_launch(
         queries.data_ptr(), support.data_ptr(),
         int(support.dtype == torch.bfloat16), out_s.data_ptr(),
-        out_i.data_ptr(), buf_s0.data_ptr(), buf_i0.data_ptr(),
-        buf_s1.data_ptr(), buf_i1.data_ptr(), Q, N, D, k,
-        _build.stream_ptr(dev))
+        out_i.data_ptr(), *ptr, Q, N, D, k, _build.stream_ptr(dev))
     _build.check(err, "knn_topk")
     knn_topk.launches += 1
     return out_s, out_i
@@ -85,5 +93,6 @@ def knn_topk(queries: torch.Tensor, support: torch.Tensor, k: int):
 
 #: calls that launched the kernel (one per call on a CUDA tensor; each call
 #: issues the chunk pass and then merge passes until one list of k is left,
-#: 3 kernels in all at N = 70,000, k = 10)
+#: 3 kernels in all at N = 70,000, k = 10; for k > 128 the keyed chunk pass
+#: and one selection pass)
 knn_topk.launches = 0

@@ -4,8 +4,8 @@ support set in the query encoder's embedding space, then serve a stream of
 text requests at per-request cost/quality lambdas.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --pool qwen3-4b h2o-danube-1.8b --requests 8 --router knn100-ivfpq \\
-      --save-artifact /tmp/r
+      --pool qwen3-4b mamba2-370m h2o-danube-1.8b --requests 8 \\
+      --router knn100-ivfpq --save-artifact /tmp/r
 
 Engines are reduced configs, as in the reference CLI (`chip_smoke.py`
 serves the published widths).  ``--device cpu`` runs everything with the
@@ -51,7 +51,7 @@ def build_support(pool, n=300, seed=0, encoder=None):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--pool", nargs="+",
-                    default=["qwen3-4b", "h2o-danube-1.8b"])
+                    default=["qwen3-4b", "mamba2-370m", "h2o-danube-1.8b"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=6)
     ap.add_argument("--lam", type=float, default=1.0)

@@ -3,9 +3,13 @@
 ``params_from_jax(tree, cfg)`` takes the tree `repro.models.model.
 init_params` returns, with numpy arrays as leaves
 (``jax.tree.map(np.asarray, params)``), and unstacks the scanned group
-axis into one `Block` per layer, so the same weights compute the same
-function in both packages.  Covers the dense engine LMs and the query
-encoder (which uses ``embed`` and the stack)."""
+axis into one `Block` or `SSMBlock` per layer, so the same weights compute
+the same function in both packages.  Covers the dense engine LMs, the
+Mamba-2 LM (``ssm.in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``,
+``dt_bias``, ``norm.scale``, ``out_proj``) and the query encoder (which
+uses ``embed`` and the stack).  Every leaf keeps its dtype: a JAX leaf
+whose dtype differs from the port's parameter (an f32 ``A_log`` in a bf16
+model stays f32 on both sides) is refused."""
 from __future__ import annotations
 
 from typing import Dict
@@ -45,9 +49,12 @@ def params_from_jax(tree, cfg, device="cpu") -> LM:
                          f"{sorted(set(state) - set(own))}")
     with torch.no_grad():
         for name, t in own.items():
-            arr = np.array(state[name], np.float32)
-            if arr.shape != tuple(t.shape):
-                raise ValueError(f"{name}: jax shape {arr.shape} != port "
+            leaf = state[name]
+            if leaf.shape != tuple(t.shape):
+                raise ValueError(f"{name}: jax shape {leaf.shape} != port "
                                  f"shape {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(arr))
+            if str(leaf.dtype) != str(t.dtype).replace("torch.", ""):
+                raise ValueError(f"{name}: jax dtype {leaf.dtype} != port "
+                                 f"dtype {t.dtype}")
+            t.copy_(torch.from_numpy(np.array(leaf, np.float32)))
     return lm

@@ -5,7 +5,16 @@ Requests are admitted into fixed decode slots; each slot tracks its own
 position and every decode wave passes the per-slot position vector, so new
 requests join while others are mid-generation.  Prefill replays the prompt
 through decode steps in teacher-forcing mode, exactly as the reference
-does (including the zero token the other slots see at their positions)."""
+does (including the zero token the other slots see at their positions).
+
+Recurrent (SSM) state is per request, where the reference lets it leak: a
+slot's conv and SSD state are zeroed at `admit`, and a decode step
+advances the state only of the slots it feeds (the slot being prefilled,
+or the active slots of a wave).  The reference feeds every slot and never
+clears one, so a Mamba request's tokens there depend on what else shares
+the engine.  Attention caches behave as the reference's: a stray row
+written for an unfed slot is overwritten when that slot reaches the
+position."""
 from __future__ import annotations
 
 import dataclasses
@@ -70,12 +79,21 @@ class ServingEngine:
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         self.stats = {"decode_steps": 0, "tokens_out": 0, "prefill_tokens": 0}
 
-    def _decode(self, batch_tok: np.ndarray, pos_vec: np.ndarray):
+    def _decode(self, batch_tok: np.ndarray, pos_vec: np.ndarray,
+                feed: np.ndarray):
         tok = torch.from_numpy(batch_tok).to(self.device, torch.int64)
         pos = torch.from_numpy(pos_vec).to(self.device, torch.int32)
+        fed = torch.from_numpy(feed).to(self.device)
         logits, self.caches = M.decode_step(self.params, self.cfg,
-                                            self.caches, tok, pos)
+                                            self.caches, tok, pos, feed=fed)
         return logits
+
+    def _clear_state(self, slot: int) -> None:
+        """Zero the recurrent state a new request starts from."""
+        for cache in self.caches:
+            if "ssd" in cache:
+                for t in cache.values():
+                    t[slot].zero_()
 
     # ---- slot management ----
     def has_free_slot(self) -> bool:
@@ -89,6 +107,7 @@ class ServingEngine:
                 req.n_prompt = len(req.prompt_tokens)
                 req.t_submit = time.time()
                 self.pos[s] = 0
+                self._clear_state(s)
                 self._prefill_slot(s, req)
                 return True
         return False
@@ -98,12 +117,14 @@ class ServingEngine:
         toks = np.asarray(req.prompt_tokens, np.int32)
         self.stats["prefill_tokens"] += len(toks)
         batch_tok = np.zeros((self.max_slots, 1), np.int32)
+        feed = np.zeros((self.max_slots,), bool)
+        feed[slot] = True
         for t, tok in enumerate(toks):
             batch_tok[:] = 0
             batch_tok[slot, 0] = tok
             pos_vec = np.maximum(self.pos, 0).astype(np.int32)
             pos_vec[slot] = t
-            self._decode(batch_tok, pos_vec)
+            self._decode(batch_tok, pos_vec, feed)
         self.pos[slot] = len(toks)
 
     # ---- decode wave over all active slots ----
@@ -124,7 +145,9 @@ class ServingEngine:
                     else int(r.prompt_tokens[-1]))
             batch_tok[s, 0] = last
         pos_vec = np.maximum(self.pos, 0).astype(np.int32)
-        logits = self._decode(batch_tok, pos_vec)
+        feed = np.zeros((self.max_slots,), bool)
+        feed[active] = True
+        logits = self._decode(batch_tok, pos_vec, feed)
         best = logits.argmax(dim=-1).cpu().numpy()   # first max, as np.argmax
         self.stats["decode_steps"] += 1
         for s in active:

@@ -9,7 +9,8 @@ This file imports torch and numpy only, so it runs where JAX is not
 installed; the JAX parity of the plain versions is held in
 `test_torch_kernels.py` and `test_torch_ivf.py` on the CPU.  Tolerances:
 1e-5 for kNN and IVF scores, rtol 1e-4 / atol 1e-5 for ADC scores, 2e-5
-for f32 attention, 5e-2 for bf16 (the reference tests')."""
+for f32 attention, 5e-2 for bf16 (the reference tests'), rtol / atol 3e-4
+for the SSD pass and its gradient (the reference's SSD kernel test)."""
 import numpy as np
 import pytest
 
@@ -24,6 +25,9 @@ from repro_torch.kernels.knn_ivf.ref import (ivf_probe, ivf_scan_plain,  # noqa:
                                              ivfpq_adc_plain)
 from repro_torch.kernels.knn_topk.ops import knn_topk  # noqa: E402
 from repro_torch.kernels.knn_topk.ref import knn_topk_reference  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (ssd_intra_bwd_plain,  # noqa: E402
+                                              ssd_intra_plain)
 
 
 def _unit(x):
@@ -200,3 +204,88 @@ def test_gpu_short_lists_fill_empty_slots(pq):
     _check_tied(*out, *ref, 1e-4, 1e-5)
     assert (out[1][:, 40:] == -1).all() and torch.isinf(out[0][:, 40:]).all()
     assert (out[1][:, :40] >= 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,N,k", [(16, 70_000, 200), (5, 3_000, 1024),
+                                   (3, 700, 1024)])
+def test_gpu_knn_kernel_k_above_128_matches_plain(Q, N, k):
+    """128 < k <= 1,024: the keyed chunk pass and the shared selection;
+    ids may differ from the plain version's only within score ties, and
+    k > N leaves -inf / -1 slots."""
+    _need_cuda()
+    q, s = _knn_data(Q, N, 768, N)
+    qd, sd = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+    n0 = knn_topk.launches
+    out = knn_topk(qd, sd, k)
+    assert knn_topk.launches == n0 + 1
+    _check_tied(*out, *knn_topk_reference(qd, sd, k), 1e-5, 1e-5)
+    with pytest.raises(ValueError, match="k <= 1024"):
+        knn_topk(qd, sd, 1025)
+
+
+def _ssd_inputs(Bs, H, nc, Q, P, G, N, seed, valid=None):
+    """Kernel-layout inputs on the card; rows at or past ``valid`` of the
+    last chunk are zero, as `ssm_full`'s tail padding leaves them."""
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+    x, dt = f(Bs, H, nc, Q, P), torch.nn.functional.softplus(
+        f(Bs, H, nc, Q, 1))
+    A = -torch.exp(f(H) * 0.3)
+    Bm, Cm = f(Bs, G, nc, Q, N) * 0.3, f(Bs, G, nc, Q, N) * 0.3
+    grads = (f(Bs, H, nc, Q, P), f(Bs, H, nc, P, N), f(Bs, H, nc, Q, 1))
+    if valid is not None:
+        S = torch.arange(nc * Q).reshape(nc, Q)
+        keep = (S < valid).float()
+        x = x * keep[..., None]
+        dt = dt * keep[..., None]
+        Bm, Cm = Bm * keep[..., None], Cm * keep[..., None]
+    return ([t.cuda().contiguous() for t in (x, dt, A, Bm, Cm)],
+            [t.cuda().contiguous() for t in grads])
+
+
+# the phase-3 shapes of chip_smoke.py: the training shape (B 4, 32 heads,
+# 8 chunks of 256, P 64, N 128), two groups, a chunk shorter than a tile,
+# and S = 384 padded to two chunks of 256 by ssm_full
+SSD_CASES = [(4, 32, 8, 256, 64, 1, 128, None), (2, 8, 2, 256, 64, 2, 128, None),
+             (2, 4, 1, 12, 64, 1, 128, None), (2, 32, 2, 256, 64, 1, 128, 384)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_gpu_ssd_kernels_match_plain(case):
+    _need_cuda()
+    *shape, valid = case
+    inputs, grads = _ssd_inputs(*shape, seed=sum(shape), valid=valid)
+    n0 = (ssd_ops.ssd_intra.launches, ssd_ops.ssd_intra_bwd.launches)
+    out = ssd_ops.ssd_intra_fwd(*inputs)
+    ref = ssd_intra_plain(*inputs)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=3e-4, atol=3e-4)
+    g = ssd_ops.ssd_intra_bwd(*inputs, ref[2], *grads)
+    gr = ssd_intra_bwd_plain(*inputs, ref[2], *grads)
+    for a, b in zip(g, gr):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=3e-4, atol=3e-4)
+    assert (ssd_ops.ssd_intra.launches, ssd_ops.ssd_intra_bwd.launches) \
+        == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_autograd_runs_both_kernels_and_never_the_plain_version(
+        monkeypatch):
+    _need_cuda()
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(ssd_ops, "ssd_intra_plain", refuse)
+    monkeypatch.setattr(ssd_ops, "ssd_intra_bwd_plain", refuse)
+    inputs, grads = _ssd_inputs(1, 4, 2, 64, 32, 2, 16, seed=3)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    n0 = (ssd_ops.ssd_intra.launches, ssd_ops.ssd_intra_bwd.launches)
+    y, st, cs = ssd_ops.ssd_intra(*leaves)
+    torch.autograd.backward((y, st, cs), grads)
+    assert (ssd_ops.ssd_intra.launches, ssd_ops.ssd_intra_bwd.launches) \
+        == (n0[0] + 1, n0[1] + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in leaves)

@@ -95,9 +95,21 @@ def test_knn_bf16_support_matches_jax_reference():
 
 
 def test_knn_wrapper_rejects_k_above_kernel_limit():
-    q, s = _knn_data(2, 300, 8, 0)
-    with pytest.raises(ValueError, match="k <= 128"):
-        knn_topk(torch.from_numpy(q), torch.from_numpy(s), 129)
+    """The kernel path takes k <= 1,024 (the keyed selection above 128);
+    a larger k on a device tensor is refused before any launch, while the
+    plain version on the CPU takes any k, as the reference does."""
+    from repro.kernels.knn_topk.ref import knn_topk_reference as jax_ref
+    q, s = _knn_data(2, 3000, 8, 0)
+    for k in (129, 1024, 2000):
+        ts, ti = knn_topk(torch.from_numpy(q), torch.from_numpy(s), k)
+        js, ji = jax_ref(jnp.asarray(q), jnp.asarray(s), k)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-5)
+        assert ts.shape == ti.shape == (2, k)
+    with pytest.raises(ValueError, match="k <= 1024"):
+        knn_topk(torch.from_numpy(q).to("meta"),
+                 torch.from_numpy(s).to("meta"), 1025)
+    with pytest.raises(ValueError, match="k >= 1"):
+        knn_topk(torch.from_numpy(q), torch.from_numpy(s), 0)
 
 
 # ---------------------------------------------------------------------------

@@ -156,3 +156,110 @@ def test_teacher_forced_decode_logits_match_reference(name, cache_len, steps):
         assert M.init_caches(cfg, 1, cache_len, "cpu")[0]["k"].shape[1] == 64
         assert pos.max() > 64
     np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# mamba2-370m (Mamba-2 SSD layers)
+# ---------------------------------------------------------------------------
+
+def _mamba(seed=3):
+    jcfg = jax_reduced(jax_get_config("mamba2-370m"))
+    cfg = reduced(get_config("mamba2-370m"))
+    params = jax_M.init_params(jax.random.PRNGKey(seed), jcfg)
+    return jcfg, cfg, params, params_from_jax(_np_tree(params), cfg)
+
+
+def test_mamba_config_is_a_copy_and_keeps_f32_ssm_leaves():
+    assert vars(get_config("mamba2-370m")) == \
+        vars(jax_get_config("mamba2-370m"))
+    assert vars(reduced(get_config("mamba2-370m"))) == \
+        vars(jax_reduced(jax_get_config("mamba2-370m")))
+    cfg = get_config("mamba2-370m").replace(n_layers=1, n_groups=1)
+    lm = M.LM(cfg, device="meta")
+    ssm = lm.blocks[0].ssm
+    assert (cfg.d_inner, cfg.ssm_heads, cfg.ssm_state) == (2048, 32, 128)
+    assert ssm.in_proj.shape == (1024, 2 * 2048 + 2 * 128 + 32)
+    assert ssm.conv_w.shape == (4, 2048 + 2 * 128)
+    for name in ("A_log", "D", "dt_bias"):
+        assert getattr(ssm, name).dtype == torch.float32
+    assert ssm.in_proj.dtype == ssm.norm.scale.dtype == torch.bfloat16
+    # a bf16 JAX tree converts leaf by leaf, dtypes kept
+    jcfg = jax_reduced(jax_get_config("mamba2-370m"), dtype="bfloat16")
+    tree = _np_tree(jax_M.init_params(jax.random.PRNGKey(0), jcfg))
+    lm = params_from_jax(tree, reduced(get_config("mamba2-370m"),
+                                       dtype="bfloat16"))
+    blk = lm.blocks[1].ssm
+    assert blk.A_log.dtype == torch.float32
+    assert blk.in_proj.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        blk.conv_w.float().numpy(),
+        tree["stack"]["groups"][1]["ssm"]["conv_w"][0].astype(np.float32))
+
+
+def _lm_batch(cfg, B=2, S=40, seed=4):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[0, :3] = -1                       # ignored positions
+    return {"tokens": toks[:, :-1], "labels": labels}
+
+
+def test_mamba_forward_loss_and_gradients_match_reference():
+    """reduced(mamba2-370m): two SSD layers (state 16, heads of 32, chunk
+    16), S = 40 so the last chunk is padded.  Logits, loss and the gradient
+    of every parameter against jax.value_and_grad of the reference's
+    loss_fn (the SSD gradient is the port's explicit backward on the CPU)."""
+    jcfg, cfg, params, lm = _mamba()
+    batch = _lm_batch(cfg)
+    jl, _ = jax_M.forward(params, jcfg, {"tokens": jnp.asarray(
+        batch["tokens"])})
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        tl, aux = M.forward(lm, cfg, tb)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL,
+                               rtol=TOL)
+    assert float(aux) == 0.0
+
+    (jtot, jmet), jg = jax.value_and_grad(
+        lambda p: jax_M.loss_fn(p, jcfg, {k: jnp.asarray(v)
+                                          for k, v in batch.items()}),
+        has_aux=True)(params)
+    lm.requires_grad_(True)
+    tot, met = M.loss_fn(lm, cfg, tb)
+    tot.backward()
+    np.testing.assert_allclose(float(tot.detach()), float(jtot), atol=TOL,
+                               rtol=TOL)
+    assert float(met["tokens"]) == float(jmet["tokens"]) == 2 * 40 - 3
+    want = params_from_jax(_np_tree(jg), cfg)
+    got = dict(lm.named_parameters())
+    for name, w in want.named_parameters():
+        g = got[name].grad
+        assert g is not None, name
+        np.testing.assert_allclose(g.numpy(), w.detach().numpy(), atol=TOL,
+                                   rtol=TOL, err_msg=name)
+
+
+def test_mamba_decode_matches_forward():
+    """The port's recurrence (decode) against its own chunked forward, as
+    the reference's test_models checks its own (rtol 1e-2, atol 5e-3)."""
+    _, cfg, _, lm = _mamba(seed=5)
+    batch = _lm_batch(cfg, B=2, S=24, seed=6)
+    toks = torch.from_numpy(batch["tokens"])
+    with torch.no_grad():
+        full = M.forward(lm, cfg, {"tokens": toks})[0].numpy()
+    caches = M.init_caches(cfg, 2, 32, "cpu")
+    steps = []
+    for t in range(toks.shape[1]):
+        logits, caches = M.decode_step(lm, cfg, caches, toks[:, t:t + 1],
+                                       torch.full((2,), t))
+        steps.append(logits.numpy())
+    np.testing.assert_allclose(np.stack(steps, 1), full, rtol=1e-2,
+                               atol=5e-3)
+
+
+def test_unported_layer_specs_raise():
+    from repro_torch.models.transformer import layer_specs
+    cfg = reduced(get_config("mamba2-370m"))
+    assert layer_specs(cfg) == [("ssm", "none")] * 2
+    with pytest.raises(NotImplementedError, match="not ported"):
+        layer_specs(cfg.replace(pattern=(("attn", "moe"),)))

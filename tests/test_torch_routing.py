@@ -126,6 +126,24 @@ def test_router_serve_fused_matches_reference(k, weights):
     np.testing.assert_allclose(kth, jk, atol=TOL)
 
 
+@pytest.mark.parametrize("spec", ["knn200", "knn200@lam=0.5"])
+def test_router_k_above_128_matches_reference(spec):
+    """Exact retrieval with k = 200 (above the warp-selection kernel's 128;
+    the keyed path serves it on the card): the same choices and utilities
+    as the reference."""
+    jds, tds, Q = _datasets(N=600)
+    jr = jax_make_router(spec).fit(jds)
+    tr = make_router(spec, device="cpu").fit(tds)
+    assert tr.k == jr.k == 200
+    lam = np.linspace(0, 50, len(Q)).astype(np.float32)
+    jo, to = jr.serve_fused(Q, lam), tr.serve_fused(Q, lam)
+    np.testing.assert_array_equal(to[0], jo[0])
+    for t, j in zip(to[1:], jo[1:]):
+        np.testing.assert_allclose(t, j, atol=TOL)
+    np.testing.assert_allclose(tr.predict_utility(Q)[0],
+                               jr.predict_utility(Q)[0], atol=TOL)
+
+
 def test_router_k_above_support_clamps_like_reference():
     jds, tds, Q = _datasets(N=40)
     jr = jax_make_router("knn100").fit(jds)

@@ -39,6 +39,9 @@ def test_port_imports_without_jax():
             "import repro_torch.kernels.knn_ivf.ops, repro_torch.persist\n"
             "import repro_torch.core.routers.artifacts\n"
             "import repro_torch.serving.pipeline\n"
+            "import repro_torch.kernels.ssd_scan.ops, repro_torch.models.ssm\n"
+            "import repro_torch.launch.train, repro_torch.training.checkpoint\n"
+            "import repro_torch.data.lm_data\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\n"
@@ -209,3 +212,91 @@ def test_serve_cli_saves_and_boots_from_artifact(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[artifact] saved knn100-ivfpq" in out and "[routing mix]" in out
     assert jax_load(art).index == "ivfpq"       # the reference reads it
+
+
+def _prompt(i):
+    return (np.arange(12) * (i + 3) + 7 * i) % 500 + 1
+
+
+def _serve_alone(make_engine, prompt, n_new):
+    from repro.serving.engine import Request as JaxRequest
+    eng = make_engine()
+    req_cls = JaxRequest if not isinstance(eng, ServingEngine) else Request
+    req = req_cls(uid=0, prompt_tokens=prompt, max_new_tokens=n_new)
+    eng.run_until_drained([req])
+    assert req.done
+    return req.output_tokens
+
+
+def test_mamba_engine_matches_reference_one_request_per_engine():
+    """reduced(mamba2-370m) with the reference's weights: greedy tokens of
+    each request served alone in a fresh engine, in both packages (where
+    the reference's SSM state does not leak between slots)."""
+    from repro.serving.engine import ServingEngine as JaxEngine
+    jcfg = jax_reduced(jax_get_config("mamba2-370m"))
+    cfg = reduced(get_config("mamba2-370m"))
+    je = JaxEngine(jcfg, max_slots=2, cache_len=32, seed=3)
+    tree = jax.tree.map(np.asarray, je.params)
+
+    def jax_engine():
+        e = JaxEngine(jcfg, params=je.params, max_slots=2, cache_len=32)
+        e._decode = _synchronous(e._decode)
+        return e
+
+    def port_engine():
+        return ServingEngine(cfg, params_from_jax(tree, cfg), max_slots=2,
+                             cache_len=32, device="cpu")
+    for i in range(2):
+        want = _serve_alone(jax_engine, _prompt(i), 8)
+        got = _serve_alone(port_engine, _prompt(i), 8)
+        assert got == want and len(got) == 8
+
+
+def test_mamba_engine_isolates_requests():
+    """Request A's tokens are the same served alone and with B admitted
+    into the other slot while A is mid-stream (the reference's engine
+    feeds every slot and leaks B's tokens into A's state)."""
+    from repro_torch.models import model as M
+    cfg = reduced(get_config("mamba2-370m"))
+    lm = M.init_params(cfg, seed=3, device="cpu")
+
+    def engine():
+        return ServingEngine(cfg, params=lm, max_slots=2, cache_len=32,
+                             device="cpu")
+    alone = _serve_alone(engine, _prompt(0), 8)
+    eng = engine()
+    a = Request(uid=0, prompt_tokens=_prompt(0), max_new_tokens=8)
+    b = Request(uid=1, prompt_tokens=_prompt(1), max_new_tokens=8)
+    eng.admit(a)
+    for _ in range(3):
+        eng.step()
+    eng.admit(b)                      # prefilled while A is mid-stream
+    eng.run_until_drained([])
+    assert a.done and b.done
+    assert a.output_tokens == alone
+    assert b.output_tokens == _serve_alone(engine, _prompt(1), 8)
+
+
+def test_serve_cli_default_pool_is_the_references():
+    import argparse
+    from repro.launch import serve as jax_serve
+    from repro_torch.launch import serve
+
+    class Parsed(Exception):
+        pass
+
+    real = argparse.ArgumentParser.parse_args
+
+    def capture(self, args=None, namespace=None):
+        raise Parsed(real(self, [], namespace))
+    pools = []
+    for mod in (serve, jax_serve):
+        argparse.ArgumentParser.parse_args = capture
+        try:
+            mod.main()
+        except Parsed as p:
+            pools.append(p.args[0].pool)
+        finally:
+            argparse.ArgumentParser.parse_args = real
+    assert pools[0] == pools[1] == ["qwen3-4b", "mamba2-370m",
+                                    "h2o-danube-1.8b"]
