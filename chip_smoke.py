@@ -28,7 +28,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
         through `RouterService.serve_texts`.  The routing is checked
         against the plain tail on the CPU fed with the kernel's neighbours,
         the neighbours against the plain retrieval, and a reduced engine's
-        greedy tokens against the same engine on the CPU.
+        greedy tokens against the same engine on the CPU.  Then one
+        `torch.profiler` window of a short serve (4 texts, 4 new tokens):
+        device time by kernel, decode attention's share, the idle share.
      b. `knn100-ivfpq` fitted through `RoutingPipeline`, saved, and a
         service re-booted from the artifact serving the same 16 texts;
         `knn100-ivf` routing the same embeddings.  Both IVF kernels must
@@ -40,7 +42,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      Kernel 6 (the Mamba-2 SSD intra-chunk pass) and its gradient run at
      the training path's shape (batch 4 x 2,048: 8 chunks of 256, 32 heads
      of 64, state 128) and at two groups, Q = 12 and S = 384 padded; exact
-     top-k at k = 200 and 1,024 (the keyed path) at the main path's shape.
+     top-k at k = 200, 1,024 and 2,048 (the keyed path; two selection
+     rounds at 2,048) at the main path's shape, and kernels 4 and 5 at
+     k = 2,048.  Decode attention runs at the span edges (positions 0,
+     span - 1, span, S - 1, a slot with no valid key) and with spans of
+     64 and 128 rows; flash attention at an S that is not a multiple of
+     its 64-key tile.
   5. mamba2-370m (slice 3), at its published widths with seeded weights:
      a. `repro_torch.launch.train.main` trains 10 steps in bf16 (batch 4 x
         2,048, zipf stream) with the counters zeroed just before and read
@@ -67,6 +74,7 @@ import math
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -102,6 +110,14 @@ IVF_MAIN = dict(N=70_000, C=265, L=400, D=768, Q=16, P=8, k=100, kk=800,
 
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def case_gen(torch, seed, *key):
+    """A generator of its own for one phase-3 case, seeded from the run's
+    ``--seed`` and the case's parameters (``key``), so no case's inputs
+    depend on which cases drew before it."""
+    h = zlib.crc32(repr(key).encode())
+    return torch.Generator(device="cuda").manual_seed(seed * 2**32 + h)
 
 
 def bound(nbytes, flops, dtype):
@@ -177,6 +193,23 @@ def knn_case(torch, timer, Q, N, D, k, dtype, tol, gen):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
+def attn_err(torch, out, ref, tol, dtype):
+    """An attention kernel's output against the plain version's f32 result
+    on the same input values.  Returns the largest |out - ref|, the largest
+    ratio of |out - ref| to its limit (<= 1 passes) and |ref| where that
+    ratio peaks.  The limit is ``tol``; for a bf16 output it rises to
+    bf16's own rounding bound, 2^-8 |ref| plus the f32 limit 2e-5, where
+    that is larger (|ref| > 2.55): no bf16 output lies closer to the f32
+    value than its rounding, half a bf16 step, 0.0156 for |ref| in [4, 8)."""
+    d = (out.float() - ref).abs()
+    lim = torch.full_like(ref, tol)
+    if dtype == torch.bfloat16:
+        lim = torch.maximum(lim, ref.abs() * 2.0 ** -8 + 2e-5)
+    r = (d / lim).flatten()
+    i = int(r.argmax())
+    return float(d.max()), float(r[i]), float(ref.abs().flatten()[i])
+
+
 def live_pairs(Sq, Sk, causal, window):
     n = 0
     for i in range(Sq):
@@ -196,11 +229,12 @@ def flash_case(torch, timer, B, S, H, KV, hd, dtype, causal, window, tol,
     k = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
     v = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
     out = flash_attention(q, k, v, causal=causal, window=window)
-    ref = flash_attention_reference(q, k, v, causal=causal, window=window)
+    ref = flash_attention_reference(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window)
     torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
-    ref_std = float(ref.float().std())
-    assert err <= tol, (err, tol)
+    err, ratio, ref_at = attn_err(torch, out, ref, tol, dtype)
+    ref_std = float(ref.std())
+    assert ratio <= 1.0, (err, ratio, ref_at, tol)
     ms = timer(lambda: flash_attention(q, k, v, causal=causal, window=window))
     plain = timer(lambda: flash_attention_reference(q, k, v, causal=causal,
                                                     window=window), iters=3)
@@ -219,7 +253,8 @@ def flash_case(torch, timer, B, S, H, KV, hd, dtype, causal, window, tol,
                        dtype)
     return dict(case=f"B={B} S={S} H={H} KV={KV} hd={hd} {str(dtype)[6:]} "
                      f"causal={causal} window={window}",
-                max_abs_err=err, tol=tol, ref_std=ref_std, ms=ms,
+                max_abs_err=err, err_over_tol=ratio, ref_at_worst=ref_at,
+                tol=tol, ref_std=ref_std, ms=ms,
                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -234,11 +269,13 @@ def decode_case(torch, timer, pos, S, KV, G, hd, dtype, ring, tol, gen):
     cv = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
     p = torch.tensor(pos, dtype=torch.int32, device="cuda")
     out = decode_attention(q, ck, cv, p, ring=ring)
-    ref = decode_attention_reference(q, ck, cv, p, ring=ring)
+    ref = decode_attention_reference(q.float(), ck.float(), cv.float(), p,
+                                     ring=ring)
     torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
-    ref_std = float(ref.float().std())
-    assert err <= tol, (err, tol)
+    err, ratio, ref_at = attn_err(torch, out, ref, tol, dtype)
+    ref_std = float(ref.std())
+    assert ratio <= 1.0, (err, ratio, ref_at, tol)
+    assert all(bool((out[b] == 0).all()) for b in range(B) if pos[b] < 0)
     ms = timer(lambda: decode_attention(q, ck, cv, p, ring=ring))
     plain = timer(lambda: decode_attention_reference(q, ck, cv, p, ring=ring))
     s_idx = torch.arange(S, device="cuda")[None, :]
@@ -255,16 +292,22 @@ def decode_case(torch, timer, pos, S, KV, G, hd, dtype, ring, tol, gen):
                        + 4 * B, 4 * H * hd * n_valid, dtype)
     return dict(case=f"pos={pos} S={S} KV={KV} G={G} hd={hd} "
                      f"{str(dtype)[6:]} ring={ring}",
-                max_abs_err=err, tol=tol, ref_std=ref_std, ms=ms,
+                max_abs_err=err, err_over_tol=ratio, ref_at_worst=ref_at,
+                tol=tol, ref_std=ref_std, ms=ms,
                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
 def ssd_case(torch, timer, Bs, H, nc, Q, P, G, N, valid, gen, label):
-    """Kernel 6 and its gradient against their plain versions on one
-    input, rtol / atol 3e-4 (the reference's SSD kernel test).  ``valid``
-    zeroes the rows at or past it, as `ssm_full` pads a short tail.  Bounds
-    count each input read once, each output written once, and the
-    products the causal mask leaves: Q (Q + 1) / 2 (i, j) pairs a block."""
+    """Kernel 6 and its gradient against their plain versions evaluated in
+    float64 on the same f32 inputs, rtol / atol 3e-4 (the reference's SSD
+    kernel test).  The f32 plain version is not the yardstick: gA sums
+    terms far larger than itself, and in f32 the plain version's gA can
+    miss that tolerance by several times (`bwd_kernel.cu`, which sums them
+    in f64); its distance to float64 is printed beside the check
+    (``plain_f32_err_over_tol``).  ``valid`` zeroes the rows at or past
+    it, as `ssm_full` pads a short tail.  Bounds count each input read
+    once, each output written once, and the products the causal mask
+    leaves: Q (Q + 1) / 2 (i, j) pairs a block."""
     from repro_torch.kernels.ssd_scan.ops import ssd_intra_bwd, ssd_intra_fwd
     from repro_torch.kernels.ssd_scan.ref import (ssd_intra_bwd_plain,
                                                   ssd_intra_plain)
@@ -283,22 +326,30 @@ def ssd_case(torch, timer, Bs, H, nc, Q, P, G, N, valid, gen, label):
     ref = ssd_intra_plain(*ins)
     g = ssd_intra_bwd(*ins, ref[2], gy, gst, gcs)
     gr = ssd_intra_bwd_plain(*ins, ref[2], gy, gst, gcs)
+    f64 = lambda ts: [t.double() for t in ts]
+    exact = (ssd_intra_plain(*f64(ins)),
+             ssd_intra_bwd_plain(*f64((*ins, ref[2], gy, gst, gcs))))
     torch.cuda.synchronize()
-    # max abs error, and the largest |kernel - plain| / (atol + rtol |plain|)
-    # (<= 1 passes): gradients such as gA sum thousands of terms and reach
-    # 1e3-1e4, so their absolute error says little alone
-    errs, ratios = [], []
-    for a, b in ((out, ref), (g, gr)):
+
+    # max abs error, and the largest |kernel - exact| / (atol + rtol |exact|)
+    # (<= 1 passes): gradients such as gA reach 1e3-1e4, so their absolute
+    # error says little alone
+    def worst(a, b):
         e = r = 0.0
         for u, v in zip(a, b):
             assert u.shape == v.shape
-            d = (u - v).abs()
+            d = (u.double() - v.double()).abs()
             e = max(e, float(d.max()))
-            r = max(r, float((d / (3e-4 + 3e-4 * v.abs())).max()))
+            r = max(r, float((d / (3e-4 + 3e-4 * v.double().abs())).max()))
+        return e, r
+    errs, ratios, plain_f32 = [], [], []
+    for a, b, c in ((out, ref, exact[0]), (g, gr, exact[1])):
+        e, r = worst(a, c)
         assert r <= 1.0, (label, e, r)
         errs.append(e)
         ratios.append(r)
-    del gr
+        plain_f32.append(worst(b, c)[1])
+    del gr, exact
     fwd_ms = timer(lambda: ssd_intra_fwd(*ins))
     fwd_plain = timer(lambda: ssd_intra_plain(*ins), iters=3)
     bwd_ms = timer(lambda: ssd_intra_bwd(*ins, ref[2], gy, gst, gcs))
@@ -314,10 +365,13 @@ def ssd_case(torch, timer, Bs, H, nc, Q, P, G, N, valid, gen, label):
                        torch.float32)
     case = f"{label}: B={Bs} H={H} nc={nc} Q={Q} P={P} G={G} N={N}" + (
         f" valid={valid}" if valid is not None else "")
-    common = dict(case=case, tol="rtol 3e-4, atol 3e-4", library_ms=None)
+    common = dict(case=case, tol="rtol 3e-4, atol 3e-4 to float64",
+                  library_ms=None)
     return (dict(common, max_abs_err=errs[0], err_over_tol=ratios[0],
+                 plain_f32_err_over_tol=plain_f32[0],
                  ms=fwd_ms, plain_ms=fwd_plain, bound_ms=f_ms, bound_by=f_by),
             dict(common, max_abs_err=errs[1], err_over_tol=ratios[1],
+                 plain_f32_err_over_tol=plain_f32[1],
                  ms=bwd_ms, plain_ms=bwd_plain, bound_ms=b_ms, bound_by=b_by))
 
 
@@ -332,7 +386,8 @@ def phase_ssd_kernels(torch, timer, gen):
             (2, 32, 2, 256, 64, 2, 128, None, "G=2"),
             (2, 32, 1, 12, 64, 1, 128, None, "Q=12"),
             (2, 32, 2, 256, 64, 1, 128, 384, "S=384 padded")]):
-        fwd, bwd = ssd_case(torch, timer, *args[:8], gen, args[8])
+        fwd, bwd = ssd_case(torch, timer, *args[:8], gen("ssd", *args),
+                            args[8])
         emit("kernel", name="ssd_intra", **fwd)
         emit("kernel", name="ssd_intra_bwd", **bwd)
         if i == 0:
@@ -340,49 +395,68 @@ def phase_ssd_kernels(torch, timer, gen):
     return main
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, seed):
+    """Every kernel against its plain version at the main path's shapes and
+    the edge cases; each case draws its inputs from a generator of its own
+    (`case_gen`)."""
     timer = Timer(torch)
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = lambda *key: case_gen(torch, seed, *key)
     f32, bf16 = torch.float32, torch.bfloat16
     main = {}
     # knn: the main path's shape first (16 texts against the 70,000-row
-    # train split of 100,000 support rows), then the wider cases
+    # train split of 100,000 support rows), then the wider cases, then the
+    # keyed pass above k = 128 and the shared selection, in two rounds at
+    # k = 2,048
     for i, (Q, N, k, dt, tol) in enumerate([
             (16, 70_000, 10, f32, 1e-5), (64, 100_000, 10, f32, 1e-5),
             (64, 100_000, 100, f32, 1e-5), (33, 100_003, 100, f32, 1e-5),
-            (7, 50, 64, f32, 1e-5), (64, 100_000, 10, bf16, 1e-4)]):
-        r = knn_case(torch, timer, Q, N, 768, k, dt, tol, gen)
+            (7, 50, 64, f32, 1e-5), (64, 100_000, 10, bf16, 1e-4),
+            (16, 70_000, 200, f32, 1e-5), (16, 70_000, 1024, f32, 1e-5),
+            (16, 70_000, 2048, f32, 1e-5)]):
+        r = knn_case(torch, timer, Q, N, 768, k, dt, tol,
+                     gen("knn", Q, N, k, str(dt)))
         emit("kernel", name="knn_topk", **r)
         if i == 0:
             main["knn_topk"] = r
     # flash: the query encoder's shape (a chunk of 1024 texts), then bf16
-    # GQA with hd=128 and a window, and danube's hd=80.  The plain versions
-    # compute in f32; the bf16 limits (1e-2) sit near the bf16 rounding of
-    # outputs of magnitude ~1, well below the outputs' own spread
-    # (ref_std), so a dropped KV tile fails the check.
+    # GQA with hd=128 and a window, danube's hd=80, S that are not a
+    # multiple of the 64-key tile, and one key tile of 40 keys in bf16 with
+    # GQA and a window.  The plain versions compute in f32 and round to q's
+    # dtype last; a bf16 kernel output is held against that f32 result (the
+    # plain version on the same values in f32), since two results rounded
+    # to bf16 apart can differ by a whole bf16 step.  The bf16 limit (1e-2,
+    # raised to bf16's own rounding where |o| > 2.55: `attn_err`) sits well
+    # below the outputs' own spread (ref_std), so a dropped KV tile fails
+    # the check.
     for i, args in enumerate([
             (1024, 64, 12, 12, 64, f32, True, 0, 2e-5),
             (4, 1024, 32, 8, 128, bf16, True, 256, 1e-2),
-            (2, 256, 32, 8, 80, f32, True, 64, 2e-5)]):
-        r = flash_case(torch, timer, *args, gen=gen)
+            (2, 256, 32, 8, 80, f32, True, 64, 2e-5),
+            (8, 100, 12, 4, 64, f32, True, 0, 2e-5),
+            (2, 200, 8, 8, 128, f32, False, 0, 2e-5),
+            (256, 40, 16, 4, 128, bf16, True, 16, 1e-2)]):
+        r = flash_case(torch, timer, *args,
+                       gen=gen("flash", *args[:5], str(args[5]), *args[6:8]))
         emit("kernel", name="flash_attention", **r)
         if i == 0:
             main["flash_attention"] = r
-    # decode: qwen3-4b's decode shape, then danube's hd=80 ring past S
+    # decode: qwen3-4b's decode shape, danube's hd=80 ring past S, then the
+    # span edges of the 64-row spans (0, one span - 1, one span, S - 1) and
+    # slots with no valid key
     for i, args in enumerate([
             ([100, 511, 7, 300], 512, 8, 4, 128, bf16, False, 1e-2),
             ([700, 511, 1030, 5], 512, 8, 4, 80, bf16, True, 1e-2),
-            ([700, 63, 64, 0], 64, 2, 2, 64, f32, True, 2e-5)]):
-        r = decode_case(torch, timer, *args, gen=gen)
+            ([700, 63, 64, 0], 64, 2, 2, 64, f32, True, 2e-5),
+            ([0, 63, 64, 511], 512, 8, 4, 128, bf16, False, 1e-2),
+            ([-1, 127, 128, 300], 512, 8, 4, 128, bf16, True, 1e-2),
+            ([-1, 64, 65, 99], 100, 8, 4, 64, f32, False, 2e-5)]):
+        r = decode_case(torch, timer, *args,
+                        gen=gen("decode", *args[:5], str(args[5]), args[6]))
         emit("kernel", name="decode_attention", **r)
         if i == 0:
             main["decode_attention"] = r
     main.update(phase_ivf_kernels(torch, timer, gen))
     main.update(phase_ssd_kernels(torch, timer, gen))
-    # exact top-k above k = 128: the keyed pass and the shared selection
-    for k in (200, 1024):
-        emit("kernel", name="knn_topk", **knn_case(
-            torch, timer, 16, 70_000, 768, k, f32, 1e-5, gen))
     return main
 
 
@@ -503,8 +577,10 @@ def adc_case(torch, timer, index, Q, P, k, gen, label, q=None):
 
 def phase_ivf_kernels(torch, timer, gen):
     """Kernels 4 and 5 at the main path's shape, then the edge cases:
-    nbits 4, Q = 1 and 64, nprobe = C on a small index, and probed lists
-    holding fewer than k rows (the tail must be -inf / -1)."""
+    nbits 4, Q = 1 and 64, nprobe = C on a small index, probed lists
+    holding fewer than k rows (the tail must be -inf / -1), and k = 2,048
+    of the main shape's 8 x 400 candidates (two selection rounds).
+    ``gen(*key)`` gives each case its generator.  Returns the main cases."""
     import numpy as np
     g = IVF_MAIN
     counts = np.full(g["C"], g["N"] // g["C"])
@@ -512,46 +588,58 @@ def phase_ivf_kernels(torch, timer, gen):
     main = {}
     ivf, _ = synthetic_index(np, False, g["C"], g["L"], g["D"], counts)
     for i, (Q, label) in enumerate([(16, "main"), (1, "Q=1"), (64, "Q=64")]):
-        r = ivf_case(torch, timer, ivf, Q, g["P"], g["k"], 1e-5, gen, label)
+        r = ivf_case(torch, timer, ivf, Q, g["P"], g["k"], 1e-5,
+                     gen("ivf", label), label)
         emit("kernel", name="ivf_topk", **r)
         if i == 0:
             main["ivf_topk"] = r
-    del ivf
     small_counts = np.full(24, 40)
     small, rows = synthetic_index(np, False, 24, 48, 128, small_counts,
                                   seed=1)
     emit("kernel", name="ivf_topk", **ivf_case(
-        torch, timer, small, 16, 24, 100, 1e-5, gen, "nprobe=C", rows=rows))
+        torch, timer, small, 16, 24, 100, 1e-5, gen("ivf", "nprobe=C"),
+        "nprobe=C", rows=rows))
     # 3-6 valid rows in lists of 64: more candidates (128) than k but
     # fewer valid ones, so the selection's k-th key is an empty slot's
     short, _ = synthetic_index(np, False, 32, 64, 128,
                                np.arange(32) % 4 + 3, seed=2)
-    r = ivf_case(torch, timer, short, 16, 2, 100, 1e-5, gen, "short lists")
+    r = ivf_case(torch, timer, short, 16, 2, 100, 1e-5,
+                 gen("ivf", "short lists"), "short lists")
     assert r["empty_slots"] > 0
     emit("kernel", name="ivf_topk", **r)
+    emit("kernel", name="ivf_topk", **ivf_case(
+        torch, timer, ivf, 16, g["P"], 2048, 1e-5, gen("ivf", "k=2048"),
+        "k=2048"))
+    del ivf
 
     pq8, _ = synthetic_index(np, True, g["C"], g["L"], g["D"], counts,
                              m=g["m"], nbits=8)
     for i, (Q, label) in enumerate([(16, "main"), (1, "Q=1"), (64, "Q=64")]):
-        r = adc_case(torch, timer, pq8, Q, g["P"], g["kk"], gen, label)
+        r = adc_case(torch, timer, pq8, Q, g["P"], g["kk"],
+                     gen("ivfpq", label), label)
         emit("kernel", name="ivfpq_adc", **r)
         if i == 0:
             main["ivfpq_adc"] = r
-    del pq8
     pq4, _ = synthetic_index(np, True, g["C"], g["L"], g["D"], counts,
                              m=g["m"], nbits=4, seed=3)
     emit("kernel", name="ivfpq_adc", **adc_case(
-        torch, timer, pq4, 16, g["P"], g["kk"], gen, "nbits=4"))
+        torch, timer, pq4, 16, g["P"], g["kk"], gen("ivfpq", "nbits=4"),
+        "nbits=4"))
     del pq4
     small, _ = synthetic_index(np, True, 24, 48, 128, small_counts, m=16,
                                seed=1)
     emit("kernel", name="ivfpq_adc", **adc_case(
-        torch, timer, small, 16, 24, 100, gen, "nprobe=C"))
+        torch, timer, small, 16, 24, 100, gen("ivfpq", "nprobe=C"),
+        "nprobe=C"))
     short, _ = synthetic_index(np, True, 32, 64, 128, np.arange(32) % 4 + 3,
                                m=16, seed=2)
-    r = adc_case(torch, timer, short, 16, 2, 100, gen, "short lists")
+    r = adc_case(torch, timer, short, 16, 2, 100, gen("ivfpq", "short lists"),
+                 "short lists")
     assert r["empty_slots"] > 0
     emit("kernel", name="ivfpq_adc", **r)
+    emit("kernel", name="ivfpq_adc", **adc_case(
+        torch, timer, pq8, 16, g["P"], 2048, gen("ivfpq", "k=2048"),
+        "k=2048"))
     return main
 
 
@@ -701,6 +789,15 @@ def phase_main_path(torch):
          route_choices_equal=int((out[0] == tail[0]).sum()),
          rows_with_tied_neighbour_swaps=int((~same).sum()),
          reduced_greedy_tokens_equal=True)
+    # where a serve's device time goes: one profiled window of 4 of the
+    # texts (one at each lambda) with 4 new tokens each, after a warm one
+    prof = device_profile(
+        torch, lambda: svc.serve_texts(texts[:4], lam=lams[:4],
+                                       max_new_tokens=4),
+        top=12, groups={"decode_attention": "decode_",
+                        "flash_attention": "flash_fwd",
+                        "knn_topk": "knn_"})
+    emit("serve_profile", texts=4, max_new_tokens=4, window=prof)
     ctx = dict(engines=engines, encoder=encoder, ds=ds, texts=texts,
                lams=lams)
     return launches, ctx
@@ -732,13 +829,14 @@ def route_walls(torch, fn, reps=7):
     return dict(median_s=walls[reps // 2], min_s=walls[0], max_s=walls[-1])
 
 
-def device_profile(torch, fn, top=8):
+def device_profile(torch, fn, top=8, groups=None):
     """One call of ``fn`` (after a warm one) under `torch.profiler`: the
     device time of each kernel by name, their sum, the call's host wall
     with the profiler on, and the device's idle share of that one window
-    (1 - kernel time / wall).  Only a fault of the profiler itself is
-    caught, and then the measurement reads "not measured"; a fault of
-    ``fn`` fails the run."""
+    (1 - kernel time / wall); ``groups`` (label -> substring of kernel
+    names) adds each group's device ms and launches.  Only a fault of the
+    profiler itself is caught, and then the measurement reads "not
+    measured"; a fault of ``fn`` fails the run."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -769,10 +867,15 @@ def device_profile(torch, fn, top=8):
         return {"not_measured": "the profiler saw no device kernel"}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    return dict(wall_with_profiler_s=wall, device_kernel_s=busy,
-                device_idle_share=1.0 - busy / wall,
-                kernels=[dict(name=k[:70], ms=t / 1e3, count=c)
-                         for t, k, c in rows[:top]])
+    out = dict(wall_with_profiler_s=wall, device_kernel_s=busy,
+               device_idle_share=1.0 - busy / wall,
+               kernels=[dict(name=k[:70], ms=t / 1e3, count=c)
+                        for t, k, c in rows[:top]])
+    for label, sub in (groups or {}).items():
+        hit = [r for r in rows if sub in r[1]]
+        out[label] = dict(ms=sum(r[0] for r in hit) / 1e3,
+                          count=sum(r[2] for r in hit))
+    return out
 
 
 def probe_witness(torch, np, router, qn, X, exact_s, tol=1e-5):
@@ -1113,6 +1216,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
                     help="stop after the kernel checks (phases 1-3)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 3's random inputs (default 0)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1138,7 +1243,7 @@ def main(argv=None):
     report = _build.build_all()
     emit("build", seconds=report.pop("total_s"), ptxas=report)
 
-    main_cases = phase_kernels(torch)
+    main_cases = phase_kernels(torch, args.seed)
     launches = {n: None for n in main_cases}
     if not args.kernels:
         # each kernel's launches are read on the path that introduced it

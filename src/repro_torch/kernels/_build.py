@@ -97,15 +97,16 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every kernel not yet built, one nvcc per source, all started
     together.  Returns the wall seconds of the whole build under "total"
     and the ptxas register, shared-memory and spill report of each new
-    build."""
+    build, each entry function's (mangled) name ahead of its report."""
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names}
     logs = {n: _finish(n, *started[n]) for n in names}
     report = {"total_s": time.perf_counter() - t0}
     for n, log in logs.items():
-        report[n] = [ln.strip() for ln in log.splitlines()
+        report[n] = [ln.strip().replace("ptxas info    : ", "")
+                     for ln in log.splitlines()
                      if ("Used" in ln and "registers" in ln)
-                     or "spill" in ln]
+                     or "spill" in ln or "Compiling entry function" in ln]
     return report
 
 

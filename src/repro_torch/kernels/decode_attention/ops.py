@@ -4,7 +4,9 @@ position vector instead of one scalar position.
 
 q (B, H, hd), cache_k / cache_v (B, S, KV, hd), pos (B,) int32 ->
 (B, H, hd) in q.dtype.  CPU tensors take the plain version (`ref.py`);
-CUDA tensors launch the kernel or raise.
+CUDA tensors launch the kernels or raise: one call launches the split
+kernel over spans of `SPLIT` cache rows and the combine kernel that merges
+the spans' partials (`kernel.cu`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from .ref import decode_attention_reference
 HEAD_DIMS = (64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 GMAX = 16      # kernel.cu: GMAX, query heads per KV head
+SPLIT = 64     # kernel.cu: SPLIT, cache rows a split block owns
 
 
 def _lib():
@@ -26,7 +29,7 @@ def _lib():
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
     return lib
 
@@ -61,19 +64,28 @@ def decode_attention(q, cache_k, cache_v, pos, *, ring=False):
                          f"{HEAD_DIMS} and H/KV={G} in [1, {GMAX}]")
     if not all(t.is_contiguous() for t in (q, cache_k, cache_v, pos)):
         raise ValueError("decode_attention: inputs must be contiguous")
-    if B > 65535:
-        raise ValueError(f"decode_attention: B={B} must be <= 65535 (grid axis)")
+    if cache_k.data_ptr() % 16 or cache_v.data_ptr() % 16:
+        raise ValueError("decode_attention: the caches must start on a "
+                         "16-byte boundary (16-byte row copies)")
+    if B > 65535 or KV > 65535:
+        raise ValueError(f"decode_attention: B={B} and KV={KV} must be <= "
+                         f"65535 (grid axes)")
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    if out.numel() == 0 or S == 0:
+        return out.zero_()
+    n_split = -(-S // SPLIT)
+    part = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     err = _lib().decode_attention_launch(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), int(q.dtype == torch.bfloat16), B, S, KV, G, hd,
-        int(bool(ring)), 1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
+        out.data_ptr(), part.data_ptr(), int(q.dtype == torch.bfloat16), B,
+        S, KV, G, hd, int(bool(ring)), 1.0 / math.sqrt(hd),
+        _build.stream_ptr(q.device))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out
 
 
-#: kernel launches through this wrapper (one per call on a CUDA tensor)
+#: calls that launched the kernels (one per call on a CUDA tensor, which
+#: launches the split kernel and then the combine kernel)
 decode_attention.launches = 0

@@ -55,6 +55,9 @@ def flash_attention(q, k, v, *, causal=True, window=0):
                          f"{HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_attention: q, k, v must start on a 16-byte "
+                         "boundary (16-byte row copies)")
     if B > 65535 or H > 65535:
         raise ValueError(f"flash_attention: B={B} and H={H} must be <= 65535 "
                          f"(grid axes)")

@@ -23,7 +23,8 @@
 //           probed list (one row at a time across the warp's lanes, float4
 //           loads, butterfly reduction), writing one 64-bit selection key
 //           per candidate (select.cuh).
-//   pass 2  one block per query selects the top-k of its nprobe x L keys.
+//   pass 2  one block per query selects the top-k of its nprobe x L keys
+//           (in rounds of 1,024 for a larger k).
 // Queries that probe the same list read it again; at serving batch sizes
 // the repeats mostly hit the 50 MB L2.  Reading each list once for all
 // queries that probe it (a list-major pass) is left to a later change.
@@ -96,7 +97,7 @@ int ivf_topk_launch(const void* q, const void* q_probe, const void* sup,
                     const void* ids, const void* inv, void* keys, void* out_s,
                     void* out_i, int Q, int P, int C, int L, int D, int k,
                     void* stream) {
-  if (k < 1 || k > SEL_KMAX || Q < 1 || P < 1 || L < 1 || D < 1)
+  if (k < 1 || Q < 1 || P < 1 || L < 1 || D < 1)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const int smem = D * (int)sizeof(float);
@@ -115,9 +116,8 @@ int ivf_topk_launch(const void* q, const void* q_probe, const void* sup,
                           static_cast<const float*>(inv), kp, C, L, D, P, vec);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  select_topk_kernel<<<Q, SEL_THREADS, 0, st>>>(
-      kp, P * L, k, static_cast<float*>(out_s), static_cast<int*>(out_i));
-  return (int)cudaGetLastError();
+  return (int)select_topk(kp, Q, P * L, k, static_cast<float*>(out_s),
+                          static_cast<int*>(out_i), st);
 }
 
 }  // extern "C"

@@ -55,7 +55,6 @@ _LANE_PAD = 8
 #: always takes the kernel and a CPU tensor its plain version.
 BACKENDS = (None, "fused", "host", "tiles", "pallas")
 
-KMAX = 1024                      # select.cuh: SEL_KMAX
 LUT_MAX_BYTES = 200 * 1024       # pq_kernel.cu: LUT_MAX_BYTES
 _GRID_YZ_MAX = 65535
 
@@ -380,8 +379,8 @@ def _check_common(name, queries, q_probe, k, tensors):
                          f"{tuple(q_probe.shape)}")
     if any(t.device != queries.device for t in (q_probe, *tensors)):
         raise ValueError(f"{name}: all inputs must lie on one device")
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"{name} supports 1 <= k <= {KMAX}, got k={k}")
+    if k < 1:
+        raise ValueError(f"{name} needs k >= 1, got k={k}")
     dev = queries.device.type
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {queries.device}")
@@ -441,7 +440,7 @@ def ivf_scan(queries, q_probe, sup_cm, ids_cm, inv_cm, k: int):
 
 
 #: calls that launched kernel 4 (one per call on a CUDA tensor: the scan
-#: pass and the per-query selection pass)
+#: pass and ceil(k / 1,024) rounds of the per-query selection pass)
 ivf_scan.launches = 0
 
 
@@ -501,8 +500,8 @@ def ivfpq_adc(queries, q_probe, codes_cm, ids_cm, inv_cm, anchors, codebooks,
     return out_s, out_i
 
 
-#: calls that launched kernel 5 (one per call on a CUDA tensor: the table,
-#: scan and per-query selection passes)
+#: calls that launched kernel 5 (one per call on a CUDA tensor: the table
+#: and scan passes and ceil(k / 1,024) rounds of the per-query selection)
 ivfpq_adc.launches = 0
 
 

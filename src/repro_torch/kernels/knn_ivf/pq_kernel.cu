@@ -121,7 +121,7 @@ int ivfpq_adc_launch(const void* q, const void* q_probe, const void* codes,
                      const void* cb, void* lut, void* keys, void* out_s,
                      void* out_i, int Q, int P, int C, int MB, int L, int D,
                      int m, int nbits, int k, void* stream) {
-  if (k < 1 || k > SEL_KMAX || Q < 1 || P < 1 || L < 1 || m < 1 || D % m ||
+  if (k < 1 || Q < 1 || P < 1 || L < 1 || m < 1 || D % m ||
       !(nbits == 8 ? MB == m : nbits == 4 && 2 * MB == m))
     return (int)cudaErrorInvalidValue;
   const int K = 1 << nbits;
@@ -147,9 +147,8 @@ int ivfpq_adc_launch(const void* q, const void* q_probe, const void* codes,
       kp, C, MB, L, D, P, m, nbits);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  select_topk_kernel<<<Q, SEL_THREADS, 0, st>>>(
-      kp, P * L, k, static_cast<float*>(out_s), static_cast<int*>(out_i));
-  return (int)cudaGetLastError();
+  return (int)select_topk(kp, Q, P * L, k, static_cast<float*>(out_s),
+                          static_cast<int*>(out_i), st);
 }
 
 }  // extern "C"

@@ -15,8 +15,15 @@
 // Selection: one block per query finds the k-th largest key by radix
 // select (8 passes of 8-bit digits with a shared-memory histogram), keeps
 // the keys at or above it, and sorts them with a bitonic sort in shared
-// memory.  k <= KMAX; the candidate count is unbounded (nprobe may equal
-// the number of lists).
+// memory.  One pass keeps at most SEL_KMAX keys in shared memory, so a
+// larger k runs in rounds (`select_topk`): round r takes the top
+// min(SEL_KMAX, k - SEL_KMAX r) keys strictly below the last key of round
+// r - 1 (its ceiling, rebuilt from that round's last output slot) and
+// writes the next column range of the same (Q, k) output.  Keys are unique
+// (~id in the low bits), so the rounds are exact and keep the tie order;
+// once a round's last slot is empty, every later round finds no key below
+// the ceiling 0 and writes -inf / -1.  The candidate count is unbounded
+// (nprobe may equal the number of lists).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,10 +53,14 @@ __device__ __forceinline__ int key_id(unsigned long long key) {
   return (int)(0xFFFFFFFFu - (unsigned int)(key & 0xFFFFFFFFull));
 }
 
-// keys (Q, n) -> out_s / out_i (Q, k), sorted descending, -inf / -1 tail.
+// One round: keys (Q, n) -> columns [col0, col0 + k) of out_s / out_i
+// (Q, ld), the top k keys strictly below the ceiling (all keys in round 0;
+// afterwards the key of column col0 - 1), sorted descending, -inf / -1 in
+// slots no key fills.  k <= SEL_KMAX.
 __global__ void __launch_bounds__(SEL_THREADS)
 select_topk_kernel(const unsigned long long* __restrict__ keys, int n, int k,
-                   float* __restrict__ out_s, int* __restrict__ out_i) {
+                   int col0, int ld, float* __restrict__ out_s,
+                   int* __restrict__ out_i) {
   __shared__ unsigned int hist[256];
   __shared__ unsigned long long sel[SEL_KMAX];
   __shared__ unsigned long long s_prefix;
@@ -57,8 +68,16 @@ select_topk_kernel(const unsigned long long* __restrict__ keys, int n, int k,
   __shared__ int s_cnt;
   const int tid = threadIdx.x;
   const unsigned long long* row = keys + (size_t)blockIdx.x * n;
+  const size_t base = (size_t)blockIdx.x * ld;
+  // no key reaches ~0 (its score bits would be a NaN, which maps to key 0)
+  unsigned long long ceil = ~0ull;
+  if (col0 > 0) {
+    const int id = out_i[base + col0 - 1];
+    ceil = id < 0 ? 0ull : make_key(out_s[base + col0 - 1], id, true);
+  }
 
-  // the k-th largest key; with n <= k every candidate is kept (thr = 0)
+  // the k-th largest key below the ceiling; with n <= k every candidate
+  // below it is kept (thr = 0)
   unsigned long long thr = 0ull;
   if (n > k) {
     unsigned long long prefix = 0ull, mask = 0ull;
@@ -68,7 +87,7 @@ select_topk_kernel(const unsigned long long* __restrict__ keys, int n, int k,
       __syncthreads();
       for (int i = tid; i < n; i += SEL_THREADS) {
         const unsigned long long key = row[i];
-        if ((key & mask) == prefix)
+        if ((key & mask) == prefix && key < ceil)
           atomicAdd(&hist[(unsigned int)(key >> shift) & 0xFFu], 1u);
       }
       __syncthreads();
@@ -93,7 +112,7 @@ select_topk_kernel(const unsigned long long* __restrict__ keys, int n, int k,
   __syncthreads();
   for (int i = tid; i < n; i += SEL_THREADS) {
     const unsigned long long key = row[i];
-    if (key > thr || (key == thr && thr != 0ull)) {
+    if (key < ceil && (key > thr || (key == thr && thr != 0ull))) {
       const int pos = atomicAdd(&s_cnt, 1);
       if (pos < k) sel[pos] = key;
     }
@@ -121,12 +140,27 @@ select_topk_kernel(const unsigned long long* __restrict__ keys, int n, int k,
       __syncthreads();
     }
   }
-  const size_t base = (size_t)blockIdx.x * k;
   for (int t = tid; t < k; t += SEL_THREADS) {
     const unsigned long long key = sel[t];
-    out_s[base + t] = key ? key_score(key) : -CUDART_INF_F;
-    out_i[base + t] = key ? key_id(key) : -1;
+    out_s[base + col0 + t] = key ? key_score(key) : -CUDART_INF_F;
+    out_i[base + col0 + t] = key ? key_id(key) : -1;
   }
+}
+
+// keys (Q, n) -> out_s / out_i (Q, k) for any k >= 1: ceil(k / SEL_KMAX)
+// rounds of `select_topk_kernel` on one stream, each reading the previous
+// round's last column as its ceiling.
+inline cudaError_t select_topk(const unsigned long long* keys, int Q, int n,
+                               int k, float* out_s, int* out_i,
+                               cudaStream_t st) {
+  for (int col0 = 0; col0 < k; col0 += SEL_KMAX) {
+    const int kr = k - col0 < SEL_KMAX ? k - col0 : SEL_KMAX;
+    select_topk_kernel<<<Q, SEL_THREADS, 0, st>>>(keys, n, kr, col0, k,
+                                                  out_s, out_i);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace

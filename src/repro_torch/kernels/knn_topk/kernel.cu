@@ -27,11 +27,11 @@
 // Ragged Q and N edges are masked in the kernel; no padding is needed.
 // Ties are broken towards the lower row id, like `lax.top_k`.
 //
-// k > 128 (up to 1,024): the warp selection keeps k candidates in
-// registers and stops at 128, so pass 1 instead writes one 64-bit key per
-// (query, support row) (order-preserving score bits, then ~id) and the
-// shared per-query radix select of the IVF kernels (`select.cuh`) picks the
-// top k, ties again to the lower id.
+// k > 128: the warp selection keeps k candidates in registers and stops
+// at 128, so pass 1 instead writes one 64-bit key per (query, support row)
+// (order-preserving score bits, then ~id) and the shared per-query radix
+// select of the IVF kernels (`select.cuh`, in rounds of 1,024 for a larger
+// k) picks the top k, ties again to the lower id.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -266,8 +266,7 @@ int launch(const float* q, const T* s, float* out_s, int* out_i,
     cudaError_t e = chunk_pass<T, true>(q, s, nullptr, nullptr, keys, Q, N, D,
                                         k, st);
     if (e != cudaSuccess) return (int)e;
-    select_topk_kernel<<<Q, SEL_THREADS, 0, st>>>(keys, N, k, out_s, out_i);
-    return (int)cudaGetLastError();
+    return (int)select_topk(keys, Q, N, k, out_s, out_i, st);
   }
   const int nch = (N + CH - 1) / CH;
   float* dst_s = nch == 1 ? out_s : buf_s0;
@@ -301,12 +300,12 @@ extern "C" {
 
 // q (Q, D) f32; s (N, D) f32 or bf16 (s_bf16 != 0); out (Q, k).
 // k <= 128: buf0 holds (Q, ceil(N / 512), k) candidates, buf1 the first
-// merge level.  128 < k <= 1024: keys holds (Q, N) selection keys.
+// merge level.  k > 128: keys holds (Q, N) selection keys.
 int knn_topk_launch(const void* q, const void* s, int s_bf16, void* out_s,
                     void* out_i, void* buf_s0, void* buf_i0, void* buf_s1,
                     void* buf_i1, void* keys, int Q, int N, int D, int k,
                     void* stream) {
-  if (k < 1 || k > SEL_KMAX) return (int)cudaErrorInvalidValue;
+  if (k < 1) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto qf = static_cast<const float*>(q);
   auto os = static_cast<float*>(out_s);

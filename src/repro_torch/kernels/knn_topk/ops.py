@@ -6,9 +6,9 @@ Contract: scores (Q, k) f32 sorted descending, ids (Q, k) int32, and
 here: callers that want at most N results clamp it themselves, as
 `KNNRouter` does.  CPU tensors take the plain version (`ref.py`), which
 takes any k >= 1, as the reference does; CUDA tensors launch the kernel
-(k <= 128: warp selection per chunk and merges; 128 < k <= 1,024: one key
-per support row and the radix select shared with the IVF kernels) or
-raise.
+(k <= 128: warp selection per chunk and merges; k > 128: one key per
+support row and the radix select shared with the IVF kernels, in rounds of
+1,024) or raise.
 """
 from __future__ import annotations
 
@@ -20,7 +20,6 @@ from .. import _build
 from .ref import knn_topk_reference
 
 KMAX_WARP = 128  # kernel.cu: KMAX, the chunk-and-merge path
-KMAX = 1024      # select.cuh: SEL_KMAX, the keyed path
 _CHUNK = 512   # kernel.cu: CH, support rows per pass-1 block
 _MERGE = 1024  # kernel.cu: MERGE, candidates per warp in a merge pass
 _GRID_Y_MAX = 65535
@@ -51,8 +50,6 @@ def knn_topk(queries: torch.Tensor, support: torch.Tensor, k: int):
         raise ValueError(f"knn_topk needs k >= 1, got k={k}")
     if queries.device.type == "cpu":
         return knn_topk_reference(queries, support, k)
-    if k > KMAX:
-        raise ValueError(f"knn_topk supports 1 <= k <= {KMAX}, got k={k}")
     if queries.device.type != "cuda":
         raise ValueError(f"knn_topk: unsupported device {queries.device}")
     if queries.dtype != torch.float32 \
@@ -94,5 +91,5 @@ def knn_topk(queries: torch.Tensor, support: torch.Tensor, k: int):
 #: calls that launched the kernel (one per call on a CUDA tensor; each call
 #: issues the chunk pass and then merge passes until one list of k is left,
 #: 3 kernels in all at N = 70,000, k = 10; for k > 128 the keyed chunk pass
-#: and one selection pass)
+#: and ceil(k / 1,024) selection rounds)
 knn_topk.launches = 0

@@ -14,7 +14,8 @@
 //   gcs_i += sum_j (gS o S)_ij,  gcs_j -= sum_i (gS o S)_ij
 //   gw_j = sum_p u_jp (B gst^T)_jp:  gcs_j -= gw_j w_j,  gcs_last += sum gw w
 //   gdA = reverse cumsum of gcs,  gdt = gdA A + rowsum(gu o x),  gx = gu dt
-//   gA  = sum_t gdA_t dt_t  (one partial per block; the wrapper sums them)
+//   gA  = sum_t gdA_t dt_t  (one f64 partial per block; the wrapper sums
+//         them in f64)
 // gB and gC are written per head (the wrapper sums a group's heads), so no
 // block shares an output with another and no atomics touch device memory.
 //
@@ -33,15 +34,27 @@
 // column tile's row tiles, the state terms (B gst^T, x gst) are added with
 // gst staged where C_i was.  gcs accumulates in shared memory (row and
 // column sums of gS o S by shared atomics); the reverse cumsum is a
-// block-wide scan.  About 135 KB of shared memory a block.
+// block-wide scan.  About 136 KB of shared memory a block.
+//
+// gcs, gdA and gA accumulate in f64.  gA = sum_s g_s (dt_0 + ... + dt_s)
+// weighs each row's gcs by a prefix sum of dt that reaches ~200 at the
+// training shape, while the row and column sums of gS o S that make up g
+// cancel to a small remainder; so a head's gA (~1e4) is a sum of terms
+// many times larger, and rounding g or gdA to f32 moved gA by up to 2x
+// the 3e-4 tolerance on some random inputs (the f32 plain version by up
+// to 8x).  The products themselves stay f32; only their sums are f64,
+// about 2 f64 adds per (i, j) pair against ~2(N + P) f32 FMAs.
+//
+// ptxas -v (sm_90a): 168 registers, no spills.
 #include <cuda_runtime.h>
 
 #include "ssd_common.cuh"
 
 namespace {
 
+// gacc (f64), red (f64), then the f32 arrays and tiles
 constexpr int SMEM_FLOATS =
-    5 * QMAX + 32 + 2 * TQ * NP + 2 * TQ * PP + 2 * TQ * TP;
+    2 * QMAX + 2 * 32 + 4 * QMAX + 2 * TQ * NP + 2 * TQ * PP + 2 * TQ * TP;
 static_assert(PMAX <= TQ, "gst is staged in the C tile");
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -50,17 +63,17 @@ ssd_intra_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ Cm, const float* __restrict__ cs_in,
                      const float* __restrict__ gy, const float* __restrict__ gst,
                      const float* __restrict__ gcs, float* __restrict__ gx,
-                     float* __restrict__ gdt, float* __restrict__ gA_blk,
+                     float* __restrict__ gdt, double* __restrict__ gA_blk,
                      float* __restrict__ gB, float* __restrict__ gC, int H,
                      int nc, int Q, int P, int G, int N) {
-  extern __shared__ float smem[];
-  float* cs = smem;                 // [QMAX] cumsum of dt A (forward output)
+  extern __shared__ double smem_d[];
+  double* gacc = smem_d;            // [QMAX] gradient of cs, accumulated
+  double* red = gacc + QMAX;        // [32] scan scratch
+  float* cs = reinterpret_cast<float*>(red + 32);  // [QMAX] cumsum of dt A
   float* dts = cs + QMAX;           // [QMAX] dt
   float* ws = dts + QMAX;           // [QMAX] w = exp(cs_last - cs)
-  float* gacc = ws + QMAX;          // [QMAX] gradient of cs, accumulated
-  float* gux = gacc + QMAX;         // [QMAX] rowsum(gu o x)
-  float* red = gux + QMAX;          // [32] scan scratch
-  float* Ci = red + 32;             // [TQ][NP] C rows of the row tile; gst
+  float* gux = ws + QMAX;           // [QMAX] rowsum(gu o x)
+  float* Ci = gux + QMAX;           // [TQ][NP] C rows of the row tile; gst
   float* Bj = Ci + TQ * NP;         // [TQ][NP] B rows of the column tile
   float* GYi = Bj + TQ * NP;        // [TQ][PP] gy rows of the row tile
   float* Xj = GYi + TQ * PP;        // [TQ][PP] x rows of the column tile
@@ -144,11 +157,11 @@ ssd_intra_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
           for (int q = 0; q < 4; ++q) yt[r][q] = fmaf(gv[r], xv[q], yt[r][q]);
       }
-      float colpart[4] = {0.f, 0.f, 0.f, 0.f};
+      double colpart[4] = {0.0, 0.0, 0.0, 0.0};
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int i = ty + 16 * r;
-        float rowpart = 0.f;
+        double rowpart = 0.0;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int j = tx + 16 * q;
@@ -270,7 +283,7 @@ ssd_intra_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       const bool live = j < nj;
       const float wj = live ? ws[j0 + j] : 0.f;
       const float dj = live ? dts[j0 + j] : 0.f;
-      float gxs = 0.f, gws = 0.f;
+      float gxs = 0.f, gw = 0.f;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int p = tx + 16 * q;
@@ -279,11 +292,11 @@ ssd_intra_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
           const float gu = guacc[r][q] + wj * bg[r][q];
           gxb[(size_t)(j0 + j) * P + p] = gu * dj;
           gxs = fmaf(gu, xv, gxs);
-          gws = fmaf(xv, bg[r][q], gws);
+          gw = fmaf(xv, bg[r][q], gw);
         }
       }
       gxs = row_sum16(gxs);
-      gws = row_sum16(gws) * dj * wj;          // gw_j w_j
+      const double gws = (double)row_sum16(gw) * dj * wj;  // gw_j w_j
       if (tx == 0 && live) {
         gux[j0 + j] = gxs;
         atomicAdd(&gacc[j0 + j], -gws);
@@ -303,10 +316,10 @@ ssd_intra_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
   // gdA = reverse cumsum of gacc: scan the reversed sequence
   const int t = Q - 1 - tid;
-  const float gdA_rev = block_scan(tid < Q ? gacc[t] : 0.f, red);
-  float part = 0.f;
+  const double gdA_rev = block_scan(tid < Q ? gacc[t] : 0.0, red);
+  double part = 0.0;
   if (tid < Q) {
-    gdt[blk * Q + t] = gdA_rev * a + gux[t];
+    gdt[blk * Q + t] = (float)(gdA_rev * a + gux[t]);
     part = gdA_rev * dts[t];
   }
   // gA: block sum of gdA dt
@@ -317,7 +330,7 @@ ssd_intra_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   if ((tid & 31) == 0) red[tid >> 5] = part;
   __syncthreads();
   if (tid == 0) {
-    float s = 0.f;
+    double s = 0.0;
     for (int k = 0; k < THREADS / 32; ++k) s += red[k];
     gA_blk[blk] = s;
   }
@@ -330,8 +343,8 @@ extern "C" {
 // Inputs as the forward's, plus cs (B, H, nc, Q) from the forward and the
 // output gradients gy (B, H, nc, Q, P), gst (B, H, nc, P, N),
 // gcs (B, H, nc, Q); writes gx (B, H, nc, Q, P), gdt (B, H, nc, Q),
-// gA_blk (B, H, nc), and per-head gB, gC (B, H, nc, Q, N).  All f32,
-// contiguous.  Returns the cudaError_t of the launch.
+// gA_blk (B, H, nc) in f64, and per-head gB, gC (B, H, nc, Q, N).  The
+// rest f32; all contiguous.  Returns the cudaError_t of the launch.
 int ssd_intra_bwd_launch(const void* x, const void* dt, const void* A,
                          const void* Bm, const void* Cm, const void* cs,
                          const void* gy, const void* gst, const void* gcs,
@@ -355,7 +368,7 @@ int ssd_intra_bwd_launch(const void* x, const void* dt, const void* A,
   ssd_intra_bwd_kernel<<<dim3(nc, H, B), THREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       f(x), f(dt), f(A), f(Bm), f(Cm), f(cs), f(gy), f(gst), f(gcs), m(gx),
-      m(gdt), m(gA_blk), m(gB), m(gC), H, nc, Q, P, G, N);
+      m(gdt), static_cast<double*>(gA_blk), m(gB), m(gC), H, nc, Q, P, G, N);
   return (int)cudaGetLastError();
 }
 

@@ -100,7 +100,7 @@ def ssd_intra_bwd(x, dt, A, Bm, Cm, cs, gy, gst, gcs):
     """Gradient of kernel 6's function: (gx, gdt, gA, gB, gC) in the
     inputs' shapes (formulas in `ref.ssd_intra_bwd_plain`).  CPU tensors
     take the plain version; CUDA tensors launch `bwd_kernel.cu`, which
-    writes per-head gB / gC and per-block gA that this wrapper sums."""
+    writes per-head gB / gC and per-block f64 gA that this wrapper sums."""
     dev = _check(x, dt, A, Bm, Cm)
     if dev.type == "cpu":
         return ssd_intra_bwd_plain(x, dt, A, Bm, Cm, cs, gy, gst, gcs)
@@ -112,7 +112,7 @@ def ssd_intra_bwd(x, dt, A, Bm, Cm, cs, gy, gst, gcs):
                          "forward outputs'")
     gx = torch.empty_like(x)
     gdt = torch.empty_like(dt)
-    gA_blk = torch.empty((Bs, H, nc), dtype=torch.float32, device=dev)
+    gA_blk = torch.empty((Bs, H, nc), dtype=torch.float64, device=dev)
     gB_h = torch.empty((Bs, H, nc, Q, N), dtype=torch.float32, device=dev)
     gC_h = torch.empty_like(gB_h)
     err = _fn("ssd_intra_bwd", "ssd_intra_bwd_launch", 14)(
@@ -128,7 +128,7 @@ def ssd_intra_bwd(x, dt, A, Bm, Cm, cs, gy, gst, gcs):
     else:
         gB = gB_h.view(Bs, G, H // G, nc, Q, N).sum(2)
         gC = gC_h.view(Bs, G, H // G, nc, Q, N).sum(2)
-    return gx, gdt, gA_blk.sum((0, 2)), gB, gC
+    return gx, gdt, gA_blk.sum((0, 2)).float(), gB, gC
 
 
 class _SSDIntra(torch.autograd.Function):

@@ -38,24 +38,26 @@ __device__ __forceinline__ void load_rows(float* __restrict__ dst, int pitch,
 }
 
 // Inclusive prefix sum of one value per thread over the block (256 values);
-// ``red`` holds 8 floats of shared scratch.  All threads must call it.
-__device__ __forceinline__ float block_scan(float v, float* red) {
+// ``red`` holds 8 values of shared scratch.  All threads must call it.
+template <typename T>
+__device__ __forceinline__ T block_scan(T v, T* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, v, off);
+    const T o = __shfl_up_sync(0xffffffffu, v, off);
     if (lane >= off) v += o;
   }
   __syncthreads();               // red may still be read by a caller
   if (lane == 31) red[warp] = v;
   __syncthreads();
-  float base = 0.f;
+  T base = 0;
   for (int k = 0; k < warp; ++k) base += red[k];
   return v + base;
 }
 
 // Sum of one value per thread over the 16 threads of a half-warp row (tx).
-__device__ __forceinline__ float row_sum16(float v) {
+template <typename T>
+__device__ __forceinline__ T row_sum16(T v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);

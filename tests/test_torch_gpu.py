@@ -76,32 +76,53 @@ def test_gpu_knn_kernel_matches_plain(Q, N, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,hd,window,tol", [
-    (torch.float32, 64, 0, 2e-5), (torch.bfloat16, 128, 32, 5e-2),
-    (torch.float32, 80, 16, 2e-5)])
-def test_gpu_flash_kernel_matches_plain(dtype, hd, window, tol):
+@pytest.mark.parametrize("dtype,B,S,H,KV,hd,causal,window,tol,seed", [
+    (torch.float32, 2, 100, 8, 2, 64, True, 0, 2e-5, 64),
+    (torch.bfloat16, 2, 100, 8, 2, 128, True, 32, 5e-2, 128),
+    (torch.float32, 2, 100, 8, 2, 80, True, 16, 2e-5, 80),
+    (torch.float32, 32, 64, 12, 12, 64, True, 0, 2e-5, 128),   # the encoder's
+    (torch.float32, 2, 130, 8, 2, 64, True, 0, 2e-5, 194),     # S % 64 != 0
+    (torch.float32, 2, 200, 8, 8, 80, False, 0, 2e-5, 280),
+    (torch.bfloat16, 1, 320, 8, 2, 64, True, 128, 5e-2, 384),  # window % 64 == 0
+    # one key tile holding fewer than 64 keys, GQA, a window, no mask
+    (torch.float32, 64, 37, 12, 4, 64, True, 0, 2e-5, 101),
+    (torch.float32, 4, 50, 8, 8, 80, False, 16, 2e-5, 130),
+    (torch.bfloat16, 96, 64, 16, 4, 128, True, 0, 5e-2, 192),
+    (torch.bfloat16, 8, 48, 8, 2, 64, True, 0, 5e-2, 112),
+])
+def test_gpu_flash_kernel_matches_plain(dtype, B, S, H, KV, hd, causal,
+                                        window, tol, seed):
     _need_cuda()
     q, k, v = (torch.from_numpy(x).cuda().to(dtype)
-               for x in _attn_data(2, 100, 8, 2, hd, hd))
-    out = flash_attention(q, k, v, causal=True, window=window)
-    ref = flash_attention_reference(q, k, v, causal=True, window=window)
+               for x in _attn_data(B, S, H, KV, hd, seed))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = flash_attention_reference(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,hd,ring,tol", [
-    (torch.bfloat16, 128, False, 5e-2), (torch.bfloat16, 80, True, 5e-2),
-    (torch.float32, 64, True, 2e-5)])
-def test_gpu_decode_kernel_matches_plain(dtype, hd, ring, tol):
+@pytest.mark.parametrize("dtype,hd,ring,tol,S,pos,seed", [
+    (torch.bfloat16, 128, False, 5e-2, 100, [0, 99, 99, 37], 128),
+    (torch.bfloat16, 80, True, 5e-2, 100, [0, 99, 150, 37], 80),
+    (torch.float32, 64, True, 2e-5, 100, [0, 99, 150, 37], 64),
+    # edges of the 64-row spans: 0, one span - 1, one span, S - 1, two
+    # spans - 1, two spans; and slots with no valid key
+    (torch.bfloat16, 128, False, 5e-2, 300, [0, 63, 64, 299], 428),
+    (torch.float32, 64, False, 2e-5, 300, [-1, 127, 128, 299], 364),
+    (torch.float32, 80, True, 2e-5, 300, [-1, 64, 300, 1000], 380),
+    (torch.float32, 128, True, 2e-5, 256, [127, 128, 255, 700], 384),
+])
+def test_gpu_decode_kernel_matches_plain(dtype, hd, ring, tol, S, pos, seed):
     _need_cuda()
     q, ck, cv = (torch.from_numpy(x).cuda().to(dtype)
-                 for x in _decode_data(4, 100, 32, 8, hd, hd))
-    pos = torch.tensor([0, 99, 150, 37], dtype=torch.int32, device="cuda")
-    if not ring:
-        pos = pos.clamp(max=99)
+                 for x in _decode_data(4, S, 32, 8, hd, seed))
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    n0 = decode_attention.launches
     out = decode_attention(q, ck, cv, pos, ring=ring)
+    assert decode_attention.launches == n0 + 1
     ref = decode_attention_reference(q, ck, cv, pos, ring=ring)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert (out[pos < 0] == 0).all()
 
 
 def _ivf_index(pq, nbits=8, N=6000, D=128, seed=0):
@@ -161,6 +182,19 @@ def test_gpu_cuda_tensors_never_take_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(ivf_ops, "ivf_scan_plain", refuse)
     monkeypatch.setattr(ivf_ops, "ivfpq_adc_plain", refuse)
+    # attention: both decode kernels (split and combine) and the flash
+    # kernel run on a CUDA tensor; the plain versions are never reached
+    import repro_torch.kernels.decode_attention.ops as dops
+    import repro_torch.kernels.flash_attention.ops as fops
+    monkeypatch.setattr(dops, "decode_attention_reference", refuse)
+    monkeypatch.setattr(fops, "flash_attention_reference", refuse)
+    q, ck, cv = (torch.from_numpy(x).cuda()
+                 for x in _decode_data(2, 200, 8, 2, 64, 0))
+    pos = torch.tensor([150, -1], dtype=torch.int32, device="cuda")
+    out = dops.decode_attention(q, ck, cv, pos)
+    assert out.is_cuda and torch.isfinite(out).all() and (out[1] == 0).all()
+    a = torch.zeros((1, 64, 2, 64), device="cuda")
+    assert fops.flash_attention(a, a, a).is_cuda
     for pq in (False, True):
         q, index = _ivf_index(pq=pq, N=2000)
         search = ivf_ops.ivfpq_topk if pq else ivf_ops.ivf_topk
@@ -220,8 +254,41 @@ def test_gpu_knn_kernel_k_above_128_matches_plain(Q, N, k):
     out = knn_topk(qd, sd, k)
     assert knn_topk.launches == n0 + 1
     _check_tied(*out, *knn_topk_reference(qd, sd, k), 1e-5, 1e-5)
-    with pytest.raises(ValueError, match="k <= 1024"):
-        knn_topk(qd, sd, 1025)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["exact", "ivf", "ivfpq"])
+@pytest.mark.parametrize("k", [1025, 2048])
+def test_gpu_selection_above_1024_matches_plain(kind, k):
+    """k above one selection round (1,024): the rounds of `select.cuh` give
+    the plain version's top k in one (Q, k) output, ids equal up to score
+    ties, and -inf / -1 where fewer rows than k exist (exact: N = 1,800;
+    IVF: 2 of 32 lists probed, at most 2 x 282 rows)."""
+    _need_cuda()
+    if kind == "exact":
+        q, s = _knn_data(5, 1_800, 768, k)
+        qd, sd = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+        n0 = knn_topk.launches
+        out = knn_topk(qd, sd, k)
+        assert knn_topk.launches == n0 + 1
+        _check_tied(*out, *knn_topk_reference(qd, sd, k), 1e-5, 1e-5)
+        assert bool((out[1] == -1).any(1).all()) == (k > 1_800)
+        return
+    q, index = _ivf_index(pq=kind == "ivfpq")
+    for nprobe in (32, 2):
+        probe = ivf_probe(q, index.centroids, nprobe)
+        if kind == "ivf":
+            args = (q, probe, index.sup_cm, index.ids_cm, index.inv_cm, k)
+            out, ref = ivf_ops.ivf_scan(*args), ivf_scan_plain(*args)
+            tol = (1e-5, 1e-5)
+        else:
+            args = (q, probe, index.codes_cm, index.ids_cm, index.inv_cm,
+                    index.anchors, index.codebooks, k)
+            out = ivf_ops.ivfpq_adc(*args, m=index.m, nbits=index.nbits)
+            ref = ivfpq_adc_plain(*args, index.m, index.nbits)
+            tol = (1e-4, 1e-5)
+        _check_tied(*out, *ref, *tol)
+        assert bool((out[1][:, -1] == -1).all()) == (nprobe == 2)
 
 
 def _ssd_inputs(Bs, H, nc, Q, P, G, N, seed, valid=None):
@@ -254,19 +321,23 @@ SSD_CASES = [(4, 32, 8, 256, 64, 1, 128, None), (2, 8, 2, 256, 64, 2, 128, None)
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_gpu_ssd_kernels_match_plain(case):
+    """Both kernels against their plain versions evaluated in float64 on
+    the same f32 inputs (the f32 plain version's own gA can sit several
+    tolerances from it: `bwd_kernel.cu`), rtol / atol 3e-4."""
     _need_cuda()
     *shape, valid = case
     inputs, grads = _ssd_inputs(*shape, seed=sum(shape), valid=valid)
+    f64 = lambda ts: [t.double() for t in ts]
     n0 = (ssd_ops.ssd_intra.launches, ssd_ops.ssd_intra_bwd.launches)
     out = ssd_ops.ssd_intra_fwd(*inputs)
     ref = ssd_intra_plain(*inputs)
-    for o, r in zip(out, ref):
-        torch.testing.assert_close(o, r, rtol=3e-4, atol=3e-4)
+    for o, r in zip(out, ssd_intra_plain(*f64(inputs))):
+        torch.testing.assert_close(o.double(), r, rtol=3e-4, atol=3e-4)
     g = ssd_ops.ssd_intra_bwd(*inputs, ref[2], *grads)
-    gr = ssd_intra_bwd_plain(*inputs, ref[2], *grads)
+    gr = ssd_intra_bwd_plain(*f64(inputs), *f64([ref[2], *grads]))
     for a, b in zip(g, gr):
-        assert a.shape == b.shape
-        torch.testing.assert_close(a, b, rtol=3e-4, atol=3e-4)
+        assert a.shape == b.shape and a.dtype == torch.float32
+        torch.testing.assert_close(a.double(), b, rtol=3e-4, atol=3e-4)
     assert (ssd_ops.ssd_intra.launches, ssd_ops.ssd_intra_bwd.launches) \
         == (n0[0] + 1, n0[1] + 1)
 

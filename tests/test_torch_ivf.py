@@ -275,11 +275,50 @@ def test_wrappers_reject_bad_arguments(ivf):
     _, ti = ivf
     q = torch.zeros((2, ti.sup_cm.shape[2]))
     probe = torch.zeros((2, 1), dtype=torch.int32)
-    with pytest.raises(ValueError, match="k <= 1024"):
-        T.ivf_scan(q, probe, ti.sup_cm, ti.ids_cm, ti.inv_cm, 1025)
+    with pytest.raises(ValueError, match="k >= 1"):
+        T.ivf_scan(q, probe, ti.sup_cm, ti.ids_cm, ti.inv_cm, 0)
     with pytest.raises(ValueError, match="backend"):
         T.ivf_topk(q, ti, 5, backend="bogus")
     with pytest.raises(ValueError, match="inconsistent shapes"):
         T.ivfpq_adc(q, probe, torch.zeros((4, 3, 8), dtype=torch.uint8),
                     ti.ids_cm, ti.inv_cm, torch.zeros((4, q.shape[1])),
                     torch.zeros((8, 256, q.shape[1] // 8)), 5, m=8, nbits=8)
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """~1,500 rows in 12 lists: enough candidates for k = 1,100 at every
+    list probed, and the JAX and port indexes built from the same bytes."""
+    s, q = _clustered(N=1500, D=32, Q=6, seed=3)
+    return (q, J.build_ivf_index(s, 12, seed=0),
+            T.build_ivf_index(s, 12, seed=0, device="cpu"),
+            J.build_ivfpq_index(s, 12, m=8, nbits=8, seed=0),
+            T.build_ivfpq_index(s, 12, m=8, nbits=8, seed=0, device="cpu"))
+
+
+@pytest.mark.parametrize("kind", ["ivf", "ivfpq", "ivfpq-adc"])
+@pytest.mark.parametrize("k", [1100, 4000])
+def test_search_above_1024_matches_reference(wide, kind, k):
+    """k above one selection round (1,024) and above the rows the index
+    holds: the same clamp and the same neighbours as the JAX package's
+    plain paths (host traversal; the fused re-rank for IVF-PQ)."""
+    q, ji, ti, jp, tp = wide
+    nprobe = ti.n_clusters
+    want = min(k, ti.n_rows)
+    if kind == "ivf":
+        ts, tix = T.ivf_topk(q, ti, k, nprobe=nprobe)
+        js, jix = J.ivf_topk(jnp.asarray(q), ji, k, nprobe=nprobe)
+        atol, rtol = IVF_TOL, 0.0
+    elif kind == "ivfpq":
+        ts, tix = T.ivfpq_topk(q, tp, k, nprobe=nprobe, rerank=2)
+        js, jix = J.ivfpq_topk(jnp.asarray(q), jp, k, nprobe=nprobe,
+                               rerank=2, backend="fused")
+        atol, rtol = IVF_TOL, 0.0
+    else:
+        ts, tix = T.ivfpq_topk(q, tp, k, nprobe=nprobe, rerank=0)
+        js, jix = J.ivfpq_topk(jnp.asarray(q), jp, k, nprobe=nprobe,
+                               rerank=0)
+        atol, rtol = ADC_ATOL, ADC_RTOL
+    assert ts.shape == tix.shape == np.asarray(js).shape == (len(q), want)
+    _same_up_to_ties(ts, tix, js, jix, atol, rtol)
+    assert (tix >= 0).all()

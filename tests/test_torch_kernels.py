@@ -95,9 +95,10 @@ def test_knn_bf16_support_matches_jax_reference():
 
 
 def test_knn_wrapper_rejects_k_above_kernel_limit():
-    """The kernel path takes k <= 1,024 (the keyed selection above 128);
-    a larger k on a device tensor is refused before any launch, while the
-    plain version on the CPU takes any k, as the reference does."""
+    """No k above 0 is refused: the kernel path selects k > 1,024 in rounds
+    of 1,024 (the keyed selection above 128), so a device tensor with
+    k = 1,025 reaches the device check, and the plain version on the CPU
+    takes any k, as the reference does.  Only k < 1 is refused."""
     from repro.kernels.knn_topk.ref import knn_topk_reference as jax_ref
     q, s = _knn_data(2, 3000, 8, 0)
     for k in (129, 1024, 2000):
@@ -105,7 +106,7 @@ def test_knn_wrapper_rejects_k_above_kernel_limit():
         js, ji = jax_ref(jnp.asarray(q), jnp.asarray(s), k)
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-5)
         assert ts.shape == ti.shape == (2, k)
-    with pytest.raises(ValueError, match="k <= 1024"):
+    with pytest.raises(ValueError, match="unsupported device"):
         knn_topk(torch.from_numpy(q).to("meta"),
                  torch.from_numpy(s).to("meta"), 1025)
     with pytest.raises(ValueError, match="k >= 1"):
@@ -206,6 +207,40 @@ def test_decode_per_slot_positions(ring):
                      ring=ring)
         np.testing.assert_allclose(out.numpy()[b:b + 1], np.asarray(ref),
                                    rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("S,hd,pos,ring", [
+    (256, 64, [0, 0], False),                # one live row in span 0
+    (256, 64, [63, 63], False),              # the last row of span 0
+    (256, 64, [64, 64], False),              # the first row of span 1
+    (256, 64, [255, 255], False),            # every span full
+    (200, 80, [199, 130], False),            # S not a multiple of the span
+    (256, 64, [300, 511], True),             # ring wrapped past S
+    (256, 64, [700, 127], True),             # wrapped; ring not yet full
+    (256, 64, [-1, -1], True),               # no valid key
+    (256, 64, [-1, 5], False),               # no valid key beside a live slot
+    (256, 128, [0, 63, 64, 255], False),     # span edges side by side
+])
+def test_decode_split_plain_matches_pallas(S, hd, pos, ring):
+    """The split kernel's partials over spans of 64 rows and the combine
+    kernel's log-sum-exp merge (`decode_attention_split_plain`, the two
+    CUDA kernels' steps in plain torch) against the JAX package's decode
+    kernel, run slot by slot at each slot's scalar position, 2e-5 in f32."""
+    from repro.kernels.decode_attention.ops import decode_attention as jax_da
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_split_plain)
+    q, ck, cv = _decode_data(len(pos), S, 8, 2, hd, S + 64 + pos[0])
+    out = decode_attention_split_plain(
+        torch.from_numpy(q), torch.from_numpy(ck), torch.from_numpy(cv),
+        torch.tensor(pos, dtype=torch.int32), ring=ring)
+    assert torch.isfinite(out).all()
+    for b, p in enumerate(pos):
+        ref = jax_da(q[b:b + 1], ck[b:b + 1], cv[b:b + 1], jnp.int32(p),
+                     ring=ring)
+        np.testing.assert_allclose(out.numpy()[b:b + 1], np.asarray(ref),
+                                   rtol=2e-5, atol=2e-5)
+        if p < 0:
+            assert (out[b] == 0).all()
 
 
 def test_decode_slot_with_no_valid_key_outputs_zero():

@@ -144,6 +144,23 @@ def test_router_k_above_128_matches_reference(spec):
                                jr.predict_utility(Q)[0], atol=TOL)
 
 
+@pytest.mark.parametrize("spec", ["knn1100", "knn1100-ivf@nprobe=64",
+                                  "knn1100-ivfpq@m=8,nprobe=64,rerank=2"])
+def test_router_k_above_1024_matches_reference(spec):
+    """k = 1,100, above one round of the card's selection pass (1,024), on
+    all three indexes: the same choices and utilities as the reference."""
+    jds, tds, Q = _datasets(N=2000)
+    jr = jax_make_router(spec).fit(jds)
+    tr = make_router(spec, device="cpu").fit(tds)
+    assert tr.k == jr.k == 1100
+    assert tr._neighbors(Q)[1].shape == (len(Q), 1100)
+    lam = np.linspace(0, 50, len(Q)).astype(np.float32)
+    jo, to = jr.serve_fused(Q, lam), tr.serve_fused(Q, lam)
+    np.testing.assert_array_equal(to[0], jo[0])
+    for t, j in zip(to[1:], jo[1:]):
+        np.testing.assert_allclose(t, np.asarray(j), atol=TOL)
+
+
 def test_router_k_above_support_clamps_like_reference():
     jds, tds, Q = _datasets(N=40)
     jr = jax_make_router("knn100").fit(jds)
