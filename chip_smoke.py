@@ -9,12 +9,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      TF32 is switched off for matmuls and convolutions, so f32 is f32.
   2. build: every CUDA kernel of the port compiled from this checkout's
      sources with nvcc (one process per source, all started together).
+     The SSD kernels' SASS must hold tensor-core (HMMA) instructions.
   3. kernels: each kernel against its plain-torch version on the card at
      the serving path's shapes, with the max error against a stated
      tolerance, the kernel's, the plain version's and (where one PyTorch
      call computes the same function) the library call's time in ms, and
      the least time the card could take (bytes over 3.35 TB/s or flops over
-     the dtype's peak, whichever is larger).
+     the dtype's peak, whichever is larger; f32 at the rate of f32-accurate
+     tensor-core products, three TF32 passes).
      Kernels 4 and 5 (IVF scan, IVF-PQ ADC shortlist) run on synthetic
      indexes at the main path's shape (70,000 rows in 265 lists of 400,
      D 768, nprobe 8, k 100, kk 800, m 64) and at the edge cases: nbits 4,
@@ -41,7 +43,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
         bounded again on the fitted index and the 16 embedded texts.
      Kernel 6 (the Mamba-2 SSD intra-chunk pass) and its gradient run at
      the training path's shape (batch 4 x 2,048: 8 chunks of 256, 32 heads
-     of 64, state 128) and at two groups, Q = 12 and S = 384 padded; exact
+     of 64, state 128) and at two groups, Q = 12, S = 384 padded, H 12 in
+     3 groups, H 6 in 1, Q = 200 and N 20 / P 24; exact
      top-k at k = 200, 1,024 and 2,048 (the keyed path; two selection
      rounds at 2,048) at the main path's shape, and kernels 4 and 5 at
      k = 2,048.  Decode attention runs at the span edges (positions 0,
@@ -81,7 +84,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+#: dense peaks, NVIDIA's H100 SXM data sheet.  f32 is the rate of
+#: f32-accurate products on the tensor cores: three TF32 passes a product
+#: (big x small + small x big + big x big, ssd_common.cuh) at 494.7 TFLOP/s
+#: TF32, 2.5x the 67 TFLOP/s of the FMA units
+PEAK_FLOPS = {"float32": 494.7e12 / 3, "bfloat16": 989e12}
 KERNEL_SOURCES = {
     "knn_topk": ("src/repro_torch/kernels/knn_topk/kernel.cu",
                  "src/repro/kernels/knn_topk/kernel.py:79"),
@@ -297,7 +304,8 @@ def decode_case(torch, timer, pos, S, KV, G, hd, dtype, ring, tol, gen):
                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
-def ssd_case(torch, timer, Bs, H, nc, Q, P, G, N, valid, gen, label):
+def ssd_case(torch, timer, Bs, H, nc, Q, P, G, N, valid, gen, label,
+             profile=False):
     """Kernel 6 and its gradient against their plain versions evaluated in
     float64 on the same f32 inputs, rtol / atol 3e-4 (the reference's SSD
     kernel test).  The f32 plain version is not the yardstick: gA sums
@@ -306,8 +314,11 @@ def ssd_case(torch, timer, Bs, H, nc, Q, P, G, N, valid, gen, label):
     in f64); its distance to float64 is printed beside the check
     (``plain_f32_err_over_tol``).  ``valid`` zeroes the rows at or past
     it, as `ssm_full` pads a short tail.  Bounds count each input read
-    once, each output written once, and the products the causal mask
-    leaves: Q (Q + 1) / 2 (i, j) pairs a block."""
+    once, each output written once, and the products the function needs:
+    the Q (Q + 1) / 2 causal (i, j) pairs of a chunk, with C B^T and the
+    group's sums (gC, gB) once per group, not per head.  ``profile`` adds
+    one profiled call of each direction: device time by CUDA launch inside
+    the call (C B^T, the heads' passes, the group's sums)."""
     from repro_torch.kernels.ssd_scan.ops import ssd_intra_bwd, ssd_intra_fwd
     from repro_torch.kernels.ssd_scan.ref import (ssd_intra_bwd_plain,
                                                   ssd_intra_plain)
@@ -335,42 +346,54 @@ def ssd_case(torch, timer, Bs, H, nc, Q, P, G, N, valid, gen, label):
     # (<= 1 passes): gradients such as gA reach 1e3-1e4, so their absolute
     # error says little alone
     def worst(a, b):
-        e = r = 0.0
+        e, rs = 0.0, []
         for u, v in zip(a, b):
             assert u.shape == v.shape
             d = (u.double() - v.double()).abs()
             e = max(e, float(d.max()))
-            r = max(r, float((d / (3e-4 + 3e-4 * v.double().abs())).max()))
-        return e, r
-    errs, ratios, plain_f32 = [], [], []
-    for a, b, c in ((out, ref, exact[0]), (g, gr, exact[1])):
-        e, r = worst(a, c)
-        assert r <= 1.0, (label, e, r)
+            rs.append(float((d / (3e-4 + 3e-4 * v.double().abs())).max()))
+        return e, rs
+    errs, ratios, by_output, plain_f32 = [], [], [], []
+    for a, b, c, names in ((out, ref, exact[0], ("y", "states", "cs")),
+                           (g, gr, exact[1], ("gx", "gdt", "gA", "gB",
+                                              "gC"))):
+        e, rs = worst(a, c)
+        assert max(rs) <= 1.0, (label, e, dict(zip(names, rs)))
         errs.append(e)
-        ratios.append(r)
-        plain_f32.append(worst(b, c)[1])
+        ratios.append(max(rs))
+        by_output.append(dict(zip(names, rs)))
+        plain_f32.append(max(worst(b, c)[1]))
     del gr, exact
     fwd_ms = timer(lambda: ssd_intra_fwd(*ins))
     fwd_plain = timer(lambda: ssd_intra_plain(*ins), iters=3)
     bwd_ms = timer(lambda: ssd_intra_bwd(*ins, ref[2], gy, gst, gcs))
     bwd_plain = timer(lambda: ssd_intra_bwd_plain(*ins, ref[2], gy, gst,
                                                   gcs), iters=3)
-    blocks, pairs = Bs * H * nc, Q * (Q + 1) // 2
+    heads, groups, pairs = Bs * H * nc, Bs * G * nc, Q * (Q + 1) // 2
     nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
     f_ms, f_by = bound(nbytes(*ins, *out),
-                       blocks * (pairs * 2 * (N + P) + 2 * Q * P * N),
+                       groups * pairs * 2 * N
+                       + heads * (pairs * 2 * P + 2 * Q * P * N),
                        torch.float32)
     b_ms, b_by = bound(nbytes(*ins, ref[2], gy, gst, gcs, *g),
-                       blocks * (pairs * (4 * P + 6 * N) + 4 * Q * P * N),
+                       groups * pairs * 6 * N
+                       + heads * (pairs * 4 * P + 4 * Q * P * N),
                        torch.float32)
     case = f"{label}: B={Bs} H={H} nc={nc} Q={Q} P={P} G={G} N={N}" + (
         f" valid={valid}" if valid is not None else "")
     common = dict(case=case, tol="rtol 3e-4, atol 3e-4 to float64",
                   library_ms=None)
+    if profile:
+        common["launch_profile"] = dict(
+            forward=device_profile(torch, lambda: ssd_intra_fwd(*ins), top=4),
+            gradient=device_profile(torch, lambda: ssd_intra_bwd(
+                *ins, ref[2], gy, gst, gcs), top=6))
     return (dict(common, max_abs_err=errs[0], err_over_tol=ratios[0],
+                 err_over_tol_by_output=by_output[0],
                  plain_f32_err_over_tol=plain_f32[0],
                  ms=fwd_ms, plain_ms=fwd_plain, bound_ms=f_ms, bound_by=f_by),
             dict(common, max_abs_err=errs[1], err_over_tol=ratios[1],
+                 err_over_tol_by_output=by_output[1],
                  plain_f32_err_over_tol=plain_f32[1],
                  ms=bwd_ms, plain_ms=bwd_plain, bound_ms=b_ms, bound_by=b_by))
 
@@ -378,16 +401,22 @@ def ssd_case(torch, timer, Bs, H, nc, Q, P, G, N, valid, gen, label):
 def phase_ssd_kernels(torch, timer, gen):
     """Kernel 6 and its gradient at the training path's shape (batch 4 of
     2,048 tokens: 8 chunks of 256, 32 heads of 64, state 128, one group),
-    then two groups, a chunk shorter than a tile (Q = 12) and S = 384
-    padded by `ssm_full` to two chunks of 256."""
+    then two groups, a chunk shorter than a tile (Q = 12), S = 384 padded
+    by `ssm_full` to two chunks of 256, four heads a group (H 12, G 3),
+    six heads a group (H 6, G 1: not a power of two), a ragged chunk
+    (Q = 200) and N, P that are not multiples of 8 (N 20, P 24)."""
     main = {}
     for i, args in enumerate([
             (4, 32, 8, 256, 64, 1, 128, None, "main"),
             (2, 32, 2, 256, 64, 2, 128, None, "G=2"),
             (2, 32, 1, 12, 64, 1, 128, None, "Q=12"),
-            (2, 32, 2, 256, 64, 1, 128, 384, "S=384 padded")]):
+            (2, 32, 2, 256, 64, 1, 128, 384, "S=384 padded"),
+            (2, 12, 2, 256, 64, 3, 128, None, "H=12 G=3"),
+            (2, 6, 2, 256, 64, 1, 128, None, "H=6 G=1"),
+            (2, 8, 2, 200, 64, 2, 128, None, "Q=200"),
+            (2, 8, 2, 256, 24, 2, 20, None, "N=20 P=24")]):
         fwd, bwd = ssd_case(torch, timer, *args[:8], gen("ssd", *args),
-                            args[8])
+                            args[8], profile=i == 0)
         emit("kernel", name="ssd_intra", **fwd)
         emit("kernel", name="ssd_intra_bwd", **bwd)
         if i == 0:
@@ -1242,6 +1271,11 @@ def main(argv=None):
 
     report = _build.build_all()
     emit("build", seconds=report.pop("total_s"), ptxas=report)
+    # the SSD kernels' products must run on the tensor cores
+    hmma = {n: _build.sass_count(n, "HMMA") for n in ("ssd_intra",
+                                                      "ssd_intra_bwd")}
+    emit("build_sass", hmma_instructions=hmma)
+    assert all(v > 0 for v in hmma.values()), hmma
 
     main_cases = phase_kernels(torch, args.seed)
     launches = {n: None for n in main_cases}

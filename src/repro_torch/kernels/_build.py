@@ -121,6 +121,24 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def sass_count(name: str, opcode: str) -> int:
+    """Instructions of kernel ``name``'s built library whose SASS opcode
+    starts with ``opcode`` (e.g. "HMMA", the tensor cores' matrix multiply),
+    read with the toolkit's ``cuobjdump -sass``."""
+    load(name)
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    n = 0
+    for ln in sass.splitlines():
+        # "/*0130*/  [@P0] HMMA.1688.F32.TF32 R4, R8, R12, R4 ;"
+        words = ln.split("*/", 1)[-1].split() if "*/" in ln else []
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        n += bool(words) and words[0].startswith(opcode)
+    return n
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero `cudaError_t` returned by a launch."""
     if err != 0:

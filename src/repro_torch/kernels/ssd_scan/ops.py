@@ -4,10 +4,12 @@ the intra-chunk pass is kernel 6 (`kernel.cu`, replacing
 the inter-chunk recurrence plain torch ops that autograd differentiates.
 
 ``ssd_intra`` is a `torch.autograd.Function`: on CUDA tensors its forward
-launches kernel 6 and its backward the gradient kernel; on CPU tensors
+launches kernel 6 and its backward the gradient kernels; on CPU tensors
 both take their plain versions (`ref.ssd_intra_plain`,
 `ref.ssd_intra_bwd_plain`).  There is no fallback on the card: a CUDA
-tensor the kernels cannot take raises.
+tensor the kernels cannot take raises.  Each call launches several CUDA
+kernels (C B^T once per group, then the heads' passes) into scratch of
+`pair_scratch_shape`; the launch counters count calls.
 """
 from __future__ import annotations
 
@@ -18,10 +20,20 @@ import torch
 from .. import _build
 from .ref import ssd_intra_bwd_plain, ssd_intra_plain
 
-QMAX = 256     # kernel.cu / bwd_kernel.cu: QMAX, the longest chunk
+QMAX = 256     # ssd_common.cuh: QMAX, the longest chunk
 PMAX = 64      # PMAX, the widest head
 NMAX = 128     # NMAX, the largest state
+TQ = 64        # TQ, the rows of a tile
 _GRID_MAX = 65535
+
+
+def pair_scratch_shape(Bs, G, nc, Q):
+    """The kernels' per-group scratch: one 64 x 64 f32 tile for each causal
+    pair (i >= j) of a chunk's row tiles, (B, G, nc, pairs, 64, 64).  It
+    holds C B^T (forward and gradient) and the sum of gG over a group's
+    heads (gradient)."""
+    nt = -(-Q // TQ)
+    return (Bs, G, nc, nt * (nt + 1) // 2, TQ, TQ)
 
 
 def _fn(name, symbol, n_ptrs):
@@ -71,8 +83,10 @@ def _dims(x, Bm):
         raise ValueError(f"ssd_intra: the kernels take chunks Q <= {QMAX}, "
                          f"heads P <= {PMAX} and states N <= {NMAX}; got "
                          f"Q={Q}, P={P}, N={N}")
-    if nc > _GRID_MAX or H > _GRID_MAX or Bs > _GRID_MAX:
-        raise ValueError(f"ssd_intra: B, H and nc must be <= {_GRID_MAX}")
+    if nc * -(-Q // TQ) > _GRID_MAX or Bs * G > _GRID_MAX \
+            or H > _GRID_MAX or Bs > _GRID_MAX:
+        raise ValueError(f"ssd_intra: B, H, B G and nc x (row tiles) must "
+                         f"be <= {_GRID_MAX}")
     return Bs, H, nc, Q, P, G, N
 
 
@@ -87,10 +101,12 @@ def ssd_intra_fwd(x, dt, A, Bm, Cm):
     y = torch.empty_like(x)
     st = torch.empty((Bs, H, nc, P, N), dtype=torch.float32, device=dev)
     cs = torch.empty_like(dt)
-    err = _fn("ssd_intra", "ssd_intra_launch", 8)(
+    cb = torch.empty(pair_scratch_shape(Bs, G, nc, Q), dtype=torch.float32,
+                     device=dev)
+    err = _fn("ssd_intra", "ssd_intra_launch", 9)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), st.data_ptr(), cs.data_ptr(),
-        Bs, H, nc, Q, P, G, N, _build.stream_ptr(dev))
+        cb.data_ptr(), Bs, H, nc, Q, P, G, N, _build.stream_ptr(dev))
     _build.check(err, "ssd_intra")
     ssd_intra.launches += 1
     return y, st, cs
@@ -100,7 +116,8 @@ def ssd_intra_bwd(x, dt, A, Bm, Cm, cs, gy, gst, gcs):
     """Gradient of kernel 6's function: (gx, gdt, gA, gB, gC) in the
     inputs' shapes (formulas in `ref.ssd_intra_bwd_plain`).  CPU tensors
     take the plain version; CUDA tensors launch `bwd_kernel.cu`, which
-    writes per-head gB / gC and per-block f64 gA that this wrapper sums."""
+    sums gB / gC over a group's heads itself and writes per-block f64 gA
+    that this wrapper sums."""
     dev = _check(x, dt, A, Bm, Cm)
     if dev.type == "cpu":
         return ssd_intra_bwd_plain(x, dt, A, Bm, Cm, cs, gy, gst, gcs)
@@ -113,21 +130,19 @@ def ssd_intra_bwd(x, dt, A, Bm, Cm, cs, gy, gst, gcs):
     gx = torch.empty_like(x)
     gdt = torch.empty_like(dt)
     gA_blk = torch.empty((Bs, H, nc), dtype=torch.float64, device=dev)
-    gB_h = torch.empty((Bs, H, nc, Q, N), dtype=torch.float32, device=dev)
-    gC_h = torch.empty_like(gB_h)
-    err = _fn("ssd_intra_bwd", "ssd_intra_bwd_launch", 14)(
+    gB = torch.empty_like(Bm)
+    gC = torch.empty_like(Cm)
+    cb, gsum = (torch.empty(pair_scratch_shape(Bs, G, nc, Q),
+                            dtype=torch.float32, device=dev)
+                for _ in range(2))
+    err = _fn("ssd_intra_bwd", "ssd_intra_bwd_launch", 16)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), cs.data_ptr(), gy.data_ptr(), gst.data_ptr(),
         gcs.data_ptr(), gx.data_ptr(), gdt.data_ptr(), gA_blk.data_ptr(),
-        gB_h.data_ptr(), gC_h.data_ptr(), Bs, H, nc, Q, P, G, N,
-        _build.stream_ptr(dev))
+        gB.data_ptr(), gC.data_ptr(), cb.data_ptr(), gsum.data_ptr(),
+        Bs, H, nc, Q, P, G, N, _build.stream_ptr(dev))
     _build.check(err, "ssd_intra_bwd")
     ssd_intra_bwd.launches += 1
-    if G == H:
-        gB, gC = gB_h, gC_h
-    else:
-        gB = gB_h.view(Bs, G, H // G, nc, Q, N).sum(2)
-        gC = gC_h.view(Bs, G, H // G, nc, Q, N).sum(2)
     return gx, gdt, gA_blk.sum((0, 2)).float(), gB, gC
 
 
@@ -153,10 +168,10 @@ def ssd_intra(x, dt, A, Bm, Cm):
     return _SSDIntra.apply(x, dt, A, Bm, Cm)
 
 
-#: forward kernel launches (one per call on CUDA tensors: the wrapper
-#: `ssd_intra_fwd` counts them, whether called through autograd or not)
+#: forward calls on CUDA tensors (one per call, whatever the CUDA launches
+#: inside: the wrapper `ssd_intra_fwd` counts them, through autograd or not)
 ssd_intra.launches = 0
-#: backward kernel launches (one per call on CUDA tensors)
+#: backward calls on CUDA tensors (one per call)
 ssd_intra_bwd.launches = 0
 
 

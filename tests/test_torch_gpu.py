@@ -313,9 +313,13 @@ def _ssd_inputs(Bs, H, nc, Q, P, G, N, seed, valid=None):
 
 # the phase-3 shapes of chip_smoke.py: the training shape (B 4, 32 heads,
 # 8 chunks of 256, P 64, N 128), two groups, a chunk shorter than a tile,
-# and S = 384 padded to two chunks of 256 by ssm_full
+# S = 384 padded to two chunks of 256 by ssm_full, four heads a group,
+# six heads a group (not a power of two), a ragged chunk, and N, P that
+# are not multiples of 8
 SSD_CASES = [(4, 32, 8, 256, 64, 1, 128, None), (2, 8, 2, 256, 64, 2, 128, None),
-             (2, 4, 1, 12, 64, 1, 128, None), (2, 32, 2, 256, 64, 1, 128, 384)]
+             (2, 4, 1, 12, 64, 1, 128, None), (2, 32, 2, 256, 64, 1, 128, 384),
+             (2, 12, 2, 256, 64, 3, 128, None), (2, 6, 2, 256, 64, 1, 128, None),
+             (2, 8, 2, 200, 64, 2, 128, None), (2, 8, 2, 256, 24, 2, 20, None)]
 
 
 @pytest.mark.gpu
@@ -360,3 +364,21 @@ def test_gpu_ssd_autograd_runs_both_kernels_and_never_the_plain_version(
         == (n0[0] + 1, n0[1] + 1)
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in leaves)
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_gradient_allocates_no_per_head_partials():
+    """At the training shape one gradient call raises the peak of allocated
+    memory above its inputs by at most its outputs plus 64 MB: the group
+    sums of gB / gC happen in the kernels, and the scratch is per group."""
+    _need_cuda()
+    inputs, grads = _ssd_inputs(4, 32, 8, 256, 64, 1, 128, seed=5)
+    cs = ssd_ops.ssd_intra_fwd(*inputs)[2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g = ssd_ops.ssd_intra_bwd(*inputs, cs, *grads)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    out = sum(t.numel() * t.element_size() for t in g)
+    assert rise <= out + 64 * 2**20, (rise, out)

@@ -144,3 +144,20 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[train] mamba2-370m-smoke" in out and "saved checkpoint" in out
     assert "blocks.0.ssm.A_log" in np.load(ck).files
+
+
+def test_train_ab_runs_both_checkouts_in_turns():
+    """`launch.train_ab` runs A, B, B, A, each in its own process from its
+    own checkout; here both are this checkout, on the CPU."""
+    from pathlib import Path
+    from repro_torch.launch import train_ab
+    root = Path(__file__).resolve().parents[1]
+    res = train_ab.main(["--a", str(root), "--b", str(root), "--",
+                         "--arch", "mamba2-370m", "--reduced", "--device",
+                         "cpu", "--steps", "2", "--batch", "2", "--seq",
+                         "32"])
+    assert [r["run"] for r in res] == list("ABBA")
+    for r in res:
+        assert len(r["step_wall_s"]) == 2
+        assert r["median_step_wall_s_after_first"] == r["step_wall_s"][1]
+        assert r["tokens_per_s"] == 2 * 32 / r["step_wall_s"][1]
