@@ -251,14 +251,11 @@ int launch(const void* q, const void* ck, const void* cv, const int* pos,
            void* o, float* part, int B, int S, int KV, int G, int ring,
            float scale, cudaStream_t st) {
   constexpr int smem = Smem<T, HD>::BYTES;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_split_kernel<T, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  // the attribute is per device, so it is set on every launch
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_split_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
   const int n_split = (S + SPLIT - 1) / SPLIT, H = KV * G;
   float* part_acc = part;
   float* part_ml = part + (size_t)B * H * n_split * HD;
@@ -266,7 +263,7 @@ int launch(const void* q, const void* ck, const void* cv, const int* pos,
       static_cast<const T*>(q), static_cast<const T*>(ck),
       static_cast<const T*>(cv), pos, part_acc, part_ml, S, KV, G, ring,
       scale);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   decode_combine_kernel<T, HD><<<dim3(H, B), HD < 128 ? HD : 128, 0, st>>>(
       part_acc, part_ml, static_cast<T*>(o), n_split);

@@ -316,14 +316,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Sk, int H, int KV, int causal, int window, float scale,
            cudaStream_t st) {
   using L = Layout<T, HD>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::bytes(2));
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  // the attribute is per device, so it is set on every launch
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::bytes(2));
+  if (e != cudaSuccess) return (int)e;
   // one K/V buffer where one tile covers every key, two to overlap tiles
   const int nbuf = Sk > BK ? 2 : 1;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);

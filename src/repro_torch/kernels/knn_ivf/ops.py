@@ -57,6 +57,11 @@ BACKENDS = (None, "fused", "host", "tiles", "pallas")
 
 LUT_MAX_BYTES = 200 * 1024       # pq_kernel.cu: LUT_MAX_BYTES
 _GRID_YZ_MAX = 65535
+#: kernel 5's fused path (pq_kernel.cu): clusters of 8 blocks a query,
+#: kk <= FUSED_KMAX, a block's shared memory within FUSED_SMEM_MAX
+FUSED_CLUSTER = 8
+FUSED_KMAX = 2048
+FUSED_SMEM_MAX = 226 * 1024
 
 
 class StreamingIndexNotPortedError(NotImplementedError):
@@ -444,6 +449,38 @@ def ivf_scan(queries, q_probe, sup_cm, ids_cm, inv_cm, k: int):
 ivf_scan.launches = 0
 
 
+def _pow2_at_least(k: int) -> int:
+    w = 1
+    while w < k:
+        w <<= 1
+    return w
+
+
+def fused_smem_bytes(m: int, nbits: int, MB: int, L: int, P: int,
+                     kk: int) -> int:
+    """Shared memory of one block of kernel 5's fused path (pq_kernel.cu:
+    `FusedSmem`): the table (which the leader reuses for a 2,048-bin
+    histogram and a sort buffer of max(256, the next power of two >= kk)
+    keys), its
+    ceil(P / 8) lists' codes rounded to 16 bytes (which the leader reuses
+    for the query's P x L keys), its lists' keys and anchor dots, and a
+    counter."""
+    a16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    pb = -(-P // FUSED_CLUSTER)
+    lut = a16(max(m * 2 ** nbits * 4,
+                  2048 * 4 + max(_pow2_at_least(kk), 256) * 8))
+    codes = a16(max(pb * a16(MB * L), P * L * 8))
+    return lut + codes + a16(pb * L * 8 + pb * 4) + 16
+
+
+def fused_fits(m: int, nbits: int, MB: int, L: int, P: int, kk: int) -> bool:
+    """Whether kernel 5 takes its one-launch fused path at this shape; the
+    other shapes (nprobe near the number of lists, kk > 2,048) take the
+    three launches."""
+    return (kk <= FUSED_KMAX and (MB * L) % 4 == 0
+            and fused_smem_bytes(m, nbits, MB, L, P, kk) <= FUSED_SMEM_MAX)
+
+
 def ivfpq_adc(queries, q_probe, codes_cm, ids_cm, inv_cm, anchors, codebooks,
               k: int, m: int, nbits: int):
     """Kernel 5 (`pq_kernel.cu`): the ADC shortlist.  queries (Q, D) f32
@@ -452,7 +489,8 @@ def ivfpq_adc(queries, q_probe, codes_cm, ids_cm, inv_cm, anchors, codebooks,
     f32; codebooks (m, 2^nbits, D/m) f32.  Returns (scores (Q, k), ids
     (Q, k)) with the contract of `ivf_scan`.  On the GPU the per-query
     table (m * 2^nbits * 4 bytes) must fit in shared memory
-    (`LUT_MAX_BYTES`)."""
+    (`LUT_MAX_BYTES`); the shape picks the kernel's path there
+    (`fused_fits`: one fused launch, else three)."""
     if nbits not in (4, 8) or codes_cm.ndim != 3 \
             or codes_cm.shape[1] * 8 != m * nbits \
             or codebooks.shape != (m, 2 ** nbits, queries.shape[-1] // m) \
@@ -480,29 +518,79 @@ def ivfpq_adc(queries, q_probe, codes_cm, ids_cm, inv_cm, anchors, codebooks,
             f"ivfpq_adc: the per-query ADC table (m * 2^nbits * 4 = "
             f"{lut_bytes} bytes) does not fit in a block's shared memory "
             f"(limit {LUT_MAX_BYTES}); use fewer subspaces or nbits=4")
+    C, MB, L = codes_cm.shape
+    fused = fused_fits(m, nbits, MB, L, q_probe.shape[1], k)
+    return _adc_cuda(queries, q_probe, codes_cm, ids_cm, inv_cm, anchors,
+                     codebooks, k, m, nbits, fused)
+
+
+def _adc_cuda(queries, q_probe, codes_cm, ids_cm, inv_cm, anchors, codebooks,
+              k: int, m: int, nbits: int, fused: bool):
+    """Kernel 5's CUDA launch on one path, for inputs `ivfpq_adc` has
+    checked: the fused launch (only where `fused_fits`) or the three
+    launches.  `ivfpq_adc` takes the shape's path; the tests call this
+    directly to hold the two paths against each other at one shape."""
     Q, D = queries.shape
     P = q_probe.shape[1]
     C, MB, L = codes_cm.shape
-    out_s, out_i, keys = _outputs(Q, k, P * L, queries.device)
+    if fused and not fused_fits(m, nbits, MB, L, P, k):
+        raise ValueError(
+            f"ivfpq_adc: the fused path takes kk <= {FUSED_KMAX} and at most "
+            f"{FUSED_SMEM_MAX} bytes of shared memory a block; kk={k}, P={P},"
+            f" L={L} need {fused_smem_bytes(m, nbits, MB, L, P, k)}")
+    dev = queries.device
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
-    lut = torch.empty((Q, m * 2 ** nbits), dtype=torch.float32,
-                      device=queries.device)
+    lut = keys = None
+    if not fused:
+        lut = torch.empty((Q, m * 2 ** nbits), dtype=torch.float32,
+                          device=dev)
+        keys = torch.empty((Q, P * L), dtype=torch.int64, device=dev)
     fn = _fn("ivfpq_adc", "ivfpq_adc_launch",
-             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    count = _fn("ivfpq_adc", "ivfpq_adc_device_launches", [])
+    count.restype = ctypes.c_ulonglong
+    before = count()
     err = fn(queries.data_ptr(), q_probe.data_ptr(), codes_cm.data_ptr(),
              ids_cm.data_ptr(), inv_cm.data_ptr(), anchors.data_ptr(),
-             codebooks.data_ptr(), lut.data_ptr(), keys.data_ptr(),
-             out_s.data_ptr(), out_i.data_ptr(), Q, P, C, MB, L, D, m, nbits,
-             k, _build.stream_ptr(queries.device))
+             codebooks.data_ptr(), 0 if lut is None else lut.data_ptr(),
+             0 if keys is None else keys.data_ptr(), out_s.data_ptr(),
+             out_i.data_ptr(), Q, P, C, MB, L, D, m, nbits, k, int(fused),
+             _build.stream_ptr(dev))
+    if fused and err == _CUDA_INVALID_CONFIGURATION:
+        raise RuntimeError("ivfpq_adc: cudaOccupancyMaxActiveClusters "
+                           "reports no resident cluster of 8 blocks for the "
+                           "fused path on this device")
     _build.check(err, "ivfpq_adc")
     ivfpq_adc.launches += 1
+    ivfpq_adc.last_cuda_launches = count() - before
     return out_s, out_i
 
 
-#: calls that launched kernel 5 (one per call on a CUDA tensor: the table
-#: and scan passes and ceil(k / 1,024) rounds of the per-query selection)
+_CUDA_INVALID_CONFIGURATION = 9
+
+
+def fused_plan(m: int, nbits: int, MB: int, L: int, P: int, kk: int):
+    """(shared memory bytes of a fused block, clusters of 8 such blocks the
+    current device holds at once) from the kernel library: the occupancy
+    check that refuses a fused launch at 0."""
+    fn = _fn("ivfpq_adc", "ivfpq_adc_fused_plan",
+             [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+    smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(fn(m, nbits, MB, L, P, kk, ctypes.byref(smem),
+                    ctypes.byref(clusters)), "ivfpq_adc_fused_plan")
+    return smem.value, clusters.value
+
+
+#: calls that launched kernel 5 (one per call on a CUDA tensor: the fused
+#: path is one CUDA launch; the three-launch path runs the table and scan
+#: passes and ceil(k / 1,024) rounds of the per-query selection)
 ivfpq_adc.launches = 0
+#: CUDA kernels the last CUDA call launched (the kernel library's own
+#: count: 1 on the fused path, 2 + ceil(k / 1,024) on the three launches)
+ivfpq_adc.last_cuda_launches = 0
 
 
 # ---------------------------------------------------------------------------

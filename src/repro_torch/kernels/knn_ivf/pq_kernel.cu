@@ -5,21 +5,52 @@
 // `ivfpq_adc_pallas` (`_adc_kernel` :48): per query, LUT[j, c] =
 // q_j . codebook[j, c] for each subspace j; per probed row
 // score = (sum_j LUT[j, code_j] + q . anchor_c) * inv, masked to ids >= 0,
-// then the top-kk shortlist; scores f32 descending, ids int32, -inf / -1
-// in slots no valid row fills.
+// then the top-kk shortlist; scores f32 descending, ids int32 (ties to the
+// lower row id), -inf / -1 in slots no valid row fills.
 //
 // What bounds it on an H100: at the serving shape (16 queries, nprobe 8,
 // L 400, m 64, nbits 8) the codes are 16 x 8 x 400 x 64 bytes = 3.3 MB and
 // the codebooks 0.8 MB, about 1 us of HBM time, and the gathers are a few
 // million shared-memory reads.  So it is bound by latency and launches:
-// three short dependent kernels and one serial selection per query.  The
-// design keeps each step one pass with no host round trip; making it
-// faster means fewer launches (a CUDA graph) and a parallel selection.
+// the byte bound is below the cost of one launch, and "faster" means one
+// launch with every intermediate on chip.
 //
-// Design.  The TPU builds the table with one matmul against a
-// block-diagonal codebook expansion and scores codes through an m-hot
-// matmul, because Mosaic has no dynamic VMEM gather.  Hopper gathers from
-// shared memory directly:
+// The TPU builds the table with one matmul against a block-diagonal
+// codebook expansion and scores codes through an m-hot matmul, because
+// Mosaic has no dynamic VMEM gather.  Hopper gathers from shared memory
+// directly.  Two paths, chosen by shape (the wrapper's `fused_fits`):
+//
+// Fused (one launch; kk <= 2,048 and a block's lists' codes and the
+// query's P x L keys fit in shared memory, which covers the serving shape):
+//   grid    a cluster of 8 blocks per query (`cudaLaunchKernelEx` with a
+//           cluster dimension; `cudaOccupancyMaxActiveClusters` must report
+//           at least one resident cluster, or the launch is refused).  Block
+//           rank r takes the probes p = r (mod 8).  Two blocks fit an SM, so
+//           16 queries run in one wave.
+//   codes   each probed list's MB x L bytes come into shared memory through
+//           `cp.async` while the table is built.
+//   table   block r computes subspaces [r m / 8, (r + 1) m / 8) of its
+//           query's table straight from q and the codebooks and stores each
+//           entry into all eight blocks' tables (DSMEM stores), so the
+//           cluster reads the codebooks from L2 once, not eight times.  No
+//           table in device memory, no table launch.
+//   score   one thread per list row gathers from the shared table; each
+//           block's 64-bit keys (`select.cuh`) go into the leader block's
+//           shared memory (DSMEM stores, in place of its codes).
+//   select  the leader runs a radix select over the query's keys with
+//           11-, 11- and 10-bit digits over the score's 32 bits, then over
+//           the id bits (a 2,048-bin histogram, the digit found by a
+//           parallel prefix scan), stopping once the digit's bin holds just
+//           the keys still needed; it gathers the survivors (<= kk) and
+//           sorts them (bitonic: register stages, then warp-shuffle stages
+//           up to 32 lanes' keys, shared memory above; `leader_sort_write`).
+//           Summing the eight blocks' histograms by DSMEM loads on every
+//           pass was slower on an H100 than the whole select on one block
+//           (the loads' round trips): the cluster shares data by stores
+//           only.
+//
+// Three launches (any other shape: nprobe near the number of lists, or
+// kk > 2,048):
 //   lut     grid (subspace, query): one thread per codebook entry writes
 //           LUT[q, j, c] to a (Q, m, 2^nbits) scratch.
 //   scan    grid (probe slot, query).  The block reads its probe id from
@@ -33,14 +64,26 @@
 //   select  one block per query picks the top-kk (select.cuh).
 // A table larger than LUT_MAX_BYTES does not fit beside the block's other
 // shared memory; the launch refuses it (the wrapper raises first).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "select.cuh"
+#include "../topk_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+// CUDA kernels this library has launched (`ivfpq_adc_device_launches`)
+unsigned long long g_launches = 0;
+
 constexpr int SCAN_THREADS = 256;
 constexpr int LUT_MAX_BYTES = 200 * 1024;
+constexpr int CL = 8;               // blocks a query (a cluster)
+constexpr int FT = 256;             // threads a fused block
+constexpr int FK_MAX = 2048;        // kk of the fused path
+constexpr int NB = 2048;            // bins of an 11-bit digit
+constexpr int FUSED_SMEM_MAX = 226 * 1024;   // beside the static shared memory
 
 __global__ void adc_lut_kernel(const float* __restrict__ q,
                                const float* __restrict__ cb,
@@ -109,18 +152,455 @@ adc_scan_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
   }
 }
 
+
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+__host__ __device__ inline int pow2_at_least(int k) {
+  int w = 1;
+  while (w < k) w <<= 1;
+  return w;
+}
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// Dynamic shared memory of a fused block, in three regions: the table (which
+// the leader reuses for its histogram and sort buffer once every row is
+// scored), this block's lists' codes (which the leader reuses for all P x L
+// keys of its query), and this block's keys with its anchor dots.
+struct FusedSmem {
+  int lut, codes, keys, total;
+  __host__ __device__ FusedSmem(int m, int nbits, int MB, int L, int P,
+                                int kk) {
+    const int PB = (P + CL - 1) / CL;
+    lut = align16(imax(m * (1 << nbits) * 4,
+                       NB * 4 + imax(pow2_at_least(kk), FT) * 8));
+    codes = align16(imax(PB * align16(MB * L), P * L * 8));
+    keys = align16(PB * L * 8 + PB * 4);
+    total = lut + codes + keys + 16;
+  }
+};
+
+__host__ __device__ inline int fused_smem(int m, int nbits, int MB, int L,
+                                          int P, int kk) {
+  return FusedSmem(m, nbits, MB, L, P, kk).total;
+}
+
+// keys a thread holds in the leader's sort of max(W, 256) keys
+__host__ __device__ inline int SE(int W) { return W > FT ? W / FT : 1; }
+
+template <int E, int S>
+__device__ __forceinline__ void cmpx_regs(u64 (&v)[E], int base, int size) {
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int pj = j ^ S;
+    if (pj > j && pj < E) {
+      const u64 x = v[j], y = v[pj];
+      const bool up = ((base + j) & size) == 0;
+      v[j] = up ? (x > y ? x : y) : (x < y ? x : y);
+      v[pj] = up ? (x < y ? x : y) : (x > y ? x : y);
+    }
+  }
+}
+
+// The leader's descending bitonic sort of its E FT gathered keys (zeros
+// past the survivors; element e = tid E + j held in v[j]), then the first
+// kk written as the query's shortlist.  Strides below E swap registers,
+// below 32 E go through warp shuffles, the rest through shared memory
+// (stored j-major, so the reads hit distinct banks).  Placing each key by
+// binary searches in eight sorted warp runs was slower on an H100: its
+// searches are chains of dependent loads.
+template <int E>
+__device__ void leader_sort_write(u64* buf, float* __restrict__ out_s,
+                                  int* __restrict__ out_i, int qi, int kk) {
+  const int tid = threadIdx.x;
+  const int base = tid * E;
+  u64 v[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j) v[j] = buf[base + j];
+  for (int size = 2; size <= E * FT; size <<= 1) {
+    for (int st = size >> 1; st > 0; st >>= 1) {
+      if (st < E) {
+        if (st == 1) cmpx_regs<E, 1>(v, base, size);
+        else if (st == 2) cmpx_regs<E, 2>(v, base, size);
+        else cmpx_regs<E, 4>(v, base, size);
+      } else if (st < 32 * E) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const int e = base + j;
+          const u64 x = v[j];
+          const u64 y = __shfl_xor_sync(0xffffffffu, x, st / E);
+          const bool up = (e & size) == 0, lower = (e & st) == 0;
+          v[j] = (up == lower) ? (x > y ? x : y) : (x < y ? x : y);
+        }
+      } else {
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < E; ++j) buf[j * FT + tid] = v[j];
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const int e = base + j, f = e ^ st;
+          const u64 x = v[j], y = buf[(f % E) * FT + f / E];
+          const bool up = (e & size) == 0, lower = (e & st) == 0;
+          v[j] = (up == lower) ? (x > y ? x : y) : (x < y ? x : y);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int e = base + j;
+    if (e < kk) {
+      out_s[(long long)qi * kk + e] = v[j] ? key_score(v[j]) : -CUDART_INF_F;
+      out_i[(long long)qi * kk + e] = v[j] ? key_id(v[j]) : -1;
+    }
+  }
+}
+
+template <int NBITS>
+__global__ void __launch_bounds__(FT, 2)
+adc_fused_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
+                 const unsigned char* __restrict__ codes,
+                 const int* __restrict__ ids, const float* __restrict__ inv,
+                 const float* __restrict__ anchors,
+                 const float* __restrict__ cb, float* __restrict__ out_s,
+                 int* __restrict__ out_i, int C, int MB, int L, int D, int P,
+                 int m, int kk) {
+  constexpr int K = 1 << NBITS;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank();
+  const int qi = blockIdx.y, tid = threadIdx.x, lane = tid & 31,
+            warp = tid >> 5;
+  const int PB = (P + CL - 1) / CL;
+  const int CB = align16(MB * L);
+  const int W = pow2_at_least(kk);
+  const FusedSmem lay(m, NBITS, MB, L, P, kk);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* lut = reinterpret_cast<float*>(smem);                   // (m, K)
+  unsigned char* cs = smem + lay.lut;                            // PB x CB
+  u64* keys = reinterpret_cast<u64*>(cs + lay.codes);            // PB x L
+  float* aq = reinterpret_cast<float*>(keys + PB * L);           // PB
+  int* ctl = reinterpret_cast<int*>(smem + lay.lut + lay.codes + lay.keys);
+  // the leader's reuse, once every block has scored its rows
+  u64* all = reinterpret_cast<u64*>(cs);                         // P x L
+  unsigned* hist = reinterpret_cast<unsigned*>(smem);            // NB
+  u64* sorted = reinterpret_cast<u64*>(smem + NB * 4);           // W
+  __shared__ float red[FT / 32];
+  __shared__ int ired[FT / 32];
+  __shared__ int s_d, s_cum, s_hit, s_found;
+
+  if (tid == 0) ctl[0] = 0;
+  // codes of this block's probed lists, in flight while the table is built
+  const bool v16 = (MB * L) % 16 == 0;
+  for (int j = 0; j < PB; ++j) {
+    const int p = r + CL * j;
+    const int cid = p < P ? q_probe[(long long)qi * P + p] : -1;
+    if (cid < 0 || cid >= C) continue;
+    const unsigned char* src = codes + (long long)cid * MB * L;
+    unsigned char* dst = cs + j * CB;
+    if (v16) {
+      for (int e = tid * 16; e < MB * L; e += FT * 16)
+        cp_async16_zfill(dst + e, src + e, true);
+    } else {
+      for (int e = tid * 4; e < MB * L; e += FT * 4)
+        cp_async4_zfill(dst + e, src + e, true);
+    }
+  }
+  cp_async_commit();
+  // a block may store into another's shared memory only once every block
+  // of the cluster has started: arrive now, wait before the first store,
+  // so the code copies and the anchor dots run meanwhile
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // q . anchor of each probed list, reduced as adc_scan_kernel does
+  for (int j = 0; j < PB; ++j) {
+    const int p = r + CL * j;
+    const int cid = p < P ? q_probe[(long long)qi * P + p] : -1;
+    float a = 0.f;
+    if (cid >= 0 && cid < C)
+      for (int d = tid; d < D; d += FT)
+        a = fmaf(q[(long long)qi * D + d], anchors[(long long)cid * D + d], a);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      a += __shfl_xor_sync(0xffffffffu, a, off);
+    if (lane == 0) red[warp] = a;
+    __syncthreads();
+    if (tid == 0) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < FT / 32; ++w) t += red[w];
+      aq[j] = t;
+    }
+    __syncthreads();
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+
+  // this block's slice of the table, in adc_lut_kernel's arithmetic, stored
+  // into every block of the cluster (DSMEM stores, no round trip)
+  const int dsub = D / m;
+  const int msl = (m + CL - 1) / CL;
+  const int j0 = min(m, r * msl), j1 = min(m, j0 + msl);
+  float* peer_lut[CL];
+#pragma unroll
+  for (int rr = 0; rr < CL; ++rr) peer_lut[rr] = cluster.map_shared_rank(lut, rr);
+  // four entries a thread at a time, so their codebook loads are in
+  // flight together
+  constexpr int EB = 4;
+  const int n_ent = (j1 - j0) * K;
+  for (int e0 = tid; e0 < n_ent; e0 += FT * EB) {
+    const float* qv[EB];
+    const float* ev[EB];
+    float acc[EB];
+#pragma unroll
+    for (int u = 0; u < EB; ++u) {
+      const int e = min(e0 + u * FT, n_ent - 1);
+      const int j = j0 + e / K, c = e % K;
+      qv[u] = q + (long long)qi * D + (long long)j * dsub;
+      ev[u] = cb + ((long long)j * K + c) * dsub;
+      acc[u] = 0.f;
+    }
+    if (dsub % 4 == 0) {                  // 16-byte loads, same FMA order
+      for (int d = 0; d < dsub; d += 4) {
+#pragma unroll
+        for (int u = 0; u < EB; ++u) {
+          const float4 x = *reinterpret_cast<const float4*>(qv[u] + d);
+          const float4 y = *reinterpret_cast<const float4*>(ev[u] + d);
+          acc[u] = fmaf(x.x, y.x, acc[u]);
+          acc[u] = fmaf(x.y, y.y, acc[u]);
+          acc[u] = fmaf(x.z, y.z, acc[u]);
+          acc[u] = fmaf(x.w, y.w, acc[u]);
+        }
+      }
+    } else {
+      for (int d = 0; d < dsub; ++d) {
+#pragma unroll
+        for (int u = 0; u < EB; ++u)
+          acc[u] = fmaf(qv[u][d], ev[u][d], acc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < EB; ++u) {
+      const int e = e0 + u * FT;
+      if (e >= n_ent) break;
+      const int at = (j0 + e / K) * K + e % K;
+#pragma unroll
+      for (int rr = 0; rr < CL; ++rr) peer_lut[rr][at] = acc[u];
+    }
+  }
+  cp_async_wait<0>();
+  cluster.sync();                         // every table is whole
+
+  // one thread per list row; keys kept in this block's shared memory
+  for (int j = 0; j < PB; ++j) {
+    const int p = r + CL * j;
+    const int cid = p < P ? q_probe[(long long)qi * P + p] : -1;
+    const bool live = cid >= 0 && cid < C;
+    const unsigned char* cl = cs + j * CB;
+    for (int l = tid; l < L; l += FT) {
+      u64 key = 0ull;
+      if (live) {
+        float acc = 0.f;
+        if (NBITS == 8) {
+#pragma unroll 8
+          for (int b = 0; b < MB; ++b) acc += lut[(b << 8) + cl[b * L + l]];
+        } else {
+#pragma unroll 4
+          for (int b = 0; b < MB; ++b) {
+            const int byte = cl[b * L + l];
+            acc += lut[(2 * b) * 16 + (byte & 0xF)];
+            acc += lut[(2 * b + 1) * 16 + (byte >> 4)];
+          }
+        }
+        const long long row = (long long)cid * L + l;
+        const int id = ids[row];
+        key = make_key((acc + aq[j]) * inv[row], id, id >= 0);
+      }
+      keys[j * L + l] = key;
+    }
+  }
+  cluster.sync();                         // the leader's codes are free
+  {
+    u64* dst = cluster.map_shared_rank(all, 0);
+    for (int j = 0; j < PB; ++j) {
+      const int p = r + CL * j;
+      if (p >= P) break;
+      for (int l = tid; l < L; l += FT) dst[p * L + l] = keys[j * L + l];
+    }
+  }
+  cluster.sync();                         // the leader holds every key
+  if (r != 0) return;
+
+  // the leader: radix select over the P x L keys, 11-, 11-, 10-bit digits of
+  // the score, then of the id, stopping once the digit's bin holds just the
+  // keys still needed
+  const int n = P * L;
+  u64 prefix = 0ull, mask = 0ull, thr = 1ull;
+  int need = kk, shift = 64;
+  constexpr int PER = NB / FT;
+  for (int pass = 0; pass < 6; ++pass) {
+    const int wd = pass % 3 == 2 ? 10 : 11;
+    shift -= wd;
+    const unsigned dmask = (1u << wd) - 1u;
+    for (int b = tid; b < NB; b += FT) hist[b] = 0u;
+    __syncthreads();
+    for (int e = tid; e < n; e += FT) {
+      const u64 key = all[e];
+      if (key != 0ull && (key & mask) == prefix)
+        hist_add(hist, (unsigned)(key >> shift) & dmask);
+    }
+    __syncthreads();
+    // thread t owns bins NB-1-PER t down to NB-PER (t+1): a descending scan
+    int c[PER], sum = 0;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      c[i] = (int)hist[NB - 1 - PER * tid - i];
+      sum += c[i];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += o;
+    }
+    if (lane == 31) ired[warp] = incl;
+    if (tid == 0) s_found = 0;
+    __syncthreads();
+    int base = 0;
+    for (int w = 0; w < warp; ++w) base += ired[w];
+    incl += base;
+    const int excl = incl - sum;
+    if (excl < need && incl >= need) {
+      int cum = excl;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        if (cum + c[i] >= need) {
+          s_d = NB - 1 - PER * tid - i;
+          s_cum = cum;
+          s_hit = c[i];
+          s_found = 1;
+          break;
+        }
+        cum += c[i];
+      }
+    }
+    __syncthreads();
+    if (!s_found) break;                  // fewer than kk keys: take all
+    need -= s_cum;
+    prefix |= (u64)s_d << shift;
+    mask |= (u64)dmask << shift;
+    thr = prefix ? prefix : 1ull;
+    if (s_hit == need) break;             // the bin holds just what is needed
+    __syncthreads();                      // s_* are written again next pass
+  }
+
+  // the survivors: exactly min(kk, valid keys), then zeros up to W
+  for (int e0 = 0; e0 < n; e0 += FT) {
+    const int e = e0 + tid;
+    const u64 key = e < n ? all[e] : 0ull;
+    const bool keep = key != 0ull && key >= thr;
+    const unsigned ball = __ballot_sync(0xffffffffu, keep);
+    if (!ball) continue;
+    const int first = __ffs(ball) - 1;
+    int at = 0;
+    if (lane == first) at = atomicAdd(ctl, __popc(ball));
+    at = __shfl_sync(0xffffffffu, at, first) +
+         __popc(ball & ((1u << lane) - 1u));
+    if (keep && at < kk) sorted[at] = key;
+  }
+  __syncthreads();
+  const int cnt = min(ctl[0], kk);
+  for (int e = cnt + tid; e < SE(W) * FT; e += FT) sorted[e] = 0ull;
+  __syncthreads();
+
+  // the leader sorts max(W, 256) keys (zeros past the survivors)
+  switch (SE(W)) {
+    case 1: leader_sort_write<1>(sorted, out_s, out_i, qi, kk); break;
+    case 2: leader_sort_write<2>(sorted, out_s, out_i, qi, kk); break;
+    case 4: leader_sort_write<4>(sorted, out_s, out_i, qi, kk); break;
+    default: leader_sort_write<8>(sorted, out_s, out_i, qi, kk); break;
+  }
+}
+
+// The fused launch's configuration; clusters receives how many clusters of
+// 8 can be resident at once (0: the shape cannot run fused on this device).
+template <int NBITS>
+cudaError_t fused_config(int Q, int smem, cudaStream_t st,
+                         cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                         int* clusters) {
+  auto fn = adc_fused_kernel<NBITS>;
+  *clusters = 0;
+  if (smem > FUSED_SMEM_MAX) return cudaSuccess;
+  // the attribute is per device, so it is set on every launch
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(CL, Q > 0 ? Q : 1);
+  cfg->blockDim = dim3(FT);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, (void*)fn, cfg);
+}
+
+template <int NBITS>
+int fused_launch(const float* q, const int* q_probe, const unsigned char* codes,
+                 const int* ids, const float* inv, const float* anchors,
+                 const float* cb, float* out_s, int* out_i, int Q, int P,
+                 int C, int MB, int L, int D, int m, int kk,
+                 cudaStream_t st) {
+  const int smem = fused_smem(m, NBITS, MB, L, P, kk);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  cudaError_t e = fused_config<NBITS>(Q, smem, st, &cfg, &attr, &clusters);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, adc_fused_kernel<NBITS>, q, q_probe, codes,
+                         ids, inv, anchors, cb, out_s, out_i, C, MB, L, D, P,
+                         m, kk);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaGetLastError();
+  g_launches += e == cudaSuccess;
+  return (int)e;
+}
+
 }  // namespace
 
 extern "C" {
 
+// CUDA kernels launched by this library since it was loaded
+unsigned long long ivfpq_adc_device_launches() { return g_launches; }
+
+// Shared memory a fused block of this shape takes, and how many clusters of
+// 8 such blocks the device can hold at once (0: it cannot run fused).
+int ivfpq_adc_fused_plan(int m, int nbits, int MB, int L, int P, int kk,
+                         int* smem, int* clusters) {
+  if (m < 1 || L < 1 || P < 1 || kk < 1 || !(nbits == 4 || nbits == 8))
+    return (int)cudaErrorInvalidValue;
+  *smem = fused_smem(m, nbits, MB, L, P, kk);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  return nbits == 8
+             ? (int)fused_config<8>(1, *smem, nullptr, &cfg, &attr, clusters)
+             : (int)fused_config<4>(1, *smem, nullptr, &cfg, &attr, clusters);
+}
+
 // q (Q, D) f32; q_probe (Q, P) i32; codes (C, MB, L) u8; ids / inv (C, L);
-// anchors (C, D) f32; cb (m, 2^nbits, D / m) f32; lut (Q, m, 2^nbits) f32
-// and keys (Q, P * L) u64 scratch; out (Q, k).
+// anchors (C, D) f32; cb (m, 2^nbits, D / m) f32; out (Q, k).  fused != 0:
+// one launch (k <= 2,048, (MB L) % 4 == 0, the block's shared memory within
+// the limit; lut and keys unused).  Otherwise lut (Q, m, 2^nbits) f32 and
+// keys (Q, P * L) u64 scratch for the three launches.
 int ivfpq_adc_launch(const void* q, const void* q_probe, const void* codes,
                      const void* ids, const void* inv, const void* anchors,
                      const void* cb, void* lut, void* keys, void* out_s,
                      void* out_i, int Q, int P, int C, int MB, int L, int D,
-                     int m, int nbits, int k, void* stream) {
+                     int m, int nbits, int k, int fused, void* stream) {
   if (k < 1 || Q < 1 || P < 1 || L < 1 || m < 1 || D % m ||
       !(nbits == 8 ? MB == m : nbits == 4 && 2 * MB == m))
     return (int)cudaErrorInvalidValue;
@@ -128,18 +608,32 @@ int ivfpq_adc_launch(const void* q, const void* q_probe, const void* codes,
   const int smem = m * K * (int)sizeof(float);
   if (smem > LUT_MAX_BYTES) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  auto qf = static_cast<const float*>(q);
+  if (fused) {
+    if (k > FK_MAX || (MB * L) % 4) return (int)cudaErrorInvalidValue;
+    auto args = [&](auto launch) {
+      return launch(qf, static_cast<const int*>(q_probe),
+                    static_cast<const unsigned char*>(codes),
+                    static_cast<const int*>(ids),
+                    static_cast<const float*>(inv),
+                    static_cast<const float*>(anchors),
+                    static_cast<const float*>(cb), static_cast<float*>(out_s),
+                    static_cast<int*>(out_i), Q, P, C, MB, L, D, m, k, st);
+    };
+    return nbits == 8 ? args(fused_launch<8>) : args(fused_launch<4>);
+  }
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         adc_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  auto qf = static_cast<const float*>(q);
   auto lp = static_cast<float*>(lut);
   auto kp = static_cast<unsigned long long*>(keys);
   adc_lut_kernel<<<dim3(m, Q), K < SCAN_THREADS ? K : SCAN_THREADS, 0, st>>>(
       qf, static_cast<const float*>(cb), lp, D, m, K);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  ++g_launches;
   adc_scan_kernel<<<dim3(P, Q), SCAN_THREADS, smem, st>>>(
       qf, static_cast<const int*>(q_probe),
       static_cast<const unsigned char*>(codes), static_cast<const int*>(ids),
@@ -147,6 +641,8 @@ int ivfpq_adc_launch(const void* q, const void* q_probe, const void* codes,
       kp, C, MB, L, D, P, m, nbits);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  ++g_launches;
+  g_launches += (k + SEL_KMAX - 1) / SEL_KMAX;
   return (int)select_topk(kp, Q, P * L, k, static_cast<float*>(out_s),
                           static_cast<int*>(out_i), st);
 }

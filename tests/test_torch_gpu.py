@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_reference  #
 from repro_torch.kernels.knn_ivf import ops as ivf_ops  # noqa: E402
 from repro_torch.kernels.knn_ivf.ref import (ivf_probe, ivf_scan_plain,  # noqa: E402
                                              ivfpq_adc_plain)
+from repro_torch.kernels.knn_topk import ops as knn_ops  # noqa: E402
 from repro_torch.kernels.knn_topk.ops import knn_topk  # noqa: E402
 from repro_torch.kernels.knn_topk.ref import knn_topk_reference  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -382,3 +383,217 @@ def test_gpu_ssd_gradient_allocates_no_per_head_partials():
     rise = torch.cuda.max_memory_allocated() - base
     out = sum(t.numel() * t.element_size() for t in g)
     assert rise <= out + 64 * 2**20, (rise, out)
+
+
+# ---------------------------------------------------------------------------
+# kernel 1 (one launch for k <= 128, histogram and compaction above) and
+# kernel 5 (fused cluster path and three-launch path)
+# ---------------------------------------------------------------------------
+
+def _knn_support(kind, N, D, seed):
+    rng = np.random.default_rng(seed)
+    s = rng.normal(size=(N, D)).astype(np.float32)
+    if kind == "border ties":
+        # one row copied across 64-row tiles and across the row ranges of
+        # the blocks (every 530th row is near a range border at N 70,000)
+        s[::530] = s[0]
+        s[63:66] = s[0]
+    elif kind == "all equal":
+        s[:] = s[0]
+    elif kind == "clustered":
+        # near-duplicates of one row: cosines crowd [0.5, 1)
+        s = (s[0] + 0.2 * s / np.sqrt(D)).astype(np.float32)
+    return s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,Q,N,k", [
+    ("gaussian", 1, 70_001, 10), ("gaussian", 33, 70_001, 100),
+    ("gaussian", 16, 100_003, 128), ("border ties", 16, 70_000, 10),
+    ("border ties", 16, 70_000, 300), ("all equal", 4, 20_000, 100),
+    ("all equal", 4, 20_000, 300), ("all equal", 2, 70_000, 2048),
+    ("clustered", 16, 70_000, 200), ("clustered", 16, 70_000, 1024)])
+def test_gpu_knn_kernel_redesign_cases_match_plain(kind, Q, N, k):
+    """N not a multiple of the 64-row tile nor of the row ranges, Q 1 and
+    33, ties across tile and range borders, an all-equal support (ties
+    everywhere; above k = 128 its candidates overflow the buffer and the
+    full-key path answers), near-duplicate rows (above k = 128 the refined
+    threshold keeps the candidates within the buffer).  Ties go to the
+    lower row id."""
+    _need_cuda()
+    rng = np.random.default_rng(N + k)
+    q = _unit(rng.normal(size=(Q, 768)))
+    s = _knn_support(kind, N, 768, N + Q)
+    if kind == "clustered":
+        q = _unit(s[:Q] + 0.5 * q / np.sqrt(768))
+    q, s = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+    n0 = knn_topk.launches
+    ks, ki = knn_topk(q, s, k)
+    assert knn_topk.launches == n0 + 1
+    if k > 128:
+        flags = knn_topk.last_overflow.cpu()
+        assert flags.all() if kind == "all equal" else not flags.any()
+    rs, ri = knn_topk_reference(q, s, k)
+    if kind == "clustered":
+        # 70,000 cosines within 1e-4 of each other: the kernel's and the
+        # plain version's roundings (1e-7) reorder rows at the k-th score, so
+        # the scores must agree and every id must point at a row that has
+        # its score, once per list
+        torch.testing.assert_close(ks, rs, rtol=1e-5, atol=1e-5)
+        own = (q @ s.T * torch.rsqrt((s * s).sum(1) + 1e-12)).gather(
+            1, ki.long())
+        torch.testing.assert_close(own, ks, rtol=1e-5, atol=1e-5)
+        assert all(len(set(r.tolist())) == k for r in ki)
+    else:
+        _check_tied(ks, ki, rs, ri, 1e-5, 1e-5)
+    if kind == "all equal":
+        assert (ki == torch.arange(k, device="cuda")).all()
+    if kind == "border ties":
+        # the lower id of every tied score comes first
+        for r in range(Q):
+            row = ki[r][ki[r] >= 0].cpu().numpy()
+            sc = ks[r][: len(row)].cpu().numpy()
+            same = sc[1:] == sc[:-1]
+            assert (row[1:][same] > row[:-1][same]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 100, 300])
+def test_gpu_knn_back_to_back_calls_are_bitwise_equal(k):
+    """The one-launch path's ticket counter is reset by the last block, so
+    a second call merges again and returns the same bits."""
+    _need_cuda()
+    q, s = _knn_data(16, 70_000, 768, 9)
+    qd, sd = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+    a = knn_topk(qd, sd, k)
+    b = knn_topk(qd, sd, k)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    if k <= 128:
+        t = next(iter(knn_ops._tickets.values()))
+        assert int(t.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_gpu_knn_one_launch_at_the_main_shape():
+    """k <= 128 is a single CUDA kernel a call (read with torch.profiler)."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+    q, s = _knn_data(16, 70_000, 768, 1)
+    qd, sd = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+    knn_topk(qd, sd, 10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        knn_topk(qd, sd, 10)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    names = {e.name for e in kernels}
+    assert len(kernels) == 1 and "knn_scan_kernel" in next(iter(names)), names
+    assert knn_topk.last_cuda_launches == 1
+
+
+def _pq_synthetic(nbits, C, L, D=128, m=16, short=False, seed=0):
+    rng = np.random.default_rng(seed)
+    MB = m * nbits // 8
+    counts = (np.arange(C) % 4 + 3) if short else np.full(C, L - 3)
+    ids = np.full((C, L), -1, np.int32)
+    at = 0
+    for c, n in enumerate(counts):
+        ids[c, :n] = np.arange(at, at + n)
+        at += n
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    return dict(codes=t(rng.integers(0, 256, (C, MB, L), dtype=np.uint8)),
+                ids=t(ids),
+                inv=t(np.where(ids >= 0, 1 + rng.random((C, L)), 0)
+                      .astype(np.float32)),
+                anchors=t(0.1 * rng.normal(size=(C, D)).astype(np.float32)),
+                cb=t(0.1 * rng.normal(size=(m, 2 ** nbits, D // m))
+                     .astype(np.float32)),
+                cent=t(_unit(rng.normal(size=(C, D))))), m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("nbits,Q,C,L,P,kk,short", [
+    (8, 16, 64, 400, 8, 800, False), (4, 16, 64, 400, 8, 800, False),
+    (8, 1, 64, 400, 8, 800, False), (4, 64, 64, 400, 8, 800, False),
+    (8, 16, 24, 48, 24, 100, False),      # nprobe = C
+    (4, 16, 24, 48, 24, 100, False),
+    (8, 16, 32, 64, 2, 100, True),        # short lists: -inf / -1 tail
+    (8, 16, 64, 400, 8, 2048, False), (4, 8, 64, 400, 8, 2048, False)])
+def test_gpu_ivfpq_both_paths_match_plain(fused, nbits, Q, C, L, P, kk,
+                                          short):
+    """Shapes the fused launch takes, run on it and on the three launches
+    (`_adc_cuda`, the wrapper's launch on a path the test picks)."""
+    _need_cuda()
+    idx, m = _pq_synthetic(nbits, C, L, short=short, seed=C + L + kk)
+    rng = np.random.default_rng(Q + kk)
+    q = torch.from_numpy(_unit(rng.normal(size=(Q, 128)))).cuda()
+    probe = ivf_probe(q, idx["cent"], P)
+    args = (q, probe, idx["codes"], idx["ids"], idx["inv"], idx["anchors"],
+            idx["cb"], kk)
+    assert ivf_ops.fused_fits(m, nbits, idx["codes"].shape[1], L, P, kk)
+    n0 = ivf_ops.ivfpq_adc.launches
+    out = ivf_ops._adc_cuda(*args, m=m, nbits=nbits, fused=fused)
+    assert ivf_ops.ivfpq_adc.launches == n0 + 1
+    assert ivf_ops.ivfpq_adc.last_cuda_launches == (
+        1 if fused else 2 + -(-kk // 1024))
+    _check_tied(*out, *ivfpq_adc_plain(*args, m, nbits), 1e-4, 1e-5)
+    if short:
+        assert (out[1] == -1).any() and torch.isinf(out[0][out[1] < 0]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbits,Q", [(8, 1), (8, 64), (4, 1), (4, 64)])
+def test_gpu_ivfpq_shape_chooses_the_three_launch_path(nbits, Q):
+    """nprobe = C on 64 lists of 400: the keys exceed a block's shared
+    memory, so the launcher takes the three launches; kk > 2,048 too."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+    idx, m = _pq_synthetic(nbits, 64, 400)
+    MB = idx["codes"].shape[1]
+    q = torch.from_numpy(_unit(np.random.default_rng(Q).normal(
+        size=(Q, 128)))).cuda()
+    for P, kk in ((64, 800), (8, 3000)):
+        probe = ivf_probe(q, idx["cent"], P)
+        args = (q, probe, idx["codes"], idx["ids"], idx["inv"],
+                idx["anchors"], idx["cb"], kk)
+        assert not ivf_ops.fused_fits(m, nbits, MB, 400, P, kk)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = ivf_ops.ivfpq_adc(*args, m=m, nbits=nbits)
+            torch.cuda.synchronize()
+        names = " ".join(e.name for e in prof.events()
+                         if str(e.device_type).endswith("CUDA"))
+        assert "adc_scan_kernel" in names and "adc_fused" not in names
+        assert ivf_ops.ivfpq_adc.last_cuda_launches == 2 + -(-kk // 1024)
+        _check_tied(*out, *ivfpq_adc_plain(*args, m, nbits), 1e-4, 1e-5)
+        with pytest.raises(ValueError, match="fused path"):
+            ivf_ops._adc_cuda(*args, m=m, nbits=nbits, fused=True)
+
+
+@pytest.mark.gpu
+def test_gpu_ivfpq_fused_is_one_launch_and_checks_cluster_occupancy():
+    """At the serving shape the fused path is one CUDA kernel; the
+    occupancy check reports resident clusters there and none for a block
+    larger than the shared memory an SM has."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+    smem, clusters = ivf_ops.fused_plan(64, 8, 64, 400, 8, 800)
+    assert smem == ivf_ops.fused_smem_bytes(64, 8, 64, 400, 8, 800)
+    assert clusters >= 16
+    assert ivf_ops.fused_plan(64, 8, 64, 400, 64, 800)[1] == 0
+    idx, m = _pq_synthetic(8, 64, 400, D=768, m=64)
+    q = torch.from_numpy(_unit(np.random.default_rng(2).normal(
+        size=(16, 768)))).cuda()
+    probe = ivf_probe(q, idx["cent"], 8)
+    args = (q, probe, idx["codes"], idx["ids"], idx["inv"], idx["anchors"],
+            idx["cb"], 800)
+    ivf_ops.ivfpq_adc(*args, m=m, nbits=8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ivf_ops.ivfpq_adc(*args, m=m, nbits=8)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if str(e.device_type).endswith("CUDA")]
+    assert len(kernels) == 1 and "adc_fused_kernel" in kernels[0], kernels
+    assert ivf_ops.ivfpq_adc.last_cuda_launches == 1

@@ -3,7 +3,10 @@
 
 The kernels run their products on the tensor cores in three TF32 passes
 (a = big + small with big = a cut to TF32, small = tf32(a - big); a b' is
-big small' + small big' + big big', accumulated in f32), compute C B^T
+big small' + small big' + big big' in a fresh sum per k-step of 8, added
+to an f32 total with a rounded add), and the tensor cores cut the sums
+they form (`mma_cut`: every addend cut to the largest one's 24 bits, the
+sum cut to f32, toward zero); they compute C B^T
 once per group on the FMA units in f32, sum a group's heads of gG in f32
 in a fixed order, and keep gcs, gdA and gA in f64.  These tests put the
 same roundings into a copy of the plain formulas (`ref.ssd_intra_plain`,
@@ -37,17 +40,47 @@ def tf32_cut(a):
     return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
-def mm3(a, b):
-    """a @ b in three TF32 passes with f32 sums, split as `split_tf32`
-    does: big = a cut to TF32, small = the exact remainder rounded to TF32.
-    Each product of two TF32 values is exact in f32, so only the dropped
-    small x small term and the rounding of ``small`` differ from an f32
-    product."""
+def cut_f32(x):
+    """float64 -> float32 rounded toward zero."""
+    x32 = x.float()
+    over = x32.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(x32, torch.zeros_like(x32)), x32)
+
+
+def mma_cut(c, a, b):
+    """One tensor-core step c + a @ b over a k-step of 8 TF32 values (c
+    (..., M, N) f32, a (..., M, 8), b (..., 8, N)) as the tensor cores sum
+    it: the products are exact, every addend (c and the 8 products) is cut
+    to the 24-bit significand of the largest one, and the sum is cut to
+    f32, both toward zero."""
+    p = a.double()[..., :, :, None] * b.double()[..., None, :, :]
+    terms = torch.cat([c.double()[..., :, None, :], p], -2)   # (..., M, 9, N)
+    mx = terms.abs().amax(-2, keepdim=True)
+    q = torch.exp2(torch.floor(torch.log2(torch.where(
+        mx > 0, mx, torch.ones_like(mx)))) - 23)
+    return cut_f32((torch.trunc(terms / q) * q).sum(-2))
+
+
+def mm3(a, b, fresh=True):
+    """a @ b in three TF32 passes, split as `split_tf32` does: big = a cut
+    to TF32, small = the exact remainder rounded to TF32; every mma's sum
+    cut as the tensor cores cut it (`mma_cut`).  ``fresh`` (the kernels'
+    scheme, `warp_mma`): each k-step of 8 sums big small' + small big' +
+    big big' in a fresh accumulator that is added to the f32 total with a
+    rounded add.  ``fresh=False``: every mma runs into the one accumulator,
+    the design whose gB missed the check on the card."""
     ab, bb = tf32_cut(a), tf32_cut(b)
     asm, bsm = tf32(a - ab), tf32(b - bb)
-    acc = ab @ bsm
-    acc = acc + asm @ bb
-    return acc + ab @ bb
+    K = a.shape[-1]
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, K, 8):
+        s = slice(k0, k0 + 8)
+        d = torch.zeros_like(acc) if fresh else acc
+        d = mma_cut(d, ab[..., s], bsm[..., s, :])
+        d = mma_cut(d, asm[..., s], bb[..., s, :])
+        d = mma_cut(d, ab[..., s], bb[..., s, :])
+        acc = acc + d if fresh else d
+    return acc
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():
@@ -189,3 +222,28 @@ def test_grid_limits_are_checked_before_a_launch():
     Bm = torch.zeros(1, 1, 20_000, 256, 1).to("meta")
     with pytest.raises(ValueError, match="row tiles"):
         ops._dims(x, Bm)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cut_sums_single_accumulator_gb_against_fresh_sum_per_k_step(seed):
+    """gB's sum over a group's 32 heads, sum_h (x dt w)_h gst_h: 2,048
+    terms, 24 mma a k-tile of 64 (8 k-steps x 3 passes).  With every mma's
+    sum cut (`mma_cut`), the kernels' fresh sum per k-step stays within a
+    tenth of the 3e-4 check, and running all 768 mma into one accumulator
+    leaves at least three times its error (0.19-0.46 of the check against
+    0.02-0.06 over these seeds).  On the card the one-accumulator design
+    missed the check (2.44x over the whole gradient); this model of the
+    cut, every addend cut at the largest one's 24th bit, does not reach
+    that far."""
+    ins, grads = _inputs(1, 32, 1, 256, 64, 1, 128, seed)
+    x, dt = ins[0], ins[1]
+    cs = emulated_fwd(*ins)[2][..., 0]
+    w = torch.exp(cs[..., -1:] - cs)[..., None]
+    # the chunk's last 128 rows, where the decay w leaves the terms large
+    a = (x * (dt * w))[0, :, 0].permute(1, 0, 2).reshape(256, 32 * 64)[128:]
+    b = grads[1][0, :, 0].reshape(32 * 64, 128)
+    exact = a.double() @ b.double()
+    fresh = _err_over_tol([mm3(a, b)], [exact])
+    single = _err_over_tol([mm3(a, b, fresh=False)], [exact])
+    print(f"seed {seed}: fresh {fresh:.3f}, one accumulator {single:.3f}")
+    assert fresh <= 0.1 and single >= 3 * fresh, (fresh, single)

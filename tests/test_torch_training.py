@@ -147,15 +147,14 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys):
 
 
 def test_train_ab_runs_both_checkouts_in_turns():
-    """`launch.train_ab` runs A, B, B, A, each in its own process from its
-    own checkout; here both are this checkout, on the CPU."""
+    """`launch.ab`'s train child runs A, B, B, A, each in its own process
+    from its own checkout; here both are this checkout, on the CPU."""
     from pathlib import Path
-    from repro_torch.launch import train_ab
+    from repro_torch.launch import ab
     root = Path(__file__).resolve().parents[1]
-    res = train_ab.main(["--a", str(root), "--b", str(root), "--",
-                         "--arch", "mamba2-370m", "--reduced", "--device",
-                         "cpu", "--steps", "2", "--batch", "2", "--seq",
-                         "32"])
+    res = ab.main(["--a", str(root), "--b", str(root), "train", "--",
+                   "--arch", "mamba2-370m", "--reduced", "--device", "cpu",
+                   "--steps", "2", "--batch", "2", "--seq", "32"])
     assert [r["run"] for r in res] == list("ABBA")
     for r in res:
         assert len(r["step_wall_s"]) == 2
