@@ -632,19 +632,40 @@ def unit_queries(torch, Q, D, gen):
 
 
 def ivf_case(torch, timer, index, Q, P, k, tol, gen, label, rows=None,
-             q=None):
-    from repro_torch.kernels.knn_ivf.ops import ivf_scan
+             q=None, probe=None, profile=False):
+    """Kernel 4 against its plain version.  ``probe`` replaces the coarse
+    probe (shared probe sets, a list probed twice, padded queries: rows of
+    -1, which must come out empty and are left out of the plain version,
+    whose indexing would wrap them); ``rows`` (nprobe = C) holds the scores
+    to the exact scan's.  A second call must return the same bits (the
+    tickets are reset by the selecting blocks), the kernel library's own
+    count must read 1 CUDA launch for k <= 2,048 and 1 + ceil(k / 1,024)
+    above; ``profile`` adds one profiled call (device time by launch)."""
+    from repro_torch.kernels.knn_ivf.ops import IVF_ONE_LAUNCH_KMAX, ivf_scan
     from repro_torch.kernels.knn_ivf.ref import ivf_probe, ivf_scan_plain
     from repro_torch.kernels.knn_topk.ref import knn_topk_reference
     C, L, D = index.sup_cm.shape
     if q is None:
         q = unit_queries(torch, Q, D, gen)
-    probe = ivf_probe(q, index.centroids, P)
+    if probe is None:
+        probe = ivf_probe(q, index.centroids, P)
+    P = probe.shape[1]
     args = (q, probe, index.sup_cm, index.ids_cm, index.inv_cm, k)
     out = ivf_scan(*args)
-    ref = ivf_scan_plain(*args)
+    cuda_launches = ivf_scan.last_cuda_launches
+    again = ivf_scan(*args)
+    padded = (probe < 0).all(1)
+    live = ~padded
+    ref = ivf_scan_plain(q[live], probe[live], *args[2:])
     torch.cuda.synchronize()
-    err, swaps, empty = tied_error(torch, out, ref, 0.0, tol)
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1]), \
+        "a second call returned other bits"
+    assert bool((out[1][padded] == -1).all()) and bool(
+        torch.isneginf(out[0][padded]).all()), "a padded query is not empty"
+    assert cuda_launches == (1 if k <= IVF_ONE_LAUNCH_KMAX
+                             else 1 + math.ceil(k / 1024)), cuda_launches
+    err, swaps, empty = tied_error(torch, (out[0][live], out[1][live]), ref,
+                                   0.0, tol)
     if rows is not None:        # nprobe = C: the exact scan's scores
         ex = knn_topk_reference(q, torch.from_numpy(rows).cuda(), k)
         fin = torch.isfinite(ex[0])
@@ -652,14 +673,21 @@ def ivf_case(torch, timer, index, Q, P, k, tol, gen, label, rows=None,
         assert err <= tol, ("nprobe = C differs from the exact scan", err)
     ms = timer(lambda: ivf_scan(*args))
     plain = timer(lambda: ivf_scan_plain(*args))
-    lists = int(probe.unique().numel())
+    lists = int(probe[(probe >= 0) & (probe < C)].unique().numel())
     b_ms, b_by = bound(Q * D * 4 + Q * P * 4 + lists * L * (D * 4 + 8)
                        + Q * k * 8, 2 * Q * P * L * D, torch.float32)
-    return dict(case=f"{label}: Q={Q} C={C} L={L} D={D} P={P} k={k} "
-                     f"probed_lists={lists}",
-                max_abs_err=err, tol=tol, tied_id_swaps=swaps,
-                empty_slots=empty, ms=ms, plain_ms=plain, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by)
+    r = dict(case=f"{label}: Q={Q} C={C} L={L} D={D} P={P} k={k} "
+                  f"probed_lists={lists}",
+             max_abs_err=err, tol=tol, tied_id_swaps=swaps,
+             empty_slots=empty, ms=ms, plain_ms=plain, library_ms=None,
+             bound_ms=b_ms, bound_by=b_by, repeat_bitwise_equal=True,
+             cuda_launches=cuda_launches)
+    if profile:
+        p = r["launch_profile"] = device_profile(
+            torch, lambda: ivf_scan(*args), top=6,
+            groups={"ivf_topk": "ivf_tile_kernel"}, require="ivf_topk")
+        assert p["device_launches"] == cuda_launches, (p, cuda_launches)
+    return r
 
 
 def adc_case(torch, timer, index, Q, P, k, gen, label, q=None,
@@ -717,22 +745,34 @@ def adc_case(torch, timer, index, Q, P, k, gen, label, q=None,
 
 def phase_ivf_kernels(torch, timer, gen):
     """Kernels 4 and 5 at the main path's shape, then the edge cases:
-    nbits 4, Q = 1 and 64, nprobe = C on a small index, probed lists
-    holding fewer than k rows (the tail must be -inf / -1), and k = 2,048
-    of the main shape's 8 x 400 candidates (two selection rounds).
+    nbits 4, Q = 1, 17 (a partial query tile) and 64, 16 queries sharing
+    one probe set, nprobe = C on a small index, probed lists holding fewer
+    than k rows (the tail must be -inf / -1), k = 1, 2,048 (kernel 4's last
+    one-launch k) and 2,049 (the scan and three selection rounds) of the
+    main shape's 8 x 400 candidates, and D = 30 with a list probed twice
+    and a padded query.
     ``gen(*key)`` gives each case its generator.  Returns the main cases."""
     import numpy as np
+    from repro_torch.kernels.knn_ivf.ref import ivf_probe
     g = IVF_MAIN
     counts = np.full(g["C"], g["N"] // g["C"])
     counts[:g["N"] % g["C"]] += 1
     main = {}
     ivf, _ = synthetic_index(np, False, g["C"], g["L"], g["D"], counts)
-    for i, (Q, label) in enumerate([(16, "main"), (1, "Q=1"), (64, "Q=64")]):
+    for i, (Q, label) in enumerate([(16, "main"), (1, "Q=1"), (64, "Q=64"),
+                                    (17, "Q=17")]):
         r = ivf_case(torch, timer, ivf, Q, g["P"], g["k"], 1e-5,
-                     gen("ivf", label), label)
+                     gen("ivf", label), label, profile=i == 0)
         emit("kernel", name="ivf_topk", **r)
         if i == 0:
             main["ivf_topk"] = r
+    # 16 queries on one probe set: every list's owner serves all 16, and
+    # the block that completes them selects them in groups
+    q = unit_queries(torch, 16, g["D"], gen("ivf", "shared"))
+    shared = ivf_probe(q[:1], ivf.centroids, g["P"]).expand(16, -1)
+    emit("kernel", name="ivf_topk", **ivf_case(
+        torch, timer, ivf, 16, g["P"], g["k"], 1e-5, None, "shared probes",
+        q=q, probe=shared.contiguous()))
     small_counts = np.full(24, 40)
     small, rows = synthetic_index(np, False, 24, 48, 128, small_counts,
                                   seed=1)
@@ -747,10 +787,21 @@ def phase_ivf_kernels(torch, timer, gen):
                  gen("ivf", "short lists"), "short lists")
     assert r["empty_slots"] > 0
     emit("kernel", name="ivf_topk", **r)
-    emit("kernel", name="ivf_topk", **ivf_case(
-        torch, timer, ivf, 16, g["P"], 2048, 1e-5, gen("ivf", "k=2048"),
-        "k=2048"))
+    for k in (2048, 2049, 1):
+        emit("kernel", name="ivf_topk", **ivf_case(
+            torch, timer, ivf, 16, g["P"], k, 1e-5, gen("ivf", f"k={k}"),
+            f"k={k}"))
     del ivf
+    # D = 30 (4-byte copies), a list probed twice by one query (its rows
+    # twice in the result) and a padded query (a probe row of -1)
+    odd, _ = synthetic_index(np, False, 20, 72, 30, np.full(20, 60), seed=4)
+    q = unit_queries(torch, 20, 30, gen("ivf", "odd"))
+    pr = ivf_probe(q, odd.centroids, 5)
+    pr[5, 2] = pr[5, 0]
+    pr[3] = -1
+    emit("kernel", name="ivf_topk", **ivf_case(
+        torch, timer, odd, 20, 5, 50, 1e-5, None, "D=30, a list probed twice,"
+        " a padded query", q=q, probe=pr))
 
     # kernel 5 on both paths: the fused one-launch path is the shape's
     # choice at these shapes, and each also runs on the three launches
@@ -1215,7 +1266,7 @@ def phase_ivf_path(torch, ctx):
               "knn100-ivf": lambda: ivf_router.serve_fused(emb, lams),
               "knn100-ivfpq": lambda: svc.router.serve_fused(emb, lams)}
     route_s = {n: route_walls(torch, fn) for n, fn in routes.items()}
-    groups = {"knn_topk": "knn_", "ivf_topk": "ivf_scan_kernel",
+    groups = {"knn_topk": "knn_", "ivf_topk": "ivf_tile_kernel",
               "ivfpq_adc_fused": "adc_fused", "ivfpq_adc_three": "adc_scan"}
     need = {"knn100 (exact)": "knn_topk", "knn100-ivf": "ivf_topk",
             "knn100-ivfpq": "ivfpq_adc_fused"}
@@ -1228,6 +1279,7 @@ def phase_ivf_path(torch, ctx):
     from repro_torch.kernels.knn_ivf.ref import ivf_probe
     route_launches = {}
     for n, w in (("knn100 (exact)", knn_topk),
+                 ("knn100-ivf", ivf_ops.ivf_scan),
                  ("knn100-ivfpq", ivf_ops.ivfpq_adc)):
         assert profiles[n][need[n]]["count"] == 1, (n, profiles[n])
         calls = w.launches

@@ -413,7 +413,10 @@ def ivf_scan(queries, q_probe, sup_cm, ids_cm, inv_cm, k: int):
     L2-normalized; q_probe (Q, P) int32 probed list ids; sup_cm (C, L, D)
     f32; ids_cm (C, L) int32; inv_cm (C, L) f32.  Returns (scores (Q, k)
     f32 descending, ids (Q, k) int32), -inf / -1 in slots no valid row of
-    the probed lists fills (k may exceed P * L)."""
+    the probed lists fills (k may exceed P * L).  On the GPU, k <= 2,048 is
+    one CUDA launch: each probed list is read once per tile of 16 queries,
+    and selector blocks of the same launch select each query once its
+    ticket counts all its keys."""
     if sup_cm.ndim != 3 or sup_cm.shape[2] != queries.shape[-1] \
             or ids_cm.shape != sup_cm.shape[:2] \
             or inv_cm.shape != sup_cm.shape[:2]:
@@ -430,23 +433,51 @@ def ivf_scan(queries, q_probe, sup_cm, ids_cm, inv_cm, k: int):
     Q, D = queries.shape
     P = q_probe.shape[1]
     C, L, _ = sup_cm.shape
+    if P * L > _INT_MAX:
+        raise ValueError(f"ivf_scan: P * L = {P * L} candidates a query is "
+                         f"too many for one call")
     out_s, out_i, keys = _outputs(Q, k, P * L, queries.device)
     if Q == 0:
         return out_s, out_i
     fn = _fn("ivf_topk", "ivf_topk_launch",
-             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    count = _fn("ivf_topk", "ivf_topk_device_launches", [])
+    count.restype = ctypes.c_ulonglong
+    ticket = _ticket(queries.device, Q)
+    before = count()
     err = fn(queries.data_ptr(), q_probe.data_ptr(), sup_cm.data_ptr(),
              ids_cm.data_ptr(), inv_cm.data_ptr(), keys.data_ptr(),
-             out_s.data_ptr(), out_i.data_ptr(), Q, P, C, L, D, k,
-             _build.stream_ptr(queries.device))
+             ticket.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Q, P, C,
+             L, D, k, _build.stream_ptr(queries.device))
     _build.check(err, "ivf_scan")
     ivf_scan.launches += 1
+    ivf_scan.last_cuda_launches = count() - before
     return out_s, out_i
 
 
-#: calls that launched kernel 4 (one per call on a CUDA tensor: the scan
-#: pass and ceil(k / 1,024) rounds of the per-query selection pass)
+#: calls that launched kernel 4 (one per call on a CUDA tensor)
 ivf_scan.launches = 0
+#: CUDA kernels the last CUDA call launched (the kernel library's own
+#: count: 1 for k <= 2,048; above it the scan and ceil(k / 1,024) rounds of
+#: the per-query selection)
+ivf_scan.last_cuda_launches = 0
+#: k of kernel 4's one-launch path (kernel.cu: FK_MAX)
+IVF_ONE_LAUNCH_KMAX = 2048
+_INT_MAX = 2**31 - 1
+
+#: kernel 4's ticket counters, by (device, stream): one per query, allocated
+#: with zeros once (grown as Q grows), left at zero by every call's
+#: selector blocks
+_tickets: dict = {}
+
+
+def _ticket(dev: torch.device, n: int) -> torch.Tensor:
+    key = (dev.index, _build.stream_ptr(dev))
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+        _tickets[key] = t
+    return t
 
 
 def _pow2_at_least(k: int) -> int:
@@ -459,18 +490,17 @@ def _pow2_at_least(k: int) -> int:
 def fused_smem_bytes(m: int, nbits: int, MB: int, L: int, P: int,
                      kk: int) -> int:
     """Shared memory of one block of kernel 5's fused path (pq_kernel.cu:
-    `FusedSmem`): the table (which the leader reuses for a 2,048-bin
-    histogram and a sort buffer of max(256, the next power of two >= kk)
-    keys), its
-    ceil(P / 8) lists' codes rounded to 16 bytes (which the leader reuses
-    for the query's P x L keys), its lists' keys and anchor dots, and a
-    counter."""
+    `FusedSmem`): the table (which the leader reuses for its selection's
+    2,048-bin histogram and sort buffer of max(256, the next power of two
+    >= kk) keys, select.cuh `sel_smem`), its ceil(P / 8) lists' codes
+    rounded to 16 bytes (which the leader reuses for the query's P x L
+    keys), and its lists' keys and anchor dots."""
     a16 = lambda x: -(-x // 16) * 16  # noqa: E731
     pb = -(-P // FUSED_CLUSTER)
     lut = a16(max(m * 2 ** nbits * 4,
                   2048 * 4 + max(_pow2_at_least(kk), 256) * 8))
     codes = a16(max(pb * a16(MB * L), P * L * 8))
-    return lut + codes + a16(pb * L * 8 + pb * 4) + 16
+    return lut + codes + a16(pb * L * 8 + pb * 4)
 
 
 def fused_fits(m: int, nbits: int, MB: int, L: int, P: int, kk: int) -> bool:

@@ -37,13 +37,11 @@
 //   score   one thread per list row gathers from the shared table; each
 //           block's 64-bit keys (`select.cuh`) go into the leader block's
 //           shared memory (DSMEM stores, in place of its codes).
-//   select  the leader runs a radix select over the query's keys with
-//           11-, 11- and 10-bit digits over the score's 32 bits, then over
-//           the id bits (a 2,048-bin histogram, the digit found by a
-//           parallel prefix scan), stopping once the digit's bin holds just
-//           the keys still needed; it gathers the survivors (<= kk) and
-//           sorts them (bitonic: register stages, then warp-shuffle stages
-//           up to 32 lanes' keys, shared memory above; `leader_sort_write`).
+//   select  the leader selects the top kk of the query's keys in its shared
+//           memory (`block_topk`, select.cuh: 11-, 11- and 10-bit digits
+//           over the score's 32 bits, then over the id bits, stopping once
+//           the digit's bin holds just the keys still needed; the survivors
+//           sorted in registers, warp shuffles and shared memory).
 //           Summing the eight blocks' histograms by DSMEM loads on every
 //           pass was slower on an H100 than the whole select on one block
 //           (the loads' round trips): the cluster shares data by stores
@@ -61,7 +59,8 @@
 //           bytes of one subspace, so the code reads coalesce.  nbits 4
 //           holds subspace 2b in the low nibble of byte b, 2b + 1 in the
 //           high nibble.  One 64-bit selection key per candidate.
-//   select  one block per query picks the top-kk (select.cuh).
+//   select  one block per query picks the top-kk (`select_topk`,
+//           select.cuh).
 // A table larger than LUT_MAX_BYTES does not fit beside the block's other
 // shared memory; the launch refuses it (the wrapper raises first).
 #include <cooperative_groups.h>
@@ -81,8 +80,8 @@ constexpr int SCAN_THREADS = 256;
 constexpr int LUT_MAX_BYTES = 200 * 1024;
 constexpr int CL = 8;               // blocks a query (a cluster)
 constexpr int FT = 256;             // threads a fused block
+static_assert(FT == SEL_THREADS, "the leader selects with the whole block");
 constexpr int FK_MAX = 2048;        // kk of the fused path
-constexpr int NB = 2048;            // bins of an 11-bit digit
 constexpr int FUSED_SMEM_MAX = 226 * 1024;   // beside the static shared memory
 
 __global__ void adc_lut_kernel(const float* __restrict__ q,
@@ -155,106 +154,27 @@ adc_scan_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
 
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
-__host__ __device__ inline int pow2_at_least(int k) {
-  int w = 1;
-  while (w < k) w <<= 1;
-  return w;
-}
-
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 // Dynamic shared memory of a fused block, in three regions: the table (which
-// the leader reuses for its histogram and sort buffer once every row is
-// scored), this block's lists' codes (which the leader reuses for all P x L
-// keys of its query), and this block's keys with its anchor dots.
+// the leader reuses for its selection's histogram and sort buffer once every
+// row is scored), this block's lists' codes (which the leader reuses for all
+// P x L keys of its query), and this block's keys with its anchor dots.
 struct FusedSmem {
   int lut, codes, keys, total;
   __host__ __device__ FusedSmem(int m, int nbits, int MB, int L, int P,
                                 int kk) {
     const int PB = (P + CL - 1) / CL;
-    lut = align16(imax(m * (1 << nbits) * 4,
-                       NB * 4 + imax(pow2_at_least(kk), FT) * 8));
+    lut = align16(imax(m * (1 << nbits) * 4, sel_smem(kk)));
     codes = align16(imax(PB * align16(MB * L), P * L * 8));
     keys = align16(PB * L * 8 + PB * 4);
-    total = lut + codes + keys + 16;
+    total = lut + codes + keys;
   }
 };
 
 __host__ __device__ inline int fused_smem(int m, int nbits, int MB, int L,
                                           int P, int kk) {
   return FusedSmem(m, nbits, MB, L, P, kk).total;
-}
-
-// keys a thread holds in the leader's sort of max(W, 256) keys
-__host__ __device__ inline int SE(int W) { return W > FT ? W / FT : 1; }
-
-template <int E, int S>
-__device__ __forceinline__ void cmpx_regs(u64 (&v)[E], int base, int size) {
-#pragma unroll
-  for (int j = 0; j < E; ++j) {
-    const int pj = j ^ S;
-    if (pj > j && pj < E) {
-      const u64 x = v[j], y = v[pj];
-      const bool up = ((base + j) & size) == 0;
-      v[j] = up ? (x > y ? x : y) : (x < y ? x : y);
-      v[pj] = up ? (x < y ? x : y) : (x > y ? x : y);
-    }
-  }
-}
-
-// The leader's descending bitonic sort of its E FT gathered keys (zeros
-// past the survivors; element e = tid E + j held in v[j]), then the first
-// kk written as the query's shortlist.  Strides below E swap registers,
-// below 32 E go through warp shuffles, the rest through shared memory
-// (stored j-major, so the reads hit distinct banks).  Placing each key by
-// binary searches in eight sorted warp runs was slower on an H100: its
-// searches are chains of dependent loads.
-template <int E>
-__device__ void leader_sort_write(u64* buf, float* __restrict__ out_s,
-                                  int* __restrict__ out_i, int qi, int kk) {
-  const int tid = threadIdx.x;
-  const int base = tid * E;
-  u64 v[E];
-#pragma unroll
-  for (int j = 0; j < E; ++j) v[j] = buf[base + j];
-  for (int size = 2; size <= E * FT; size <<= 1) {
-    for (int st = size >> 1; st > 0; st >>= 1) {
-      if (st < E) {
-        if (st == 1) cmpx_regs<E, 1>(v, base, size);
-        else if (st == 2) cmpx_regs<E, 2>(v, base, size);
-        else cmpx_regs<E, 4>(v, base, size);
-      } else if (st < 32 * E) {
-#pragma unroll
-        for (int j = 0; j < E; ++j) {
-          const int e = base + j;
-          const u64 x = v[j];
-          const u64 y = __shfl_xor_sync(0xffffffffu, x, st / E);
-          const bool up = (e & size) == 0, lower = (e & st) == 0;
-          v[j] = (up == lower) ? (x > y ? x : y) : (x < y ? x : y);
-        }
-      } else {
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < E; ++j) buf[j * FT + tid] = v[j];
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < E; ++j) {
-          const int e = base + j, f = e ^ st;
-          const u64 x = v[j], y = buf[(f % E) * FT + f / E];
-          const bool up = (e & size) == 0, lower = (e & st) == 0;
-          v[j] = (up == lower) ? (x > y ? x : y) : (x < y ? x : y);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < E; ++j) {
-    const int e = base + j;
-    if (e < kk) {
-      out_s[(long long)qi * kk + e] = v[j] ? key_score(v[j]) : -CUDART_INF_F;
-      out_i[(long long)qi * kk + e] = v[j] ? key_id(v[j]) : -1;
-    }
-  }
 }
 
 template <int NBITS>
@@ -273,23 +193,18 @@ adc_fused_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
             warp = tid >> 5;
   const int PB = (P + CL - 1) / CL;
   const int CB = align16(MB * L);
-  const int W = pow2_at_least(kk);
   const FusedSmem lay(m, NBITS, MB, L, P, kk);
   extern __shared__ __align__(16) unsigned char smem[];
   float* lut = reinterpret_cast<float*>(smem);                   // (m, K)
   unsigned char* cs = smem + lay.lut;                            // PB x CB
   u64* keys = reinterpret_cast<u64*>(cs + lay.codes);            // PB x L
   float* aq = reinterpret_cast<float*>(keys + PB * L);           // PB
-  int* ctl = reinterpret_cast<int*>(smem + lay.lut + lay.codes + lay.keys);
   // the leader's reuse, once every block has scored its rows
   u64* all = reinterpret_cast<u64*>(cs);                         // P x L
-  unsigned* hist = reinterpret_cast<unsigned*>(smem);            // NB
-  u64* sorted = reinterpret_cast<u64*>(smem + NB * 4);           // W
+  unsigned* hist = reinterpret_cast<unsigned*>(smem);            // SEL_NB
+  u64* sorted = reinterpret_cast<u64*>(smem + SEL_NB * 4);       // sel_width
   __shared__ float red[FT / 32];
-  __shared__ int ired[FT / 32];
-  __shared__ int s_d, s_cum, s_hit, s_found;
 
-  if (tid == 0) ctl[0] = 0;
   // codes of this block's probed lists, in flight while the table is built
   const bool v16 = (MB * L) % 16 == 0;
   for (int j = 0; j < PB; ++j) {
@@ -430,95 +345,9 @@ adc_fused_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
   cluster.sync();                         // the leader holds every key
   if (r != 0) return;
 
-  // the leader: radix select over the P x L keys, 11-, 11-, 10-bit digits of
-  // the score, then of the id, stopping once the digit's bin holds just the
-  // keys still needed
-  const int n = P * L;
-  u64 prefix = 0ull, mask = 0ull, thr = 1ull;
-  int need = kk, shift = 64;
-  constexpr int PER = NB / FT;
-  for (int pass = 0; pass < 6; ++pass) {
-    const int wd = pass % 3 == 2 ? 10 : 11;
-    shift -= wd;
-    const unsigned dmask = (1u << wd) - 1u;
-    for (int b = tid; b < NB; b += FT) hist[b] = 0u;
-    __syncthreads();
-    for (int e = tid; e < n; e += FT) {
-      const u64 key = all[e];
-      if (key != 0ull && (key & mask) == prefix)
-        hist_add(hist, (unsigned)(key >> shift) & dmask);
-    }
-    __syncthreads();
-    // thread t owns bins NB-1-PER t down to NB-PER (t+1): a descending scan
-    int c[PER], sum = 0;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      c[i] = (int)hist[NB - 1 - PER * tid - i];
-      sum += c[i];
-    }
-    int incl = sum;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int o = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += o;
-    }
-    if (lane == 31) ired[warp] = incl;
-    if (tid == 0) s_found = 0;
-    __syncthreads();
-    int base = 0;
-    for (int w = 0; w < warp; ++w) base += ired[w];
-    incl += base;
-    const int excl = incl - sum;
-    if (excl < need && incl >= need) {
-      int cum = excl;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        if (cum + c[i] >= need) {
-          s_d = NB - 1 - PER * tid - i;
-          s_cum = cum;
-          s_hit = c[i];
-          s_found = 1;
-          break;
-        }
-        cum += c[i];
-      }
-    }
-    __syncthreads();
-    if (!s_found) break;                  // fewer than kk keys: take all
-    need -= s_cum;
-    prefix |= (u64)s_d << shift;
-    mask |= (u64)dmask << shift;
-    thr = prefix ? prefix : 1ull;
-    if (s_hit == need) break;             // the bin holds just what is needed
-    __syncthreads();                      // s_* are written again next pass
-  }
-
-  // the survivors: exactly min(kk, valid keys), then zeros up to W
-  for (int e0 = 0; e0 < n; e0 += FT) {
-    const int e = e0 + tid;
-    const u64 key = e < n ? all[e] : 0ull;
-    const bool keep = key != 0ull && key >= thr;
-    const unsigned ball = __ballot_sync(0xffffffffu, keep);
-    if (!ball) continue;
-    const int first = __ffs(ball) - 1;
-    int at = 0;
-    if (lane == first) at = atomicAdd(ctl, __popc(ball));
-    at = __shfl_sync(0xffffffffu, at, first) +
-         __popc(ball & ((1u << lane) - 1u));
-    if (keep && at < kk) sorted[at] = key;
-  }
-  __syncthreads();
-  const int cnt = min(ctl[0], kk);
-  for (int e = cnt + tid; e < SE(W) * FT; e += FT) sorted[e] = 0ull;
-  __syncthreads();
-
-  // the leader sorts max(W, 256) keys (zeros past the survivors)
-  switch (SE(W)) {
-    case 1: leader_sort_write<1>(sorted, out_s, out_i, qi, kk); break;
-    case 2: leader_sort_write<2>(sorted, out_s, out_i, qi, kk); break;
-    case 4: leader_sort_write<4>(sorted, out_s, out_i, qi, kk); break;
-    default: leader_sort_write<8>(sorted, out_s, out_i, qi, kk); break;
-  }
+  // the leader: the top kk of the query's P x L keys
+  block_topk([&](int e) { return all[e]; }, P * L, kk, ~0ull, hist, sorted,
+             out_s + (long long)qi * kk, out_i + (long long)qi * kk);
 }
 
 // The fused launch's configuration; clusters receives how many clusters of

@@ -27,8 +27,8 @@
 //           3 stages for k <= 128, so two blocks fit an SM and one computes
 //           while the other waits; 4-5 beside the k > 128 path's
 //           histograms.  On an H100, 256-byte row pieces stream at 2.6 TB/s
-//           and more where 64-byte pieces reach 1.8
-//           (scripts/kernel_probes/stream_probe.py); one copying warp
+//           and more where 64-byte pieces reach 1.8 (development probes on
+//           the card, PERF.md section 6, PR 16); one copying warp
 //           feeding eight computing warps through mbarriers, one block an
 //           SM, was slower than this.  Each warp takes 32 bytes of
 //           every row of a stage; a lane keeps 4 rows x 8 queries of partial
@@ -66,10 +66,10 @@
 // leaves too many, a second one the 11 after (as AIR top-k iterates its
 // digits): the threshold then spans the score's 32 bits.  A compaction
 // kernel copies the keys at or above the threshold into a per-query
-// candidate buffer of bounded size; `select_topk` (select.cuh, unchanged)
-// selects over that buffer.  A query whose candidates still overflow the
-// buffer (keys of equal score, such as an all-equal support) selects over
-// all its keys instead, in the same call (`select_flagged`).
+// candidate buffer of bounded size; `select_topk` (select.cuh) selects over
+// that buffer.  A query whose candidates still overflow the buffer (keys of
+// equal score, such as an all-equal support) selects over all its keys
+// instead, in the same call (`select_flagged`).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>

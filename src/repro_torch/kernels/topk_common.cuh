@@ -1,11 +1,16 @@
-// Selection and copy helpers of the exact top-k kernel (knn_topk/kernel.cu)
-// and the fused IVF-PQ shortlist (knn_ivf/pq_kernel.cu), beside the
-// per-query selection of `knn_ivf/select.cuh`, whose 64-bit keys they use:
-// the high 32 bits are the score in an order-preserving unsigned form, the
-// low 32 bits ~id, so a larger key is a higher score and, among equal
-// scores, a lower row id; key 0 marks a masked candidate.  Keys are unique,
-// so every threshold below selects an exact set, ties included.
+// Selection keys and helpers of the selection kernels: the exact top-k kernel
+// (knn_topk/kernel.cu), the IVF scan (knn_ivf/kernel.cu), the fused IVF-PQ
+// shortlist (knn_ivf/pq_kernel.cu) and the per-query selection they share
+// (knn_ivf/select.cuh).
 //
+//   keys          64 bits: the high 32 bits are the score in an
+//                 order-preserving unsigned form, the low 32 bits ~id, so a
+//                 larger key is a higher score and, among equal scores, a
+//                 lower row id.  Masked candidates (padding rows, lists a
+//                 query does not probe, NaN or -inf scores) get key 0, below
+//                 every valid key, so they never leak an id.  Keys are
+//                 unique, so every threshold below selects an exact set,
+//                 ties included.
 //   cp.async      16- and 4-byte asynchronous copies into shared memory that
 //                 zero-fill where the source is out of range.
 //   warp_topk_threshold
@@ -19,19 +24,33 @@
 //   warp_sort_desc, warp_sort_regs
 //                 bitonic sorts of a power-of-two run of keys on one warp, in
 //                 shared memory or (up to 128 keys) in registers.
-//   select_flagged_kernel
-//                 the full-key selection of `select.cuh` (`select_topk_kernel`,
-//                 its algorithm unchanged) for the queries whose flag is set,
-//                 the others leaving at once: the exact path's candidate buffer
-//                 overflowed for them (ties), so they select over all keys.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "knn_ivf/select.cuh"
-
 namespace {
+
+typedef unsigned long long u64;
+
+// -------------------------------------------------------------- keys
+
+__device__ __forceinline__ u64 make_key(float s, int id, bool ok) {
+  if (!ok || !(s > -CUDART_INF_F)) return 0ull;   // also drops NaN
+  unsigned int b = __float_as_uint(s);
+  b ^= (b & 0x80000000u) ? 0xFFFFFFFFu : 0x80000000u;
+  return ((u64)b << 32) | (u64)(0xFFFFFFFFu - (unsigned int)id);
+}
+
+__device__ __forceinline__ float key_score(u64 key) {
+  unsigned int b = (unsigned int)(key >> 32);
+  b ^= (b & 0x80000000u) ? 0x80000000u : 0xFFFFFFFFu;
+  return __uint_as_float(b);
+}
+
+__device__ __forceinline__ int key_id(u64 key) {
+  return (int)(0xFFFFFFFFu - (unsigned int)(key & 0xFFFFFFFFull));
+}
 
 // ------------------------------------------------------------- copies
 
@@ -59,8 +78,6 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ------------------------------------------------------- warp selection
-
-typedef unsigned long long u64;
 
 // hist[bin] += 1 from each calling lane, one atomic per distinct bin among
 // the lanes that call together (scores cluster in few bins of a digit, and
@@ -211,112 +228,6 @@ __device__ __forceinline__ void warp_append(u64 key, bool keep, u64* dst,
   const int pos = w + __popc(ball & ((1u << lane) - 1u));
   if (keep && pos < cap) dst[pos] = key;
   w += __popc(ball);
-}
-
-// ------------------------------------------------ full-key selection
-
-// `select_topk_kernel` (select.cuh) for the queries with flag[q] != 0:
-// keys (Q, n) -> columns [col0, col0 + k) of out (Q, ld), the top k keys
-// below the ceiling read from column col0 - 1, sorted, -inf / -1 in slots no
-// key fills.  k <= SEL_KMAX.
-__global__ void __launch_bounds__(SEL_THREADS)
-select_flagged_kernel(const u64* __restrict__ keys, const int* __restrict__ flag,
-                      int n, int k, int col0, int ld, float* __restrict__ out_s,
-                      int* __restrict__ out_i) {
-  if (!flag[blockIdx.x]) return;
-  __shared__ unsigned int hist[256];
-  __shared__ u64 sel[SEL_KMAX];
-  __shared__ u64 s_prefix;
-  __shared__ int s_need;
-  __shared__ int s_cnt;
-  const int tid = threadIdx.x;
-  const u64* row = keys + (size_t)blockIdx.x * n;
-  const size_t base = (size_t)blockIdx.x * ld;
-  u64 ceil = ~0ull;
-  if (col0 > 0) {
-    const int id = out_i[base + col0 - 1];
-    ceil = id < 0 ? 0ull : make_key(out_s[base + col0 - 1], id, true);
-  }
-  u64 thr = 0ull;
-  if (n > k) {
-    u64 prefix = 0ull, mask = 0ull;
-    int need = k;
-    for (int shift = 56; shift >= 0; shift -= 8) {
-      for (int b = tid; b < 256; b += SEL_THREADS) hist[b] = 0u;
-      __syncthreads();
-      for (int i = tid; i < n; i += SEL_THREADS) {
-        const u64 key = row[i];
-        if ((key & mask) == prefix && key < ceil)
-          atomicAdd(&hist[(unsigned int)(key >> shift) & 0xFFu], 1u);
-      }
-      __syncthreads();
-      if (tid == 0) {
-        int cum = 0, d = 255;
-        for (; d > 0; --d) {
-          if (cum + (int)hist[d] >= need) break;
-          cum += (int)hist[d];
-        }
-        s_need = need - cum;
-        s_prefix = prefix | ((u64)d << shift);
-      }
-      __syncthreads();
-      need = s_need;
-      prefix = s_prefix;
-      mask |= 0xFFull << shift;
-    }
-    thr = prefix;
-  }
-  if (tid == 0) s_cnt = 0;
-  __syncthreads();
-  for (int i = tid; i < n; i += SEL_THREADS) {
-    const u64 key = row[i];
-    if (key < ceil && (key > thr || (key == thr && thr != 0ull))) {
-      const int pos = atomicAdd(&s_cnt, 1);
-      if (pos < k) sel[pos] = key;
-    }
-  }
-  __syncthreads();
-  const int cnt = min(s_cnt, k);
-  int width = 1;
-  while (width < k) width <<= 1;
-  for (int i = cnt + tid; i < width; i += SEL_THREADS) sel[i] = 0ull;
-  __syncthreads();
-  for (int size = 2; size <= width; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < width; i += SEL_THREADS) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const u64 a = sel[i], b = sel[j];
-          const bool desc = (i & size) == 0;
-          if (desc ? a < b : a > b) {
-            sel[i] = b;
-            sel[j] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int t = tid; t < k; t += SEL_THREADS) {
-    const u64 key = sel[t];
-    out_s[base + col0 + t] = key ? key_score(key) : -CUDART_INF_F;
-    out_i[base + col0 + t] = key ? key_id(key) : -1;
-  }
-}
-
-// keys (Q, n) -> out (Q, k) for the flagged queries, in rounds of SEL_KMAX
-// as `select_topk` runs them.
-inline cudaError_t select_flagged(const u64* keys, const int* flag, int Q,
-                                  int n, int k, float* out_s, int* out_i,
-                                  cudaStream_t st) {
-  for (int col0 = 0; col0 < k; col0 += SEL_KMAX) {
-    const int kr = k - col0 < SEL_KMAX ? k - col0 : SEL_KMAX;
-    select_flagged_kernel<<<Q, SEL_THREADS, 0, st>>>(keys, flag, n, kr, col0,
-                                                     k, out_s, out_i);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
 }
 
 }  // namespace

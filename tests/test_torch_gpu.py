@@ -61,6 +61,71 @@ def _need_cuda():
                     "CPU mode")
 
 
+def _device_kernels(fn, windows=3):
+    """(fn's result, the names of the CUDA kernels one call of fn launches,
+    each as often as it ran), read as chip_smoke.py's `device_profile` reads
+    them: a warm call, then torch.profiler over CPU and CUDA activity with a
+    traced and discarded warm-up call first (on an H100 a window opened on
+    the call itself can miss its first kernels, more often later in a run),
+    the window's `key_averages`, and a window that records no kernel taken
+    again, up to ``windows`` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(windows):
+        fn()
+        torch.cuda.synchronize()
+        traced = []
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=1),
+                       on_trace_ready=lambda p: traced.append(
+                           p.key_averages()))
+        prof.start()
+        try:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            out = fn()
+            torch.cuda.synchronize()
+            prof.step()
+        finally:
+            prof.stop()
+        names = [e.key for e in (traced[0] if traced else [])
+                 if str(e.device_type).endswith("CUDA")
+                 and not e.key.startswith("ProfilerStep")
+                 for _ in range(e.count)]
+        if names:
+            break
+    return out, names
+
+
+def _device_kernels_fresh(setup):
+    """For each call in ``fns``, a list that the code ``setup`` defines
+    (run with this module as ``t``), the names of the CUDA kernels it
+    launches, read by `_device_kernels` in a fresh process: in a test
+    process that had profiled other calls before, the profiler's windows
+    on an H100 came back empty (the fused IVF-PQ kernel's in every run),
+    where a fresh process records the same call."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import json, sys\nsys.path.insert(0, {here!r})\n"
+            "import test_torch_gpu as t\n" + textwrap.dedent(setup)
+            + "\nprint('KERNELS ' + json.dumps("
+            "[t._device_kernels(f)[1] for f in fns]))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(here), "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    line = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("KERNELS ")][-1]
+    return json.loads(line[len("KERNELS "):])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("Q,N,k", [(16, 70_000, 10), (33, 5_003, 100),
                                    (7, 50, 64)])
@@ -157,6 +222,111 @@ def test_gpu_ivf_scan_kernel_matches_plain(nprobe, k):
     ks, ki = ivf_ops.ivf_scan(*args)
     assert ivf_ops.ivf_scan.launches == n0 + 1
     _check_tied(ks, ki, *ivf_scan_plain(*args), 1e-5, 1e-5)
+
+
+def _ivf_synthetic(C, L, D, counts, seed=0):
+    """An IVF index of unit rows, counts[c] valid in list c (ids -1, inv 0
+    past them), centroids the lists' normalised means, on the card."""
+    rng = np.random.default_rng(seed)
+    sup = np.zeros((C, L, D), np.float32)
+    ids = np.full((C, L), -1, np.int32)
+    at = 0
+    for c, n in enumerate(counts):
+        sup[c, :n] = _unit(rng.normal(size=(n, D)))
+        ids[c, :n] = np.arange(at, at + n)
+        at += n
+    inv = (ids >= 0).astype(np.float32)
+    cent = sup.sum(1)
+    cent /= np.maximum(np.linalg.norm(cent, axis=1, keepdims=True), 1e-12)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    return t(cent.astype(np.float32)), t(sup), t(ids), t(inv)
+
+
+def _ivf_tile_case(kind):
+    """(index, queries, probe, k) of one kernel-4 case."""
+    main = (265, 400, 768, [70_000 // 265 + (c < 70_000 % 265)
+                            for c in range(265)])
+    if kind == "nprobe=C":
+        idx = _ivf_synthetic(24, 48, 128, [40] * 24, seed=1)
+        Q, P, k = 16, 24, 100
+    elif kind == "short lists":
+        idx = _ivf_synthetic(32, 64, 128, [3 + c % 4 for c in range(32)],
+                             seed=2)
+        Q, P, k = 16, 2, 100
+    else:
+        idx = _ivf_synthetic(*main)
+        Q, P, k = 16, 8, 100
+        if kind.startswith("Q="):
+            Q = int(kind[2:])
+        elif kind.startswith("k="):
+            k = int(kind[2:])
+    rng = np.random.default_rng(len(kind) + Q + k)
+    q = torch.from_numpy(_unit(rng.normal(size=(Q, idx[1].shape[2])))).cuda()
+    probe = ivf_probe(q[:1] if kind == "shared probes" else q, idx[0], P)
+    return idx, q, probe.expand(Q, P).contiguous(), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["Q=1", "Q=16", "Q=17", "Q=64",
+                                  "shared probes", "nprobe=C", "short lists",
+                                  "k=1", "k=2048", "k=2049"])
+def test_gpu_ivf_tile_kernel_matches_plain(kind):
+    """Kernel 4 against its plain version at the main shape (265 lists of
+    400 x 768, nprobe 8) and its edge cases: one query, a partial query
+    tile (17), four tiles (64), 16 queries on one probe set, nprobe = C,
+    lists holding fewer valid rows than k, k 1 and 2,048 (one CUDA launch)
+    and 2,049 (the scan and three selection rounds).  Two calls in a row
+    return the same bits and leave the tickets at zero."""
+    _need_cuda()
+    (_, sup, ids, inv), q, probe, k = _ivf_tile_case(kind)
+    args = (q, probe, sup, ids, inv, k)
+    n0 = ivf_ops.ivf_scan.launches
+    a = ivf_ops.ivf_scan(*args)
+    assert ivf_ops.ivf_scan.launches == n0 + 1
+    assert ivf_ops.ivf_scan.last_cuda_launches == (
+        1 if k <= 2048 else 1 + -(-k // 1024))
+    b = ivf_ops.ivf_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert all(int(t.abs().sum()) == 0 for t in ivf_ops._tickets.values())
+    _check_tied(*a, *ivf_scan_plain(*args), 1e-5, 1e-5)
+    if kind == "short lists":
+        assert (a[1] == -1).any() and torch.isinf(a[0][a[1] < 0]).all()
+
+
+@pytest.mark.gpu
+def test_gpu_ivf_tile_kernel_takes_duplicate_and_padded_probes():
+    """D = 30 (4-byte copies), a list probed twice by one query (its rows
+    come twice, as in the plain version) and a padded query (a probe row of
+    -1: empty result)."""
+    _need_cuda()
+    cent, sup, ids, inv = _ivf_synthetic(20, 72, 30, [60] * 20, seed=4)
+    q = torch.from_numpy(_unit(np.random.default_rng(4).normal(
+        size=(20, 30)))).cuda()
+    probe = ivf_probe(q, cent, 5)
+    probe[5, 2] = probe[5, 0]
+    probe[3] = -1
+    out = ivf_ops.ivf_scan(q, probe, sup, ids, inv, 50)
+    assert (out[1][3] == -1).all() and torch.isneginf(out[0][3]).all()
+    live = torch.arange(20, device="cuda") != 3
+    ref = ivf_scan_plain(q[live], probe[live], sup, ids, inv, 50)
+    _check_tied(out[0][live], out[1][live], *ref, 1e-5, 1e-5)
+    row = out[1][5][out[1][5] >= 0].tolist()
+    assert len(row) > len(set(row))
+
+
+@pytest.mark.gpu
+def test_gpu_ivf_one_launch_at_the_main_shape():
+    """k <= 2,048 is a single CUDA kernel a call (read with torch.profiler
+    and the kernel library's own count)."""
+    _need_cuda()
+    [kernels] = _device_kernels_fresh("""
+        (_, sup, ids, inv), q, probe, k = t._ivf_tile_case("Q=16")
+        fns = [lambda: t.ivf_ops.ivf_scan(q, probe, sup, ids, inv, k)]""")
+    assert len(kernels) == 1 and "ivf_tile_kernel" in kernels[0], kernels
+    (_, sup, ids, inv), q, probe, k = _ivf_tile_case("Q=16")
+    ivf_ops.ivf_scan(q, probe, sup, ids, inv, k)
+    assert ivf_ops.ivf_scan.last_cuda_launches == 1
 
 
 @pytest.mark.gpu
@@ -478,17 +648,13 @@ def test_gpu_knn_back_to_back_calls_are_bitwise_equal(k):
 def test_gpu_knn_one_launch_at_the_main_shape():
     """k <= 128 is a single CUDA kernel a call (read with torch.profiler)."""
     _need_cuda()
-    from torch.profiler import ProfilerActivity, profile
+    [names] = _device_kernels_fresh("""
+        q, s = t._knn_data(16, 70_000, 768, 1)
+        qd, sd = t.torch.from_numpy(q).cuda(), t.torch.from_numpy(s).cuda()
+        fns = [lambda: t.knn_topk(qd, sd, 10)]""")
+    assert len(names) == 1 and "knn_scan_kernel" in names[0], names
     q, s = _knn_data(16, 70_000, 768, 1)
-    qd, sd = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
-    knn_topk(qd, sd, 10)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        knn_topk(qd, sd, 10)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-    names = {e.name for e in kernels}
-    assert len(kernels) == 1 and "knn_scan_kernel" in next(iter(names)), names
+    knn_topk(torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda(), 10)
     assert knn_topk.last_cuda_launches == 1
 
 
@@ -549,21 +715,27 @@ def test_gpu_ivfpq_shape_chooses_the_three_launch_path(nbits, Q):
     """nprobe = C on 64 lists of 400: the keys exceed a block's shared
     memory, so the launcher takes the three launches; kk > 2,048 too."""
     _need_cuda()
-    from torch.profiler import ProfilerActivity, profile
+    shapes = ((64, 800), (8, 3000))
+    setup = f"""
+        idx, m = t._pq_synthetic({nbits}, 64, 400)
+        q = t.torch.from_numpy(t._unit(t.np.random.default_rng({Q}).normal(
+            size=({Q}, 128)))).cuda()
+        fns = [lambda P=P, kk=kk: t.ivf_ops.ivfpq_adc(
+                   q, t.ivf_probe(q, idx["cent"], P), idx["codes"],
+                   idx["ids"], idx["inv"], idx["anchors"], idx["cb"], kk,
+                   m=m, nbits={nbits}) for P, kk in {shapes}]"""
+    profiled = _device_kernels_fresh(setup)
     idx, m = _pq_synthetic(nbits, 64, 400)
     MB = idx["codes"].shape[1]
     q = torch.from_numpy(_unit(np.random.default_rng(Q).normal(
         size=(Q, 128)))).cuda()
-    for P, kk in ((64, 800), (8, 3000)):
+    for (P, kk), kernels in zip(shapes, profiled):
         probe = ivf_probe(q, idx["cent"], P)
         args = (q, probe, idx["codes"], idx["ids"], idx["inv"],
                 idx["anchors"], idx["cb"], kk)
         assert not ivf_ops.fused_fits(m, nbits, MB, 400, P, kk)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = ivf_ops.ivfpq_adc(*args, m=m, nbits=nbits)
-            torch.cuda.synchronize()
-        names = " ".join(e.name for e in prof.events()
-                         if str(e.device_type).endswith("CUDA"))
+        out = ivf_ops.ivfpq_adc(*args, m=m, nbits=nbits)
+        names = " ".join(kernels)
         assert "adc_scan_kernel" in names and "adc_fused" not in names
         assert ivf_ops.ivfpq_adc.last_cuda_launches == 2 + -(-kk // 1024)
         _check_tied(*out, *ivfpq_adc_plain(*args, m, nbits), 1e-4, 1e-5)
@@ -577,23 +749,23 @@ def test_gpu_ivfpq_fused_is_one_launch_and_checks_cluster_occupancy():
     occupancy check reports resident clusters there and none for a block
     larger than the shared memory an SM has."""
     _need_cuda()
-    from torch.profiler import ProfilerActivity, profile
     smem, clusters = ivf_ops.fused_plan(64, 8, 64, 400, 8, 800)
     assert smem == ivf_ops.fused_smem_bytes(64, 8, 64, 400, 8, 800)
     assert clusters >= 16
     assert ivf_ops.fused_plan(64, 8, 64, 400, 64, 800)[1] == 0
+    [kernels] = _device_kernels_fresh("""
+        idx, m = t._pq_synthetic(8, 64, 400, D=768, m=64)
+        q = t.torch.from_numpy(t._unit(t.np.random.default_rng(2).normal(
+            size=(16, 768)))).cuda()
+        probe = t.ivf_probe(q, idx["cent"], 8)
+        fns = [lambda: t.ivf_ops.ivfpq_adc(
+            q, probe, idx["codes"], idx["ids"], idx["inv"], idx["anchors"],
+            idx["cb"], 800, m=m, nbits=8)]""")
+    assert len(kernels) == 1 and "adc_fused_kernel" in kernels[0], kernels
     idx, m = _pq_synthetic(8, 64, 400, D=768, m=64)
     q = torch.from_numpy(_unit(np.random.default_rng(2).normal(
         size=(16, 768)))).cuda()
     probe = ivf_probe(q, idx["cent"], 8)
-    args = (q, probe, idx["codes"], idx["ids"], idx["inv"], idx["anchors"],
-            idx["cb"], 800)
-    ivf_ops.ivfpq_adc(*args, m=m, nbits=8)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ivf_ops.ivfpq_adc(*args, m=m, nbits=8)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if str(e.device_type).endswith("CUDA")]
-    assert len(kernels) == 1 and "adc_fused_kernel" in kernels[0], kernels
+    ivf_ops.ivfpq_adc(q, probe, idx["codes"], idx["ids"], idx["inv"],
+                      idx["anchors"], idx["cb"], 800, m=m, nbits=8)
     assert ivf_ops.ivfpq_adc.last_cuda_launches == 1

@@ -1,8 +1,14 @@
-"""The selection schemes of the exact top-k kernel (`knn_topk/kernel.cu`)
-and the fused IVF-PQ shortlist (`knn_ivf/pq_kernel.cu`), emulated step for
-step in numpy on the CPU (the CUDA kernels run only on a GPU:
-`test_torch_gpu.py` holds them against their plain versions there).
+"""The selection schemes of the exact top-k kernel (`knn_topk/kernel.cu`),
+the IVF scan (`knn_ivf/kernel.cu`), the fused IVF-PQ shortlist
+(`knn_ivf/pq_kernel.cu`) and their shared per-query selection
+(`knn_ivf/select.cuh`), emulated step for step in numpy on the CPU (the
+CUDA kernels run only on a GPU: `test_torch_gpu.py` holds them against
+their plain versions there).
 
+  * the shared selection (`block_topk`): radix select with 11-, 11- and
+    10-bit digits over the score, then the id, stopping once the digit's
+    bin holds just the keys still needed; above 2,048 keys in rounds of
+    1,024 under a key ceiling (`select_topk_kernel`);
   * kernel 1, k <= 128: every block keeps a running top-k per query over
     its 64-row tiles, with the list's smallest key as threshold and a radix
     select (8-bit digits, early exit) when a tile overflows the list (the
@@ -15,17 +21,21 @@ step in numpy on the CPU (the CUDA kernels run only on a GPU:
     twice at most, where it leaves more than the buffer holds), the
     compaction into a bounded candidate buffer and the selection over it,
     or over all keys where the buffer still overflows (ties);
+  * kernel 4: queries in tiles of 16; the block of (row chunk, slot, query)
+    owns its list where no earlier (query, slot) of the tile probes it and
+    scores the chunk for every query of the tile that probes the list; a
+    ticket per query counts its keys, and a selector block selects the
+    query once they are all written;
   * kernel 5, fused: the eight blocks of a query's cluster take the probes
-    p = r (mod 8) and put their keys into the leader, which selects with
-    11-, 11- and 10-bit digits over the score, then the id.
+    p = r (mod 8) and put their keys into the leader, which selects.
 
 Each is held against the exact order of the selection keys (score
 descending, then row id ascending; NaN, -inf and masked rows never
 selected), against the port's plain versions and against the JAX
 package's references on the same numpy inputs.  Tolerances: the scores of
 an emulation are the plain version's own scores, so they must be equal;
-against the JAX references 1e-5 (kNN) and rtol 1e-4 / atol 1e-5 (ADC), the
-reference tests' tolerances.
+against the JAX references 1e-5 (kNN, IVF) and rtol 1e-4 / atol 1e-5
+(ADC), the reference tests' tolerances.
 """
 import itertools
 
@@ -37,7 +47,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.knn_ivf import ops as ivf_ops  # noqa: E402
 from repro_torch.kernels.knn_ivf.pq import unpack_codes_cm  # noqa: E402
 from repro_torch.kernels.knn_ivf.ref import (adc_table, ivf_probe,  # noqa: E402
-                                             ivfpq_adc_plain)
+                                             ivf_scan_plain, ivfpq_adc_plain)
 from repro_torch.kernels.knn_topk import ops as knn_ops  # noqa: E402
 from repro_torch.kernels.knn_topk.ref import knn_topk_reference  # noqa: E402
 
@@ -117,6 +127,105 @@ def topk_threshold(keys, k, widths=(8,) * 8):
         if hist[d] == need:
             return prefix or 1
     return prefix
+
+
+SEL_WIDTHS = (11, 11, 10) * 2    # select.cuh: block_topk's digits
+SEL_KMAX = 1024                  # select.cuh: keys a round of select_topk
+BLOCK_KMAX = 2048                # select.cuh: SEL_BLOCK_KMAX
+
+
+def block_topk(keys, k, ceil=None):
+    """select.cuh `block_topk`: the top k nonzero keys below ``ceil``,
+    descending, zero-padded to k, and the number of digit passes it took.
+    A key that occurs more than once is kept as often as it occurs."""
+    keys = np.asarray(keys, U64)
+    keys = keys[(keys != 0) & (keys < U64(ceil) if ceil is not None
+                               else keys != 0)]
+    prefix, mask, need, shift, thr, copies = 0, 0, k, 64, 1, 0
+    passes = 0
+    for wd in SEL_WIDTHS:
+        passes += 1
+        shift -= wd
+        match = keys[(keys & U64(mask)) == U64(prefix)]
+        digits = ((match >> U64(shift)) & U64((1 << wd) - 1)).astype(np.int64)
+        hist = np.bincount(digits, minlength=1 << wd)
+        above = np.cumsum(hist[::-1])[::-1]
+        if above[0] < need:
+            break                                    # fewer than k: all
+        d = int(np.nonzero(above >= need)[0].max())
+        need -= int(above[d] - hist[d])
+        prefix |= d << shift
+        mask |= ((1 << wd) - 1) << shift
+        thr = prefix or 1
+        if hist[d] == need:
+            break
+        if shift == 0:                               # copies of one key
+            thr, copies = prefix + 1, need
+    surv = keys[keys >= U64(thr)]
+    surv = np.concatenate([surv, np.full(copies, prefix, U64)])[:k]
+    out = np.sort(surv)[::-1]
+    return np.concatenate([out, np.zeros(k - len(out), U64)]), passes
+
+
+def select_rounds(keys, k):
+    """select.cuh `select_topk`: rounds of at most 1,024 keys, each below
+    the last key of the round before (its ceiling)."""
+    out, ceil = [], None
+    for col0 in range(0, k, SEL_KMAX):
+        part, _ = block_topk(keys, min(SEL_KMAX, k - col0), ceil)
+        out.append(part)
+        ceil = int(part[-1])                        # 0: nothing below
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("kind,n,k", [
+    ("gaussian", 3200, 100), ("gaussian", 3200, 2048), ("gaussian", 50, 100),
+    ("rounded", 3200, 100), ("rounded", 5000, 1500), ("all equal", 700, 300),
+    ("masked", 3200, 100), ("one", 1, 1)])
+def test_block_topk_stops_early_and_selects_exactly(kind, n, k):
+    """The digits stop as soon as the bin holds the keys still needed:
+    distinct scores stop on the score's digits (passes <= 3), equal scores
+    go on into the id's; the set is always the exact top k."""
+    rng = np.random.default_rng(n + k)
+    s = rng.normal(size=n).astype(np.float32)
+    if kind == "rounded":
+        s = np.round(s, 1).astype(np.float32)        # ties
+    elif kind == "all equal":
+        s[:] = 0.25
+    ok = rng.random(n) > 0.3 if kind == "masked" else None
+    keys = make_keys(s, rng.permutation(n), ok)
+    got, passes = block_topk(keys, k)
+    np.testing.assert_array_equal(key_scores(got), exact_topk(keys, k)[0])
+    np.testing.assert_array_equal(key_ids(got), exact_topk(keys, k)[1])
+    if kind in ("gaussian", "masked") and k < int((keys != 0).sum()):
+        assert passes <= 3, passes
+    if kind == "all equal":
+        assert passes > 3
+    if k >= int((keys != 0).sum()):
+        assert passes == 1                           # fewer than k: all
+
+
+def test_block_topk_keeps_copies_of_a_key():
+    """A list probed twice by one query gives every key twice; the copies
+    of the k-th key fill the slots the keys above it leave."""
+    rng = np.random.default_rng(2)
+    keys = make_keys(rng.normal(size=300).astype(np.float32), np.arange(300))
+    both = np.concatenate([keys, keys])
+    for k in (1, 2, 3, 101, 600, 700):
+        got, _ = block_topk(both, k)
+        want = np.sort(both)[::-1][:k]
+        want = np.concatenate([want, np.zeros(k - len(want), U64)])
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1024, 1025, 2049, 3000, 5000])
+def test_select_rounds_under_a_ceiling_give_the_exact_top_k(k):
+    rng = np.random.default_rng(k)
+    s = np.round(rng.normal(size=4000), 2).astype(np.float32)   # ties
+    keys = make_keys(s, np.arange(4000), rng.random(4000) > 0.1)
+    got = select_rounds(keys, k)
+    np.testing.assert_array_equal(key_scores(got), exact_topk(keys, k)[0])
+    np.testing.assert_array_equal(key_ids(got), exact_topk(keys, k)[1])
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +463,8 @@ def emulate_keyed(keys, k, cap, hbits=10, rbits=11, levels=2):
         keep = valid[valid >= U64(prefix) << U64(64 - bits)]
         assert len(keep) == n_above
         cand[:n_above] = keep
-        out_s[q], out_i[q] = exact_topk(cand, k)          # select_topk
+        sel = select_rounds(cand, k)                      # select_topk
+        out_s[q], out_i[q] = key_scores(sel), key_ids(sel)
     return out_s, out_i, overflow, refined
 
 
@@ -404,6 +514,238 @@ def test_keyed_refined_threshold_is_exact_at_a_bin_border():
 
 
 # ---------------------------------------------------------------------------
+# kernel 4: ownership within query tiles, tickets and selectors
+# ---------------------------------------------------------------------------
+
+QT = 16            # knn_ivf/kernel.cu: QT, queries a tile
+ROWS = 64          # knn_ivf/kernel.cu: TN, list rows a block
+
+
+def tile_roles(probe, C):
+    """kernel.cu `ivf_tile_kernel`: the (query, slot) pairs the block of
+    each (query, slot) serves (the same for every row chunk).  An owner
+    (no earlier (query, slot) of the tile probes its list) serves every
+    query of the tile that probes the list, at the query's first slot on
+    it; an out-of-range list id or a query's second slot on a list serves
+    that slot alone; every other block serves nothing and leaves."""
+    Q, P = probe.shape
+    roles = {}
+    for qi in range(Q):
+        q0 = qi - qi % QT
+        nt, me = min(QT, Q - q0), qi % QT
+        for p in range(P):
+            cid = int(probe[qi, p])
+            if not 0 <= cid < C:
+                roles[qi, p] = [(qi, p)]
+                continue
+            first = [next((pp for pp in range(P) if probe[q0 + j, pp] == cid),
+                          None) for j in range(nt)]
+            if first[me] < p:
+                roles[qi, p] = [(qi, p)]
+            elif any(f is not None for f in first[:me]):
+                roles[qi, p] = []
+            else:
+                roles[qi, p] = [(q0 + j, f) for j, f in enumerate(first)
+                                if f is not None]
+    return roles
+
+
+def ivf_plain_keys(q, probe, sup_cm, ids_cm, inv_cm):
+    """(Q, P, L) keys of every (query, slot, row) in `ivf_scan_plain`'s
+    arithmetic; masked where the row is padding or the slot's list id is
+    out of range."""
+    C, L, _ = sup_cm.shape
+    pr = probe.long()
+    live = (pr >= 0) & (pr < C)
+    safe = torch.where(live, pr, torch.zeros_like(pr))
+    sims = torch.einsum("qd,qpld->qpl", q.float(), sup_cm[safe]) \
+        * inv_cm[safe]
+    ids = ids_cm[safe].numpy()
+    ok = (ids >= 0) & live.numpy()[:, :, None]
+    return make_keys(sims.numpy().ravel(), ids.ravel(),
+                     ok.ravel()).reshape(ids.shape)
+
+
+def emulate_ivf(q, probe, sup_cm, ids_cm, inv_cm, k, order=None):
+    """Kernel 4 at k <= 2,048, block by block in ``order`` (a permutation of
+    the (chunk, slot, query) blocks; blocks finish in any order): each
+    block writes its served keys and adds one to each served query's
+    ticket; a query's selector selects it from the keys written so far as
+    soon as its ticket counts P x chunks entries, and by then every one of
+    its keys has been written.  Returns the scores, ids, the count of
+    writes of every key and the list reads per tile."""
+    C, L, _ = sup_cm.shape
+    Q, P = probe.shape
+    pr = probe.numpy()
+    want = ivf_plain_keys(q, probe, sup_cm, ids_cm, inv_cm)
+    roles = tile_roles(pr, C)
+    nchunks = -(-L // ROWS)
+    blocks = [(c, p, qi) for qi in range(Q) for p in range(P)
+              for c in range(nchunks)]
+    if order is not None:
+        blocks = [blocks[i] for i in order]
+    keys = np.zeros((Q, P * L), U64)
+    writes = np.zeros((Q, P * L), int)
+    ticket = np.zeros(Q, int)
+    out = np.zeros((Q, k), U64)
+    reads = {}
+    for c, p, qi in blocks:
+        served = roles[qi, p]
+        rows = np.arange(c * ROWS, min(L, (c + 1) * ROWS))
+        cid = int(pr[qi, p])
+        if served and 0 <= cid < C:
+            key = (qi // QT, cid, c)
+            reads[key] = reads.get(key, 0) + 1
+        for qj, pj in served:
+            keys[qj, pj * L + rows] = want[qj, pj, rows]
+            writes[qj, pj * L + rows] += 1
+        for qj, _ in served:
+            ticket[qj] += 1
+            if ticket[qj] == P * nchunks:
+                assert (writes[qj] == 1).all()
+                out[qj], _ = block_topk(keys[qj], k)
+    return key_scores(out), key_ids(out), writes, reads
+
+
+def _ivf_inputs(C=12, L=100, D=24, Q=20, seed=0, short=False):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(3, 8, C) if short else rng.integers(L - 20, L + 1,
+                                                              C)
+    sup = np.zeros((C, L, D), np.float32)
+    ids = np.full((C, L), -1, np.int32)
+    at = 0
+    for c, n in enumerate(counts):
+        sup[c, :n] = rng.normal(size=(n, D))
+        ids[c, :n] = np.arange(at, at + n)
+        at += n
+    inv = np.where(ids >= 0, 1 / np.maximum(np.linalg.norm(sup, axis=2),
+                                            1e-12), 0).astype(np.float32)
+    cent = _unit(rng.normal(size=(C, D)))
+    q = _unit(rng.normal(size=(Q, D)))
+    t = torch.from_numpy
+    return t(q), t(cent), t(sup), t(ids), t(inv)
+
+
+@pytest.mark.parametrize("Q,P,shared", [(16, 4, False), (17, 4, False),
+                                        (33, 12, False), (1, 5, False),
+                                        (20, 4, True)])
+def test_ivf_tiles_write_every_key_once_and_read_each_list_once(Q, P,
+                                                                shared):
+    """Every (query, slot, chunk) key is written exactly once, also in a
+    partial last tile (Q = 17, 33) and where all queries probe the same
+    lists; each list a tile probes is read once per row chunk."""
+    q, cent, sup, ids, inv = _ivf_inputs(Q=Q, seed=Q + P)
+    probe = ivf_probe(q, cent, P)
+    if shared:
+        probe = probe[:1].expand(Q, P).contiguous()
+    _, _, writes, reads = emulate_ivf(q, probe, sup, ids, inv, 10)
+    assert (writes == 1).all()
+    pr = probe.numpy()
+    nchunks = -(-sup.shape[1] // ROWS)
+    for t in range(-(-Q // QT)):
+        lists = {int(c) for c in pr[t * QT:(t + 1) * QT].ravel()}
+        assert {c for tt, c, _ in reads if tt == t} == lists
+        assert all(reads[t, c, ch] == 1 for c in lists
+                   for ch in range(nchunks))
+    if shared:
+        assert len(reads) == 2 * P * nchunks        # two tiles of 16 and 4
+
+
+def test_ivf_duplicate_and_out_of_range_slots_are_their_own():
+    """A query's second slot on one list and an out-of-range list id are
+    scanned (or masked) by their own block; a padded query (all slots -1)
+    comes out empty."""
+    q, cent, sup, ids, inv = _ivf_inputs(Q=18, seed=4)
+    probe = ivf_probe(q, cent, 4).clone()
+    probe[2, 3] = probe[2, 0]
+    probe[5, 1] = 99
+    probe[17] = -1
+    got_s, got_i, writes, _ = emulate_ivf(q, probe, sup, ids, inv, 30)
+    assert (writes == 1).all()
+    assert (got_i[17] == -1).all() and np.isneginf(got_s[17]).all()
+    keys = ivf_plain_keys(q, probe, sup, ids, inv)
+    for r in range(18):
+        want = np.sort(keys[r].ravel())[::-1][:30]
+        np.testing.assert_array_equal(got_i[r], key_ids(want))
+    # the list probed twice gives its best rows twice, as the plain version
+    top = got_i[2][got_i[2] >= 0]
+    assert len(top) > len(set(top))
+
+
+def test_ivf_hand_over_does_not_depend_on_block_order():
+    q, cent, sup, ids, inv = _ivf_inputs(Q=21, seed=7)
+    probe = ivf_probe(q, cent, 5)
+    first = emulate_ivf(q, probe, sup, ids, inv, 40)
+    n = 21 * 5 * 2
+    rng = np.random.default_rng(0)
+    for _ in range(6):
+        again = emulate_ivf(q, probe, sup, ids, inv, 40,
+                            order=rng.permutation(n))
+        np.testing.assert_array_equal(first[0], again[0])
+        np.testing.assert_array_equal(first[1], again[1])
+
+
+@pytest.mark.parametrize("Q,P,k,short", [(16, 4, 10, False),
+                                         (17, 12, 100, False),
+                                         (5, 3, 2048, False),
+                                         (16, 2, 50, True)])
+def test_ivf_emulation_matches_plain_and_key_order(Q, P, k, short):
+    """Equal to `ivf_scan_plain` (same scores; ids in the keys' order,
+    which `torch.topk` leaves open only among ties) and to the exact key
+    order; short lists leave -inf / -1 slots."""
+    q, cent, sup, ids, inv = _ivf_inputs(Q=Q, seed=P + k, short=short)
+    probe = ivf_probe(q, cent, P)
+    got_s, got_i, _, _ = emulate_ivf(q, probe, sup, ids, inv, k)
+    rs, ri = ivf_scan_plain(q, probe, sup, ids, inv, k)
+    np.testing.assert_array_equal(got_s, rs.numpy())
+    np.testing.assert_array_equal(got_i < 0, ri.numpy() < 0)
+    keys = ivf_plain_keys(q, probe, sup, ids, inv)
+    for r in range(Q):
+        np.testing.assert_array_equal(got_i[r], exact_topk(keys[r].ravel(),
+                                                           k)[1])
+    if short:
+        assert (got_i == -1).any()
+
+
+def test_ivf_emulation_matches_jax_pallas():
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.knn_ivf import ops as J
+    rng = np.random.default_rng(9)
+    centers = rng.normal(size=(8, 32)) * 3
+    s = (centers[rng.integers(0, 8, 1200)]
+         + rng.normal(size=(1200, 32))).astype(np.float32)
+    qn = _unit(centers[rng.integers(0, 8, 19)] + rng.normal(size=(19, 32)))
+    ji = J.build_ivf_index(s, 10, seed=0)
+    ti = ivf_ops.build_ivf_index(s, 10, seed=0, device="cpu")
+    q = torch.from_numpy(qn)
+    for nprobe, k in ((3, 20), (ti.n_clusters, 100)):
+        probe = ivf_probe(q, ti.centroids, nprobe)
+        got_s, got_i, _, _ = emulate_ivf(q, probe, ti.sup_cm, ti.ids_cm,
+                                         ti.inv_cm, k)
+        js, ji_ = J.ivf_topk(jnp.asarray(qn), ji, k, nprobe=nprobe,
+                             backend="pallas", interpret=True)
+        np.testing.assert_allclose(got_s, np.asarray(js), rtol=0, atol=1e-5)
+        assert all(set(a) == set(b) for a, b in zip(got_i, np.asarray(ji_)))
+
+
+def test_ivf_ticket_counter_is_allocated_once_per_stream(monkeypatch):
+    calls = []
+    monkeypatch.setattr(ivf_ops, "_tickets", {})
+    monkeypatch.setattr(ivf_ops._build, "stream_ptr", lambda dev: 7)
+    real = torch.zeros
+    monkeypatch.setattr(ivf_ops.torch, "zeros",
+                        lambda *a, **kw: calls.append(a) or real(
+                            *a, **{**kw, "device": "cpu"}))
+    dev = torch.device("cpu")
+    t1 = ivf_ops._ticket(dev, 17)
+    t2 = ivf_ops._ticket(dev, 64)
+    assert t1 is t2 and len(calls) == 1 and int(t1.sum()) == 0
+    t3 = ivf_ops._ticket(dev, 65)                  # more queries: grown once
+    assert t3 is not t1 and t3.numel() == 65 and len(calls) == 2
+    assert ivf_ops._ticket(dev, 3) is t3
+
+
+# ---------------------------------------------------------------------------
 # kernel 5, fused
 # ---------------------------------------------------------------------------
 
@@ -424,8 +766,7 @@ def plain_adc_scores(q, probe, codes_cm, ids_cm, inv_cm, anchors, cb, m,
 
 def emulate_fused_adc(sims, ids, kk):
     """Block r of a query's cluster holds the keys of probes p = r (mod 8);
-    the leader gathers them at p L + l and selects with 11-, 11-, 10-bit
-    digits over the score, then the id."""
+    the leader gathers them at p L + l and selects (`block_topk`)."""
     Q, P, L = sims.shape
     out_s, out_i = np.empty((Q, kk), np.float32), np.empty((Q, kk), np.int32)
     for q in range(Q):
@@ -434,10 +775,9 @@ def emulate_fused_adc(sims, ids, kk):
             for p in range(r, P, CLUSTER):
                 leader[p * L:(p + 1) * L] = make_keys(sims[q, p], ids[q, p],
                                                       ids[q, p] >= 0)
-        thr = U64(topk_threshold(leader, kk, widths=(11, 11, 10) * 2))
-        surv = leader[(leader >= thr) & (leader != 0)]
-        assert len(surv) == min(kk, int((leader != 0).sum()))
-        out_s[q], out_i[q] = decode(surv, kk)
+        sel, _ = block_topk(leader, kk)                   # block_topk
+        assert (sel != 0).sum() == min(kk, int((leader != 0).sum()))
+        out_s[q], out_i[q] = key_scores(sel), key_ids(sel)
     return out_s, out_i
 
 
@@ -573,7 +913,7 @@ def test_ivfpq_fused_smem_at_the_serving_shape_lets_two_blocks_share_an_sm():
     3.2 KB of keys: two blocks an SM, so 16 queries' clusters fit one
     wave of 132 SMs."""
     b = ivf_ops.fused_smem_bytes(64, 8, 64, 400, 8, 800)
-    assert b == 65536 + 25600 + 3216 + 16
+    assert b == 65536 + 25600 + 3216
     assert 2 * (b + 1024) <= 228 * 1024
 
 
