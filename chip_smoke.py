@@ -84,6 +84,32 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
         three-model pool behind `knn10` for the 16 texts; then 16 prompts
         admitted into its 4 slots while others are mid-stream must decode
         the tokens each decodes served alone.
+  6. the gateway (slice 8): phase 4b's artifact-booted `knn100-ivfpq`
+     service in the port's `Gateway` on 127.0.0.1 at an ephemeral port
+     (max_batch 16, close timeout 10 ms, max_pending 32), the counters
+     zeroed before each step and read after it:
+     a. `/health` 200 "ok", `/v1/models` lists `repro/knn100-ivfpq`;
+     b. one streamed request alone at `@lam=0.5`: its tokens and engine
+        equal `serve_texts` of the same text;
+     c. 16 concurrent streaming clients (phase 4's texts and lambdas, 8
+        tokens): well-formed streams, each engine the one `route_fused`
+        chooses, as many routes as flushes and fewer than 16, kernels 2, 3
+        and 5 launched; TTFT p50 / p99 from `/stats`;
+     d. a second gateway with max_pending 2 over engines slowed by
+        `FaultInjector("latency")`: 429 with `Retry-After` past the bound;
+     e. qwen3-4b raising (`FaultInjector("raise")`) behind a second
+        service with its own breakers: its requests served by the other
+        engine with `rerouted_from`, `/health` 503 while the breaker is
+        open, the next wave routed around it, 200 after `heal()` and the
+        backoff;
+     f. `route_fused(degrade=1..3)` on `knn100-ivf` and `knn100-ivfpq`:
+        the kernel's neighbours against the plain versions on the card at
+        the degraded nprobe / rerank and the same probe, choices against
+        the plain tail on the CPU fed with the kernel's neighbours,
+        nprobe / rerank restored;
+     g. one full wave of 16 through phase 4a's `knn10` service;
+     h. every gateway closed: threads joined, ports dark.  The phase
+        must finish in 120 s.
 The line before the last is the kernels' JSON summary, the last line the
 device record.  Its cases are the main path's: for kernels 4 and 5 the
 fitted phase-4 index (the synthetic one with --kernels); kernel 6's
@@ -134,6 +160,10 @@ KERNEL_SOURCES = {
 #: knn100 keeps k = 100 and re-ranks an ADC shortlist of 8 k = 800
 IVF_MAIN = dict(N=70_000, C=265, L=400, D=768, Q=16, P=8, k=100, kk=800,
                 m=64)
+#: the engine-wave deadline of the served services (phases 4b and 6): a
+#: wave of 16 texts takes seconds at full width, so only a hung engine
+#: reaches it
+ENGINE_TIMEOUT_S = 300.0
 
 
 def emit(phase, **kw):
@@ -1018,7 +1048,7 @@ def phase_main_path(torch):
                         "knn_topk": "knn_"})
     emit("serve_profile", texts=4, max_new_tokens=4, window=prof)
     ctx = dict(engines=engines, encoder=encoder, ds=ds, texts=texts,
-               lams=lams)
+               lams=lams, knn10_svc=svc)
     return launches, ctx
 
 
@@ -1203,9 +1233,13 @@ def phase_ivf_path(torch, ctx):
         "knn100-ivf", device="cuda").fit(ds))
     path = stage("ivfpq_save_s", lambda: pipe.save(
         ROOT / "build" / "chip_smoke" / "knn100-ivfpq"))
+    # the engine deadline runs each engine wave on a worker thread, as a
+    # served deployment does (phase 6 serves this service over HTTP)
     svc = stage("ivfpq_load_s", lambda: RouterService.from_artifact(
-        path, engines, device="cuda", encoder=encoder))
+        path, engines, device="cuda", encoder=encoder,
+        engine_timeout_s=ENGINE_TIMEOUT_S))
     ivf_svc = RouterService(ivf_router, engines, encoder=encoder)
+    ctx.update(ivfpq_svc=svc, ivf_svc=ivf_svc)
 
     for w in wrappers.values():
         w.launches = 0
@@ -1520,6 +1554,418 @@ def phase_mamba_serving(torch, ctx):
                         tokens_equal_to_alone=sum(same)))
     assert all(same), "a request's tokens depend on the other slots"
 
+# ---------------------------------------------------------------------------
+# phase 6: requests through the gateway (slice 8)
+# ---------------------------------------------------------------------------
+
+def http_get(port, path):
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request("GET", path)
+        r = c.getresponse()
+        return r.status, dict(r.getheaders()), json.loads(r.read())
+    finally:
+        c.close()
+
+
+def sse_chat(port, model, text, max_tokens, timeout=300):
+    """One streamed chat completion: (status, headers, served_by, tokens,
+    final chunk's ``repro`` payload or the error body).  A stream must be
+    well-formed: a role chunk, one content chunk a token, a stop chunk,
+    then ``[DONE]``."""
+    import http.client
+    body = json.dumps({"model": model, "stream": True,
+                       "max_tokens": max_tokens,
+                       "messages": [{"role": "user", "content": text}]})
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request("POST", "/v1/chat/completions", body=body,
+                  headers={"Content-Type": "application/json"})
+        r = c.getresponse()
+        raw = r.read()
+        headers = dict(r.getheaders())
+    finally:
+        c.close()
+    if r.status != 200:
+        return r.status, headers, None, None, json.loads(raw)
+    frames = [ln[6:].decode() for ln in raw.split(b"\n")
+              if ln.startswith(b"data: ")]
+    assert frames and frames[-1] == "[DONE]", frames[-2:]
+    chunks = [json.loads(f) for f in frames[:-1]]
+    assert chunks[0]["choices"][0]["delta"]["role"] == "assistant"
+    final = chunks[-1]
+    assert final["choices"][0]["finish_reason"] == "stop", final
+    toks = [int(ch["choices"][0]["delta"]["content"]) for ch in chunks[1:-1]]
+    assert len(toks) == max_tokens, (len(toks), max_tokens)
+    served = final["repro"]["served_by"]
+    assert headers["X-Repro-Served-By"] == served
+    return r.status, headers, served, toks, final["repro"]
+
+
+def concurrent(fn, args_list):
+    """Run ``fn(*args)`` for each entry on its own thread, all released at
+    once by a barrier; returns the results in order (a thread's exception
+    is raised here)."""
+    import threading
+    barrier = threading.Barrier(len(args_list))
+    out = [None] * len(args_list)
+
+    def run(i, args):
+        try:
+            barrier.wait(60)
+            out[i] = ("ok", fn(*args))
+        except BaseException as exc:        # re-raised on the main thread
+            out[i] = ("exc", exc)
+
+    threads = [threading.Thread(target=run, args=(i, a), daemon=True)
+               for i, a in enumerate(args_list)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    for kind, val in out:
+        if kind != "ok":
+            raise val
+    return [val for _, val in out]
+
+
+def count_routes(router):
+    """Wrap ``router.serve_fused`` to record each call's batch size; the
+    returned function removes the wrapper."""
+    inner = router.serve_fused
+    sizes = []
+
+    def counted(X, *a, **kw):
+        sizes.append(len(X))
+        return inner(X, *a, **kw)
+    router.serve_fused = counted
+    return sizes, lambda: router.__dict__.pop("serve_fused", None)
+
+
+def assert_dark(port):
+    import socket
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=2).close()
+    except OSError:
+        return
+    raise AssertionError(f"port {port} still accepts connections")
+
+
+def kth_tie_error(np, k_s, k_i, p_s, p_i, rtol, atol):
+    """Phase 4a's rule for two retrievals over a support of near-duplicate
+    rows: the sorted scores agree within (rtol, atol), empty slots agree,
+    and an id that only one of the two keeps scores (on the side that
+    keeps it) within the tolerance of the row's k-th score, so the two
+    kept different members of a tie at the k-th place.  Returns (max abs
+    score error, ids kept by one side only, empty slots)."""
+    fin = np.isfinite(p_s)
+    assert (fin == np.isfinite(k_s)).all(), "empty slots differ"
+    assert ((k_i < 0) == ~fin).all(), "ids of empty slots must be -1"
+    err = float(np.abs(k_s - p_s)[fin].max()) if fin.any() else 0.0
+    assert np.allclose(k_s[fin], p_s[fin], rtol=rtol, atol=atol), err
+    swapped = 0
+    for r in range(len(p_s)):
+        score = {**dict(zip(p_i[r].tolist(), p_s[r].tolist())),
+                 **dict(zip(k_i[r].tolist(), k_s[r].tolist()))}
+        kth = float(p_s[r][fin[r]][-1]) if fin[r].any() else 0.0
+        for i in set(k_i[r].tolist()) ^ set(p_i[r].tolist()):
+            assert abs(score[i] - kth) <= atol + rtol * abs(kth), \
+                ("an id kept by one side does not tie at the k-th", r, i)
+            swapped += 1
+    return err, swapped, int((~fin).sum())
+
+
+def plain_search(torch, r, emb):
+    """The router's retrieval through the plain versions on the card, at
+    its current ``nprobe`` / ``rerank``: the same coarse probe, then the
+    plain IVF scan, or the plain ADC shortlist (re-ranked exactly unless
+    ``rerank`` is 0), as `ivf_topk` / `ivfpq_topk` clamp k and kk."""
+    from repro_torch.kernels.knn_ivf.ops import rerank_stored_inv
+    from repro_torch.kernels.knn_ivf.ref import (ivf_probe, ivf_scan_plain,
+                                                 ivfpq_adc_plain)
+    idx, q = r._ivf, r._queries(emb)
+    nprobe = max(1, min(r.nprobe, idx.n_clusters))
+    cand = nprobe * idx.list_size
+    k = min(r.k, idx.n_rows, cand)
+    probe = ivf_probe(q, idx.centroids, nprobe)
+    if r.index == "ivf":
+        out = ivf_scan_plain(q, probe, idx.sup_cm, idx.ids_cm, idx.inv_cm, k)
+    else:
+        kk = min(max(r.rerank, 1) * k, idx.n_rows, cand) if r.rerank else k
+        out = ivfpq_adc_plain(q, probe, idx.codes_cm, idx.ids_cm,
+                              idx.inv_cm, idx.anchors, idx.codebooks, kk,
+                              idx.m, idx.nbits)
+        if r.rerank:
+            out = rerank_stored_inv(q, idx.sup_flat, idx.inv_flat, out[1],
+                                    k)
+    return out[0].cpu().numpy(), out[1].cpu().numpy()
+
+
+def degraded_checks(torch, np, svc, emb, lams, level):
+    """``route_fused(degrade=level)`` on the card: launches of kernels 4
+    and 5 in the call, the kernel's neighbours against the plain versions
+    on the card at the same degraded parameters and probe (phase 4a's
+    tolerances and tie rule: `kth_tie_error`), the choices against the
+    plain tail on the CPU fed with the kernel's own neighbours, and
+    ``nprobe`` / ``rerank`` restored after."""
+    from repro_torch.core.routers.knn import _serve_tail
+    from repro_torch.kernels.knn_ivf import ops as ivf_ops
+    r = svc.router
+    saved = (r.nprobe, r.rerank)
+    lvl = svc.ladder[level]
+    w4, w5 = ivf_ops.ivf_scan, ivf_ops.ivfpq_adc
+    n4, n5 = w4.launches, w5.launches
+    out = svc.route_fused(emb, lams, degrade=level)
+    calls = {"ivf_topk": w4.launches - n4, "ivfpq_adc": w5.launches - n5}
+    wrapper = w5 if r.index == "ivfpq" else w4
+    cuda_launches = wrapper.last_cuda_launches
+    assert (r.nprobe, r.rerank) == saved, "degraded() did not restore"
+    with r.degraded(lvl):
+        nprobe, rerank = r.nprobe, r.rerank
+        k_s, k_i = r._neighbors(emb)
+        p_s, p_i = plain_search(torch, r, emb)
+    rtol = 1e-4 if r.index == "ivfpq" else 0.0
+    err, swaps, empty = kth_tie_error(np, k_s, k_i, p_s, p_i, rtol, 1e-5)
+    S, C = (torch.from_numpy(a) for a in (r._S, r._C))
+    tail = [t.numpy() for t in _serve_tail(
+        torch.from_numpy(k_s), torch.from_numpy(k_i), S, C,
+        torch.from_numpy(lams), torch.ones(S.shape[1], dtype=torch.bool),
+        weights=r.weights, temperature=float(r.temperature))]
+    route_err = max(float(np.abs(a - b).max())
+                    for a, b in ((out[1], tail[1]), (out[2], tail[2]),
+                                 (out[3], tail[4])))
+    util = tail[1] - lams[:, None] * tail[2]
+    rows = np.arange(len(emb))
+    route_err = max(route_err, float(np.abs(
+        util[rows, out[0]] - util[rows, tail[0]]).max()))
+    assert route_err <= 1e-5, (r.index, level, route_err)
+    assert calls["ivfpq_adc" if r.index == "ivfpq" else "ivf_topk"] == 1, \
+        calls
+    return dict(level=level, name=lvl.name, nprobe=nprobe, rerank=rerank,
+                wrapper_calls=calls, cuda_launches=cuda_launches,
+                neighbour_max_abs_err=err, ids_kept_by_one_side=swaps,
+                empty_slots=empty, route_max_abs_err=route_err,
+                choices_equal=int((out[0] == tail[0]).sum()),
+                restored=True)
+
+
+def phase_gateway(torch, ctx, smi):
+    """6: the port's `Gateway` over phase 4b's artifact-booted
+    `knn100-ivfpq` service (full-width qwen3-4b and h2o-danube-1.8b, the
+    100,000-row support) on 127.0.0.1 at an ephemeral port: health, one
+    request alone, 16 concurrent streaming clients, overload, an outage,
+    degraded routes, a `knn10` wave and shutdown.  Each step's kernel
+    launch counters are zeroed before it and read after it.  Returns the
+    phase's record."""
+    import numpy as np
+    from repro_torch.serving.faults import FaultInjector
+    from repro_torch.serving.gateway import MODEL_PREFIX, Gateway
+    from repro_torch.serving.router_service import RouterService
+
+    t_phase = time.perf_counter()
+    wrappers = kernel_wrappers()
+    svc, encoder = ctx["ivfpq_svc"], ctx["encoder"]
+    texts, lams = ctx["texts"], ctx["lams"]
+    engines = svc.engines
+    model = MODEL_PREFIX + svc.spec
+    rec = {"card": smi}
+    gateways = []
+
+    def start(service, **kw):
+        kw.setdefault("max_batch", 16)
+        kw.setdefault("close_timeout_s", 0.01)
+        kw.setdefault("max_pending", 32)
+        g = Gateway(service, host="127.0.0.1", port=0, **kw).start()
+        gateways.append(g)
+        return g
+
+    def counted(name, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        rec[name] = dict(wall_s=time.perf_counter() - t0, launches={
+            n: w.launches for n, w in wrappers.items() if w.launches})
+        return out
+
+    def done(name):
+        emit(f"gateway_{name}", **rec[name])
+
+    # a. health and the model list
+    gw = start(svc)
+    status, _, health = http_get(gw.port, "/health")
+    assert status == 200 and health["status"] == "ok", (status, health)
+    status, _, models = http_get(gw.port, "/v1/models")
+    assert status == 200 and [m["id"] for m in models["data"]] == [
+        "repro/knn100-ivfpq"], models
+    rec["a_health"] = dict(status=status, model=model,
+                           port_ephemeral=gw.port)
+    done("a_health")
+
+    # b. one request alone against serve_texts of the same text and lambda
+    _, _, served, toks, _ = counted("b_one_request", lambda: sse_chat(
+        gw.port, f"{model}@lam=0.5", texts[1], 8))
+    ref = svc.serve_texts([texts[1]], lam=0.5, max_new_tokens=8)[0]
+    assert (served, toks) == (ref.model, ref.request.output_tokens), \
+        (served, toks, ref.model, ref.request.output_tokens)
+    rec["b_one_request"].update(served_by=served, tokens_equal=True)
+    done("b_one_request")
+
+    # c. 16 concurrent streaming clients, phase 4's texts and lambdas
+    sizes, unwrap = count_routes(svc.router)
+    flushes0 = gw.batcher.flushes
+    try:
+        outs = counted("c_concurrent_16", lambda: concurrent(
+            lambda t, lam: sse_chat(gw.port, f"{model}@lam={float(lam)}", t,
+                                    8),
+            list(zip(texts, lams))))
+    finally:
+        unwrap()
+    flushes = gw.batcher.flushes - flushes0
+    emb = encoder.embed_texts(texts)
+    direct = [svc.model_names[c] for c in svc.route_fused(emb, lams)[0]]
+    served = [o[2] for o in outs]
+    assert served == direct, (served, direct)
+    assert all(o[0] == 200 and o[4]["rerouted_from"] == [] for o in outs)
+    assert len(sizes) == flushes < 16, (sizes, flushes)
+    assert sum(sizes) == 16, sizes
+    missing = [n for n in ("flash_attention", "decode_attention",
+                           "ivfpq_adc")
+               if not rec["c_concurrent_16"]["launches"].get(n)]
+    assert not missing, f"kernels not launched by the gateway: {missing}"
+    _, _, st = http_get(gw.port, "/stats")
+    json.dumps(st)
+    rec["c_concurrent_16"].update(
+        flushes=flushes, wave_sizes=sizes, served_by=served,
+        ttft_p50_s=st["gateway"]["ttft_p50_s"],
+        ttft_p99_s=st["gateway"]["ttft_p99_s"],
+        ttft_window=st["gateway"]["ttft_window"])
+    done("c_concurrent_16")
+
+    # d. overload: a second gateway, max_pending 2, engines slowed
+    slow = {m: FaultInjector(e, "latency", latency_s=2.0)
+            for m, e in engines.items()}
+    g2 = start(RouterService(svc.router, slow, encoder=encoder,
+                             engine_timeout_s=ENGINE_TIMEOUT_S),
+               max_pending=2)
+    import socket
+    held = []
+
+    def hold(text):
+        body = json.dumps({"model": model, "stream": True, "max_tokens": 2,
+                           "messages": [{"role": "user", "content": text}]})
+        s = socket.create_connection(("127.0.0.1", g2.port), timeout=60)
+        s.sendall((f"POST /v1/chat/completions HTTP/1.1\r\nHost: x\r\n"
+                   f"Content-Length: {len(body)}\r\n\r\n{body}").encode())
+        held.append(s)
+
+    def wait_for(cond, what, timeout=60.0):
+        t0 = time.monotonic()
+        while not cond():
+            assert time.monotonic() - t0 < timeout, f"timed out: {what}"
+            time.sleep(0.005)
+
+    hold(texts[0])                       # routed, then held by the latency
+    wait_for(lambda: g2.batcher.flushes == 1, "the first wave")
+    hold(texts[1])
+    hold(texts[2])
+    wait_for(lambda: g2.batcher.pending() == 2, "two queued requests")
+    shed = []
+    for t in texts[3:5]:
+        status, headers, _, _, err = sse_chat(g2.port, model, t, 2)
+        shed.append((status, headers.get("Retry-After"),
+                     err["error"]["code"]))
+    assert all(s == 429 and int(ra) >= 1 and code == "overloaded"
+               for s, ra, code in shed), shed
+    assert g2.batcher.shed == 2, g2.batcher.shed
+    rec["d_overload"] = dict(max_pending=2, answers=shed,
+                             shed=g2.batcher.shed,
+                             latency_injected=sum(
+                                 f.injected["latency"] for f in slow.values()))
+    for sock in held:
+        sock.close()
+    g2.close()          # its waves share the engines: done before (e)
+    done("d_overload")
+
+    # e. outage: qwen3-4b raises (the other engine where no text chooses
+    # it); a second service over the same router and engines with its own
+    # breakers: one failure opens, and the backoff outlasts the two waves
+    # below (up to 4 requests of 2 tokens each, about 2 s a wave here)
+    victim = "qwen3-4b" if "qwen3-4b" in direct else direct[0]
+    others = [m for m in svc.model_names if m != victim]
+    chaos = FaultInjector(engines[victim], "raise")
+    svc3 = RouterService(svc.router, {victim: chaos, others[0]:
+                                      engines[others[0]]},
+                         encoder=encoder, engine_timeout_s=ENGINE_TIMEOUT_S,
+                         breaker={"failure_threshold": 1,
+                                  "base_backoff_s": 10.0})
+    g3 = start(svc3)
+    pick = [i for i, m in enumerate(direct) if m == victim][:4]
+    outs = counted("e_outage", lambda: concurrent(
+        lambda t, lam: sse_chat(g3.port, f"{model}@lam={float(lam)}", t, 2),
+        [(texts[i], lams[i]) for i in pick]))
+    assert all(o[2] == others[0] and o[4]["rerouted_from"] == [victim]
+               for o in outs), outs
+    status, _, health = http_get(g3.port, "/health")
+    assert status == 503 and health["status"] == "degraded", health
+    assert health["engines"][victim]["state"] == "open", health
+    t_next = time.perf_counter()
+    nxt = concurrent(lambda t, lam: sse_chat(
+        g3.port, f"{model}@lam={float(lam)}", t, 2),
+        [(texts[i], lams[i]) for i in pick])
+    assert all(o[2] != victim and o[4]["rerouted_from"] == []
+               for o in nxt), nxt
+    next_wall = time.perf_counter() - t_next
+    raised = chaos.injected["raise"]
+    chaos.heal()
+    time.sleep(svc3.health[victim].retry_after_s() + 0.05)
+    status, _, health = http_get(g3.port, "/health")
+    assert status == 200 and health["status"] == "ok", health
+    rec["e_outage"].update(victim=victim, requests=len(pick),
+                           next_wave_wall_s=next_wall,
+                           rerouted_to=others[0],
+                           health_while_open=503, next_wave_to_victim=0,
+                           injected_raises=raised, health_after_heal=status)
+    done("e_outage")
+
+    # f. degraded routes on knn100-ivf and knn100-ivfpq
+    deg = {}
+    for name, s in (("knn100-ivf", ctx["ivf_svc"]), ("knn100-ivfpq", svc)):
+        deg[name] = [counted(f"f_{name}_L{L}", lambda: degraded_checks(
+            torch, np, s, emb, lams, L)) for L in (1, 2, 3)]
+    rec["f_degraded"] = deg
+    emit("gateway_f_degraded", **deg)
+
+    # g. one wave of the knn10 service (exact top-k): the wave closes full
+    knn10 = ctx["knn10_svc"]
+    g4 = start(knn10, close_timeout_s=30.0)
+    outs = counted("g_knn10_wave", lambda: concurrent(
+        lambda t, lam: sse_chat(g4.port, f"{MODEL_PREFIX}{knn10.spec}"
+                                f"@lam={float(lam)}", t, 4),
+        list(zip(texts, lams))))
+    direct10 = [knn10.model_names[c]
+                for c in knn10.route_fused(emb, lams)[0]]
+    assert [o[2] for o in outs] == direct10
+    assert g4.batcher.flushes == 1, g4.batcher.flushes
+    assert rec["g_knn10_wave"]["launches"].get("knn_topk") == 1, rec
+    rec["g_knn10_wave"].update(flushes=g4.batcher.flushes,
+                               served_by=[o[2] for o in outs])
+    done("g_knn10_wave")
+
+    # h. shutdown: both threads joined, every port dark
+    for g in gateways:
+        g.close()
+        assert not g._pump_thread.is_alive() and \
+            not g._http_thread.is_alive()
+        assert_dark(g.port)
+    rec["h_shutdown"] = dict(gateways=len(gateways), threads_joined=True,
+                             ports_dark=True)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    emit("gateway", **rec)
+    assert rec["wall_s"] < 120, rec["wall_s"]
+    return rec
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1567,6 +2013,7 @@ def main(argv=None):
         third = phase_train(torch)
         phase_forward_decode(torch)
         phase_mamba_serving(torch, ctx)
+        phase_gateway(torch, ctx, smi)
         path_of = {"ivf_topk": second, "ivfpq_adc": second,
                    "ssd_intra": third, "ssd_intra_bwd": third}
         launches = {n: path_of.get(n, first)[n] for n in main_cases}

@@ -18,9 +18,12 @@ where the manifest has one, and format <= 3 files, whose packed PQ lists
 are row-major ``(C, L, MB)``, are transposed once to the code-major
 ``(C, MB, L)`` the kernels read.
 
+A manifest's ``dispatch_policy`` loads as a `DispatchPolicy` (``None``
+where the manifest has none, as format <= 4 files) and is written back
+through ``to_dict``, so a policy crosses between the packages unchanged.
+
 Not ported yet: a streaming `DynamicIVFIndex` state (keys under
-``<attr>/base/``) raises `StreamingIndexNotPortedError`; a manifest's
-``dispatch_policy`` is kept as its dict and written back unchanged.
+``<attr>/base/``) raises `StreamingIndexNotPortedError`.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from repro_torch import persist
 from repro_torch.kernels.knn_ivf.ops import (IVFIndex, IVFPQIndex,
                                              StreamingIndexNotPortedError,
                                              assemble_ivf, assemble_ivfpq)
+from .dispatch import DispatchPolicy
 from .spec import FAMILIES, router_config, spec_of
 
 FORMAT_VERSION = 6
@@ -153,7 +157,9 @@ def save_router(router, path, covered_wal_seq=None) -> Path:
         "model_names": list(router.model_names),
         "fit_seed": router.fit_seed,
         "default_lam": router.default_lam,
-        "dispatch_policy": getattr(router, "dispatch_policy", None),
+        "dispatch_policy": pol.to_dict()
+        if (pol := getattr(router, "dispatch_policy", None)) is not None
+        else None,
         "state_sha256": persist.sha256_hex(state_bytes),
         "covered_wal_seq": covered_wal_seq,
     }
@@ -233,5 +239,7 @@ def load_router(path, device: str = "cuda"):
     router.embed_dim = manifest["embedding_dim"]
     router.fit_seed = manifest["fit_seed"]
     router.default_lam = float(manifest.get("default_lam", 0.0))
-    router.dispatch_policy = manifest.get("dispatch_policy")
+    pol = manifest.get("dispatch_policy")
+    if pol:
+        router.dispatch_policy = DispatchPolicy.from_dict(pol)
     return router

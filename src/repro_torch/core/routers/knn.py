@@ -24,11 +24,19 @@ fills (id -1) are excluded from averages and votes.
 
 The reference's execution-backend knobs (``use_pallas``, ``backend``) are
 accepted so that spec strings and artifact manifests load; here a CUDA
-router always runs the kernels and a CPU router their plain versions.
-Streaming updates (``online=True``), the dispatch policy, degradation and
-the selection formulation are not ported yet.
+router always runs the kernels and a CPU router their plain versions.  A
+fitted `DispatchPolicy` (``router.dispatch_policy``) is carried as the
+reference carries it: `resolve_backend` returns the reference's pick, its
+``lane_pad`` shapes the index built at ``fit``, and its wave constants
+reach `MicroBatcher.from_policy`.  ``degraded(level)`` serves one wave at
+a degradation-ladder level (smaller ``nprobe``, no exact re-rank).
+
+Not ported yet: streaming updates (``online=True``, ``partial_fit``) and
+the selection formulation (``fit_selection`` / ``select``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -141,10 +149,81 @@ class KNNRouter(Router):
         self.delta_cap = int(delta_cap)
         self.backend = backend
         self.device = torch.device(device)
-        #: the reference's fitted `DispatchPolicy`, kept as its manifest dict
-        #: so an artifact round trip writes it back unchanged; not read here
+        #: degradation state set by `degraded` for one wave; there is no
+        #: streaming delta tier to skip yet, so it changes no retrieval
+        self._skip_delta = False
+        #: fitted `DispatchPolicy` (or None = static defaults), set by an
+        #: artifact load, not a constructor parameter, so spec strings and
+        #: ``router_config`` stay policy-free
         self.dispatch_policy = None
         self._dev = {}           # device-resident support + mask cache
+
+    @property
+    def exec_backend(self) -> str:
+        """The reference's execution backend of the approximate tiers:
+        explicit ``backend`` wins, then ``use_pallas``, then ``fused`` for
+        IVF-PQ and ``host`` for raw IVF.  Every name runs the same kernels
+        here (a CUDA router) or their plain versions (a CPU router)."""
+        if self.backend is not None:
+            return self.backend
+        if self.use_pallas:
+            return "pallas"
+        return "fused" if self.index == "ivfpq" else "host"
+
+    # ---- measured dispatch policy ----
+    def _policy_tiles(self) -> dict:
+        """Autotuned kernel constants for this index kind from the fitted
+        dispatch policy ({} when no policy / nothing tuned).  ``lane_pad``
+        shapes the index built at ``fit``; ``block_q`` and ``probe_chunk``
+        are the reference kernels' tiles and leave the CUDA kernels' own
+        tiles as they are."""
+        pol = getattr(self, "dispatch_policy", None)
+        return pol.tiles_for(self.index) if pol is not None else {}
+
+    def resolve_backend(self, n_queries: int | None = None) -> str:
+        """The reference's serving backend for a batch of ``n_queries``:
+        explicit ``backend=`` wins, then ``use_pallas``, then the fitted
+        `DispatchPolicy` cell for (index, batch, delta fraction), then the
+        static default.  The delta fraction is 0: the streaming tier is not
+        ported.  On a CUDA router every one of these names runs the same
+        kernels, so the policy picks nothing the port can differ on until
+        the autotuner is ported (ROADMAP.md queue 1, item 7)."""
+        if self.backend is not None:
+            return self.backend
+        if self.use_pallas:
+            return "pallas"
+        pol = getattr(self, "dispatch_policy", None)
+        if pol is not None and n_queries:
+            be = pol.exec_backend_for(self.index, int(n_queries), 0.0)
+            if be is not None:
+                return be
+        return "fused" if self.index in ("ivfpq", "exact") else "host"
+
+    # ---- deadline-driven graceful degradation ----
+    @contextlib.contextmanager
+    def degraded(self, level=None):
+        """Serve the enclosed wave at a degradation level: any object with
+        ``nprobe_scale`` / ``rerank`` / ``skip_delta`` attributes (see
+        `repro_torch.serving.faults.DegradationLevel`; duck-typed so the
+        router never imports the serving layer).  ``nprobe`` and ``rerank``
+        are restored on exit, also when the block raises.  ``None`` or
+        level 0 is a no-op.  Not re-entrant across threads: the serving
+        loop applies it from its single routing thread."""
+        if level is None or not (level.nprobe_scale != 1.0
+                                 or level.rerank is not None
+                                 or level.skip_delta):
+            yield
+            return
+        saved = (self.nprobe, self.rerank, self._skip_delta)
+        try:
+            self.nprobe = max(1, int(round(self.nprobe
+                                           * level.nprobe_scale)))
+            if level.rerank is not None:
+                self.rerank = int(level.rerank)
+            self._skip_delta = bool(level.skip_delta)
+            yield
+        finally:
+            self.nprobe, self.rerank, self._skip_delta = saved
 
     # ---- fit = store the support set (+ coarse quantizer / PQ codebooks) --
     def fit(self, ds: RoutingDataset, seed: int = 0) -> "KNNRouter":
@@ -155,13 +234,16 @@ class KNNRouter(Router):
         self._S = S.astype(np.float32)
         self._C = C.astype(np.float32)
         self._ivf = None
+        # a policy-tuned lane_pad applies at build time, as in the reference
+        lp = self._policy_tiles().get("lane_pad")
+        lane = {"lane_pad": int(lp)} if lp else {}
         if self.index == "ivf":
             self._ivf = build_ivf_index(self._X, self.n_clusters, seed=seed,
-                                        device=self.device)
+                                        device=self.device, **lane)
         elif self.index == "ivfpq":
             self._ivf = build_ivfpq_index(self._X, self.n_clusters, m=self.m,
                                           nbits=self.nbits, seed=seed,
-                                          device=self.device)
+                                          device=self.device, **lane)
         return self
 
     @property
@@ -256,6 +338,7 @@ class KNNRouter(Router):
             self._dev["avail_key"] = key
         return self._dev["avail"]
 
+    @torch.no_grad()
     def serve_fused(self, X: np.ndarray, lam: np.ndarray, avail=None):
         """One routed batch on the device: retrieval kernel, neighbour
         utility, confidence and per-request-lambda availability-masked

@@ -66,13 +66,13 @@ FUSED_SMEM_MAX = 226 * 1024
 
 class StreamingIndexNotPortedError(NotImplementedError):
     """The streaming `DynamicIVFIndex` tier (``online=True``,
-    ``partial_fit``, dynamic artifacts) is not ported yet: it is queue
-    item 2 of ROADMAP.md."""
+    ``partial_fit``, dynamic artifacts) is not ported yet: it is queue 1,
+    item 3 of ROADMAP.md."""
 
     def __init__(self, what: str):
         super().__init__(f"{what}: the streaming DynamicIVFIndex tier is not "
-                         f"ported to repro_torch yet (ROADMAP.md, queue item "
-                         f"2); serve a frozen ivf / ivfpq index instead")
+                         f"ported to repro_torch yet (ROADMAP.md, queue 1, "
+                         f"item 3); serve a frozen ivf / ivfpq index instead")
 
 
 def _dev(a: np.ndarray, device) -> torch.Tensor:

@@ -10,11 +10,20 @@ spec-level ``default_lam``.  Per-engine circuit breakers feed an
 availability mask into the selection, and `execute` reroutes a failed
 wave's requests along each request's own utility order.  A service boots
 from a fitted router or from an artifact of either package
-(`RouterService.from_artifact`).  Observe / durability and the scheduler
-of the reference are not ported yet.
+(`RouterService.from_artifact`).  ``route_fused(..., degrade=)`` serves a
+wave at a degradation-ladder level, `stats()` is the JSON-ready payload of
+the gateway's ``/health`` and ``/stats``, and `MicroBatcher` /
+`WaveScheduler` (`serving/scheduler.py`) coalesce single requests into
+one ``route_fused`` a wave.
+
+Not ported yet: ``observe`` and durability (the WAL, checkpoints and crash
+recovery; ROADMAP.md queue 1, item 3).  Until then ``stats()`` reports
+``durability`` and ``recovery`` as None and `recovery_status()` returns
+None.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -25,12 +34,12 @@ import torch
 
 from repro_torch.core.dataset import RoutingDataset
 from repro_torch.core.routers import (Router, RouterSpec, load_router,
-                                      make_router)
+                                      make_router, spec_of)
 from repro_torch.core.routers.knn import _select
 from . import encoder as enc
 from .engine import IncompleteDrainError, Request, ServingEngine
-from .faults import (CircuitOpenError, EngineDeadlineExceeded, EngineHealth,
-                     ExecutionReport)
+from .faults import (CircuitOpenError, DegradationLadder,
+                     EngineDeadlineExceeded, EngineHealth, ExecutionReport)
 
 
 @dataclasses.dataclass
@@ -46,8 +55,39 @@ class RoutedResult:
     #: reroute to the next-best-utility model
     s_row: Optional[np.ndarray] = None
     c_row: Optional[np.ndarray] = None
+    #: degradation-ladder level the wave was served at (0 = full fidelity)
+    degradation: int = 0
     #: engines this request failed over from, in order
     rerouted_from: List[str] = dataclasses.field(default_factory=list)
+
+
+def to_jsonable(obj):
+    """Recursively convert a stats/report payload into plain JSON types.
+    Numpy scalars and arrays and torch tensors of any device and rank leak
+    easily out of routing internals; everything the gateway serializes
+    onto the wire goes through here so ``json.dumps`` never raises on a
+    live health endpoint."""
+    if isinstance(obj, dict):
+        return {str(k): to_jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [to_jsonable(v) for v in obj]
+    if isinstance(obj, torch.Tensor):
+        return to_jsonable(obj.detach().cpu().tolist())
+    if isinstance(obj, np.ndarray):
+        return [to_jsonable(v) for v in obj.tolist()]
+    if isinstance(obj, (np.bool_,)):
+        return bool(obj)
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    if isinstance(obj, (bool, int, str)) or obj is None:
+        return obj
+    if isinstance(obj, float):
+        # json.dumps emits bare `NaN`/`Infinity`, which is not JSON and
+        # breaks strict clients: clamp to null
+        return obj if np.isfinite(obj) else None
+    return str(obj)
 
 
 def knn_service(ds: RoutingDataset, engines: Dict[str, ServingEngine],
@@ -78,6 +118,7 @@ class RouterService:
                  engine_timeout_s: Optional[float] = None,
                  max_route_attempts: int = 3,
                  retry_backoff_s: float = 0.0,
+                 ladder: Optional[DegradationLadder] = None,
                  encoder: Optional[enc.QueryEncoder] = None):
         if isinstance(router, (str, RouterSpec)):
             router = make_router(router)
@@ -99,11 +140,14 @@ class RouterService:
         self.encoder = encoder if encoder is not None else \
             enc.default_encoder(str(getattr(router, "device", "cuda")))
         self._uid = 0
+        self.log: List[RoutedResult] = []
         self.health: Dict[str, EngineHealth] = {
             m: EngineHealth(m, **(breaker or {})) for m in self.model_names}
+        #: wall-clock budget for one engine wave (None = no deadline)
         self.engine_timeout_s = engine_timeout_s
         self.max_route_attempts = int(max_route_attempts)
         self.retry_backoff_s = float(retry_backoff_s)
+        self.ladder = ladder if ladder is not None else DegradationLadder()
 
     @classmethod
     def from_artifact(cls, path, engines: Dict[str, ServingEngine], *,
@@ -113,9 +157,19 @@ class RouterService:
         return cls(load_router(path, device=device), engines, **kw)
 
     @property
+    def spec(self) -> str:
+        """Canonical spec string of the underlying router."""
+        return spec_of(self.router)
+
+    @property
     def retrieval_backend(self) -> str:
         """'exact' / 'ivf' / 'ivfpq': the router's retrieval index."""
         return getattr(self.router, "index", "n/a")
+
+    @property
+    def dispatch_policy(self):
+        """The router's fitted `DispatchPolicy`, or None (static defaults)."""
+        return getattr(self.router, "dispatch_policy", None)
 
     @staticmethod
     def _validate_engines(router: Router, engines: Dict) -> List[str]:
@@ -141,6 +195,49 @@ class RouterService:
         # repro: allow-host: availability is host-side health metadata
         return np.asarray(flags, bool)
 
+    def stats(self) -> Dict:
+        """JSON-ready service health snapshot, the payload the gateway's
+        ``/health`` and ``/stats`` serve: per-engine breaker state plus
+        service counters, passed through `to_jsonable` so no numpy or torch
+        value from the routing internals can make ``json.dumps`` raise.
+        ``observed``, ``durability`` and ``recovery`` keep the reference's
+        keys; feedback and durability are not ported, so they read 0 /
+        None."""
+        support = getattr(self.router, "support_size", None)
+        return to_jsonable({
+            "spec": self.spec,
+            "retrieval_backend": self.retrieval_backend,
+            "default_lam": self.default_lam,
+            "engines": {m: self.health[m].stats() for m in self.model_names},
+            # side-effect-free availability view: a stats poll must not
+            # perform the open -> half_open probe transition itself
+            "available": {m: self.health[m].retry_after_s() == 0.0
+                          for m in self.model_names},
+            "observed": 0,
+            "routed": len(self.log),
+            "support_size": support,
+            "durability": None,
+            "recovery": self.recovery_status(),
+        })
+
+    def recovery_status(self) -> Optional[Dict]:
+        """Replay progress of a recovering service; None, since a port
+        service never boots through recovery (durability is not ported)."""
+        return None
+
+    # ---- lifecycle ----
+    def close(self) -> None:
+        """Synchronization point before teardown.  The reference joins a
+        background index compaction here; the port has no streaming tier,
+        so there is nothing to join.  Idempotent; the service stays
+        usable."""
+
+    def __enter__(self) -> "RouterService":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
     # ---- routing ----
     def _resolve_lam(self, lam, n: int) -> np.ndarray:
         """None -> service default; scalar -> broadcast; (n,) vector as-is."""
@@ -161,16 +258,23 @@ class RouterService:
                 f"router emitted {s_hat.shape[1]} model columns, expected "
                 f"{len(self.model_names)} ({self.model_names})")
 
-    def route_fused(self, emb: np.ndarray, lam=None) -> tuple:
+    def route_fused(self, emb: np.ndarray, lam=None,
+                    degrade: int = 0) -> tuple:
         """One routed batch through `KNNRouter.serve_fused` (retrieval,
         utility, confidence and availability-masked selection on the
-        device).  Returns (choice, s_hat, c_hat, agreement, lam_r) as
-        numpy."""
+        device).  ``degrade`` serves the wave at that degradation-ladder
+        level (shrunk nprobe, dropped re-rank) on routers that support it.
+        Returns (choice, s_hat, c_hat, agreement, lam_r) as numpy."""
         # repro: allow-host: input embeddings arrive as host data
         emb = np.atleast_2d(np.asarray(emb, np.float32))
         lam_r = self._resolve_lam(lam, len(emb))
-        choice, s_hat, c_hat, _, agree = self.router.serve_fused(
-            emb, lam_r, avail=self.availability_mask())
+        avail = self.availability_mask()
+        dg = getattr(self.router, "degraded", None)
+        ctx = (dg(self.ladder[degrade]) if degrade and callable(dg)
+               else contextlib.nullcontext())
+        with ctx:
+            choice, s_hat, c_hat, _, agree = self.router.serve_fused(
+                emb, lam_r, avail=avail)
         self._check_arity(s_hat)
         return choice, s_hat, c_hat, agree, lam_r
 
@@ -192,10 +296,17 @@ class RouterService:
                             torch.from_numpy(a).to(dev))
         return choice.cpu().numpy(), s_hat, c_hat, agree, lam_r
 
+    def route_embeddings(self, emb: np.ndarray, lam=None) -> np.ndarray:
+        """Per-request lambda routing over raw embeddings -> model indices
+        (served through `route_fused`)."""
+        return self.route_fused(emb, lam)[0]
+
     def submit_texts(self, texts: Sequence[str], prompts_tokens=None,
-                     max_new_tokens: int = 8, lam=None) -> List[RoutedResult]:
+                     max_new_tokens: int = 8, lam=None,
+                     degrade: int = 0) -> List[RoutedResult]:
         emb = self.encoder.embed_texts(list(texts))
-        choice, s_hat, c_hat, conf, lam_r = self.route_fused(emb, lam)
+        choice, s_hat, c_hat, conf, lam_r = self.route_fused(
+            emb, lam, degrade=degrade)
         results = []
         for i, text in enumerate(texts):
             mi = int(choice[i])
@@ -217,13 +328,17 @@ class RouterService:
                 lam=float(lam_r[i]),
                 confidence=float(conf[i]) if conf is not None else None,
                 s_row=np.asarray(s_hat[i]).copy(),
-                c_row=np.asarray(c_hat[i]).copy()))
+                c_row=np.asarray(c_hat[i]).copy(),
+                degradation=int(degrade)))
         return results
 
     # ---- execution ----
     def _run_engine(self, m: str, reqs: List[Request]) -> int:
         """One wave on one engine under the service deadline (a worker
-        thread and a join timeout when ``engine_timeout_s`` is set)."""
+        thread and a join timeout when ``engine_timeout_s`` is set).  A
+        worker past its deadline cannot cancel the work it queued on the
+        card and keeps the engine's slots; reroutes hand fresh Requests to
+        the next engine instead."""
         eng = self.engines[m]
         if self.engine_timeout_s is None:
             return eng.run_until_drained(reqs)
@@ -261,8 +376,10 @@ class RouterService:
                  tried: Dict[int, Set[str]]
                  ) -> List[Tuple[str, RoutedResult]]:
         """Failover: each request goes to its next-best available engine as
-        a fresh Request, or lands in ``report.failed`` with a typed reason.
-        Never a silent drop."""
+        a fresh Request that takes over the old one's ``on_token`` stream
+        (tokens a partly served attempt already streamed stay streamed), or
+        lands in ``report.failed`` with a typed reason.  Never a silent
+        drop."""
         requeued = []
         for r in rs:
             tried.setdefault(r.uid, set()).add(r.model)
@@ -278,11 +395,15 @@ class RouterService:
             r.rerouted_from.append(r.model)
             old = r.request
             vocab = self.engines[nxt].cfg.vocab_size
+            # the stream moves to the fresh Request; the failed engine
+            # (possibly still hung on the old one) can no longer feed it
             r.request = Request(
                 uid=r.uid,
                 prompt_tokens=np.asarray(old.prompt_tokens,
                                          np.int64) % vocab,
-                max_new_tokens=old.max_new_tokens)
+                max_new_tokens=old.max_new_tokens, on_token=old.on_token,
+                cancelled=old.cancelled)
+            old.on_token = None
             r.model = nxt
             mi = self.model_names.index(nxt)
             r.predicted_score = float(r.s_row[mi])
@@ -294,7 +415,8 @@ class RouterService:
         """Dispatch routed requests to their engines, wave by wave and
         engine by engine, isolating failures: an open breaker skips the
         engine, a failure or timeout records to its breaker and reroutes
-        the affected requests, a success re-closes it."""
+        the affected requests, a success re-closes it.  The results join
+        ``self.log``."""
         report = ExecutionReport()
         queue: List[Tuple[str, RoutedResult]] = [(r.model, r)
                                                  for r in results]
@@ -337,6 +459,7 @@ class RouterService:
                     report[m] = report.get(m, 0) + steps
             if queue and self.retry_backoff_s:
                 time.sleep(self.retry_backoff_s)
+        self.log.extend(results)
         return report
 
     def serve_texts(self, texts: Sequence[str], **kw):

@@ -108,7 +108,9 @@ def test_dispatch_policy_round_trips_unchanged(data, tmp_path):
         tiles={"ivfpq": {"probe_chunk": 4}})
     src = jax_save(jr, tmp_path / "a")
     tr = load_router(src, device="cpu")
-    assert tr.dispatch_policy == jr.dispatch_policy.to_dict()
+    from repro_torch.core.routers.dispatch import DispatchPolicy as TPolicy
+    assert isinstance(tr.dispatch_policy, TPolicy)
+    assert tr.dispatch_policy.to_dict() == jr.dispatch_policy.to_dict()
     dst = save_router(tr, tmp_path / "b")
     assert json.loads((dst / "manifest.json").read_text())[
         "dispatch_policy"] == jr.dispatch_policy.to_dict()

@@ -769,3 +769,56 @@ def test_gpu_ivfpq_fused_is_one_launch_and_checks_cluster_occupancy():
     ivf_ops.ivfpq_adc(q, probe, idx["codes"], idx["ids"], idx["inv"],
                       idx["anchors"], idx["cb"], 800, m=m, nbits=8)
     assert ivf_ops.ivfpq_adc.last_cuda_launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["knn20-ivf", "knn20-ivfpq@m=8"])
+def test_gpu_degraded_routes_match_the_cpu_router(spec):
+    """`route_fused(degrade=L)` for L = 1-3 on a small CUDA router (kernel 4
+    or 5 at nprobe 4, 4, 2 and re-rank 8, 0, 0) against the same router on
+    the CPU (the plain versions): equal choices, utilities at 1e-5, the
+    kernel launched each call, ``nprobe`` / ``rerank`` restored."""
+    _need_cuda()
+    from repro_torch.core.dataset import RoutingDataset
+    from repro_torch.core.routers import make_router
+    from repro_torch.serving.encoder import QueryEncoder
+    from repro_torch.serving.router_service import RouterService
+    rng = np.random.default_rng(8)
+    centers = rng.normal(size=(8, 64)) * 3
+    topic = rng.integers(0, 8, 3000)
+    X = (centers[topic] + rng.normal(size=(3000, 64))).astype(np.float32)
+    S = np.clip(rng.uniform(0.2, 1, (8, 3))[topic]
+                + rng.normal(0, 0.05, (3000, 3)), 0, 1).astype(np.float32)
+    C = np.tile(rng.uniform(0.001, 0.01, 3), (3000, 1)).astype(np.float32)
+    names = ["a", "b", "c"]
+    ds = RoutingDataset("d", X, S, C, names)
+    Q = (centers[rng.integers(0, 8, 16)]
+         + rng.normal(size=(16, 64))).astype(np.float32)
+    lam = np.linspace(0, 50, 16).astype(np.float32)
+    svcs = {dev: RouterService(make_router(spec, device=dev).fit(ds),
+                               {m: None for m in names},
+                               encoder=QueryEncoder(device="cpu"))
+            for dev in ("cuda", "cpu")}
+    wrapper = (ivf_ops.ivfpq_adc if "ivfpq" in spec else ivf_ops.ivf_scan)
+    saved = (svcs["cuda"].router.nprobe, svcs["cuda"].router.rerank)
+    for level in (1, 2, 3):
+        n0 = wrapper.launches
+        g = svcs["cuda"].route_fused(Q, lam, degrade=level)
+        assert wrapper.launches == n0 + 1
+        c = svcs["cpu"].route_fused(Q, lam, degrade=level)
+        np.testing.assert_array_equal(g[0], c[0])
+        for a, b in zip(g[1:3], c[1:3]):
+            np.testing.assert_allclose(a, b, atol=1e-5)
+        assert (svcs["cuda"].router.nprobe,
+                svcs["cuda"].router.rerank) == saved
+
+
+@pytest.mark.gpu
+def test_gpu_stats_json_takes_cuda_tensors():
+    _need_cuda()
+    import json
+    from repro_torch.serving.router_service import to_jsonable
+    odd = {"n": torch.tensor(7, device="cuda"),
+           "v": torch.arange(3, device="cuda").float()}
+    assert json.loads(json.dumps(to_jsonable(odd))) == {"n": 7,
+                                                        "v": [0.0, 1.0, 2.0]}

@@ -42,6 +42,9 @@ def test_port_imports_without_jax():
             "import repro_torch.kernels.ssd_scan.ops, repro_torch.models.ssm\n"
             "import repro_torch.launch.train, repro_torch.training.checkpoint\n"
             "import repro_torch.data.lm_data\n"
+            "import repro_torch.serving.scheduler\n"
+            "import repro_torch.serving.gateway\n"
+            "import repro_torch.core.routers.dispatch\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\n"
