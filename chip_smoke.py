@@ -603,6 +603,7 @@ def phase_kernels(torch, seed):
         if i == 0:
             main["decode_attention"] = r
     main.update(phase_ivf_kernels(torch, timer, gen))
+    phase_delta_kernels(torch, timer, gen)
     main.update(phase_ssd_kernels(torch, timer, gen))
     return main
 
@@ -880,6 +881,144 @@ def phase_ivf_kernels(torch, timer, gen):
         emit("kernel", name="ivfpq_adc", **r)
     del pq4
     return main
+
+
+def delta_tier(np, ivf_ops, base, tier, probed, hot, seed):
+    """A `DynamicIVFIndex` over ``base`` with a delta tier of one kind:
+    ``few`` (two rows in each list), ``per_list`` (64 rows in each list:
+    about 64 a probed list), ``skewed`` (4,096 rows in list ``hot``, which
+    every query count probes) or ``empty`` (rows only in lists no query
+    probes).  Rows lie near their list's centroid, so they are assigned to
+    it."""
+    rng = np.random.default_rng(seed)
+    cent = base.centroids_h
+    C, D = cent.shape
+
+    def near(c, n):
+        return (cent[c] + 0.01 * rng.standard_normal(
+            (n, D), dtype=np.float32)).astype(np.float32)
+    if tier == "few":
+        rows = np.concatenate([near(c, 2) for c in range(C)])
+    elif tier == "per_list":
+        rows = np.concatenate([near(c, 64) for c in range(C)])
+    elif tier == "skewed":
+        rows = near(hot, 4096)
+    else:
+        free = [c for c in range(C) if c not in probed]
+        rows = np.concatenate([near(c, 8) for c in free[:8]])
+        # keep the rows assigned to an unprobed list (split lists can have
+        # near-equal centroids)
+        rn = rows / np.linalg.norm(rows, axis=1, keepdims=True)
+        rows = rows[~np.isin(np.argmax(rn @ cent.T, axis=1),
+                             sorted(probed))]
+        assert len(rows), "no row landed in an unprobed list"
+    dyn = ivf_ops.DynamicIVFIndex(base)
+    dyn.append(rows)
+    return dyn
+
+
+def phase_delta_kernels(torch, timer, gen):
+    """Kernels 4 and 5 with a streaming index's delta sub-lists in the same
+    launch, on the main shape's synthetic indexes (265 lists of 400, D 768,
+    nprobe 8, k 100, kk 800, m 64) with tiers `delta_tier` builds, at Q 1,
+    16 and 64: against the plain versions on the card (tie rule
+    `tied_error`), a second call bitwise equal, ms, plain ms and the bound
+    (the distinct probed lists' and sub-lists' bytes), and the kernel
+    library's launches: 1 for kernel 4 (k <= 2,048) and on kernel 5's fused
+    path, which runs where `fused_fits` (the skewed tier does not fit: the
+    three launches) and also on the three launches."""
+    import numpy as np
+    from repro_torch.kernels.knn_ivf import ops as ivf_ops
+    from repro_torch.kernels.knn_ivf.ref import (ivf_probe, ivf_scan_plain,
+                                                 ivfpq_adc_plain)
+    g = IVF_MAIN
+    counts = np.full(g["C"], g["N"] // g["C"])
+    counts[:g["N"] % g["C"]] += 1
+    ivf, _ = synthetic_index(np, False, g["C"], g["L"], g["D"], counts)
+    pq8, _ = synthetic_index(np, True, g["C"], g["L"], g["D"], counts,
+                             m=g["m"], nbits=8)
+    q64 = unit_queries(torch, 64, g["D"], gen("delta", "queries"))
+    probe64 = ivf_probe(q64, ivf.centroids, g["P"])
+    probed = set(probe64.unique().tolist())
+    t0 = time.perf_counter()
+    for tier in ("few", "per_list", "skewed", "empty"):
+        dyns = {name: delta_tier(np, ivf_ops, base, tier, probed,
+                                 int(probe64[0, 0]), 7)
+                for name, base in (("ivf_topk", ivf), ("ivfpq_adc", pq8))}
+        for Q in (1, 16, 64):
+            q, probe = q64[:Q].contiguous(), probe64[:Q].contiguous()
+            for name, dyn in dyns.items():
+                snap = dyn.fused_state()
+                b, d = snap.base, snap.delta
+                lens = (d.off[1:] - d.off[:-1]).long()
+                sub_rows = int(lens[probe.long().unique()].sum())
+                if tier == "empty":
+                    assert sub_rows == 0, sub_rows
+                lists = int(probe.unique().numel())
+                if name == "ivf_topk":
+                    k = g["k"]
+                    args = (q, probe, b.sup_cm, b.ids_cm, b.inv_cm, k)
+                    runs = {"one_launch": lambda: ivf_ops.ivf_scan(  # noqa: E731
+                        *args, delta=d)}
+                    plain = lambda: ivf_scan_plain(*args, d)  # noqa: E731
+                    nbytes = lists * g["L"] * (g["D"] * 4 + 8) \
+                        + sub_rows * (g["D"] * 4 + 8)
+                    flops = 2 * Q * g["P"] * g["L"] * g["D"] \
+                        + 2 * Q * sub_rows * g["D"]
+                    wrapper = ivf_ops.ivf_scan
+                else:
+                    k = g["kk"]
+                    MB = b.codes_cm.shape[1]
+                    args = (q, probe, b.codes_cm, b.ids_cm, b.inv_cm,
+                            b.anchors, b.codebooks, k)
+                    fits = ivf_ops.fused_fits(b.m, b.nbits, MB, g["L"],
+                                              g["P"], k, d.lmax)
+                    assert fits == (tier != "skewed"), (tier, d.lmax)
+                    runs = {"three_launch": lambda: ivf_ops._adc_cuda(  # noqa: E731
+                        *args, m=b.m, nbits=b.nbits, fused=False, delta=d)}
+                    if fits:
+                        runs["fused"] = lambda: ivf_ops._adc_cuda(  # noqa: E731
+                            *args, m=b.m, nbits=b.nbits, fused=True, delta=d)
+                    plain = lambda: ivfpq_adc_plain(  # noqa: E731
+                        *args, b.m, b.nbits, d)
+                    nbytes = lists * (MB * g["L"] + g["L"] * 8 + g["D"] * 4) \
+                        + sub_rows * (MB + 8) + b.codebooks.numel() * 4
+                    flops = 2 * Q * 256 * g["D"] \
+                        + Q * (g["P"] * g["L"] + sub_rows) * (b.m + 2)
+                    wrapper = ivf_ops.ivfpq_adc
+                nbytes += Q * g["D"] * 4 + Q * g["P"] * 4 + Q * k * 8 \
+                    + (g["C"] + 1) * 4
+                b_ms, b_by = bound(nbytes, flops, torch.float32)
+                ref = plain()
+                p_ms = timer(plain, iters=3, warmup=1)
+                for path, call in runs.items():
+                    out = call()
+                    launches = wrapper.last_cuda_launches
+                    again = call()
+                    torch.cuda.synchronize()
+                    assert torch.equal(out[0], again[0]) and torch.equal(
+                        out[1], again[1]), ("a second call differs", tier,
+                                            name, Q, path)
+                    rtol = 1e-4 if name == "ivfpq_adc" else 0.0
+                    err, swaps, empty = tied_error(torch, out, ref, rtol,
+                                                   1e-5)
+                    want = (1 if path in ("one_launch", "fused")
+                            else 2 + math.ceil(k / 1024))
+                    assert launches == want, (tier, name, Q, path, launches)
+                    emit("kernel_delta", name=name, tier=tier, Q=Q,
+                         path=path, k=k, delta_rows=int(d.rows.shape[0]),
+                         lmax=int(d.lmax), probed_lists=lists,
+                         probed_sub_list_rows=sub_rows,
+                         max_abs_err=err, tol=(
+                             "rtol 1e-4, atol 1e-5" if rtol else 1e-5),
+                         tied_id_swaps=swaps, empty_slots=empty,
+                         delta_ids_in_result=int(
+                             (out[1] >= d.n_base).sum()),
+                         repeat_bitwise_equal=True, cuda_launches=launches,
+                         ms=timer(call, iters=5, warmup=1), plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        del dyns
+    emit("kernel_delta_done", wall_s=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -1239,7 +1378,7 @@ def phase_ivf_path(torch, ctx):
         path, engines, device="cuda", encoder=encoder,
         engine_timeout_s=ENGINE_TIMEOUT_S))
     ivf_svc = RouterService(ivf_router, engines, encoder=encoder)
-    ctx.update(ivfpq_svc=svc, ivf_svc=ivf_svc)
+    ctx.update(ivfpq_svc=svc, ivf_svc=ivf_svc, ivfpq_path=path)
 
     for w in wrappers.values():
         w.launches = 0
@@ -1676,30 +1815,79 @@ def kth_tie_error(np, k_s, k_i, p_s, p_i, rtol, atol):
     return err, swapped, int((~fin).sum())
 
 
-def plain_search(torch, r, emb):
+def plain_search(torch, r, emb, backend="fused"):
     """The router's retrieval through the plain versions on the card, at
-    its current ``nprobe`` / ``rerank``: the same coarse probe, then the
-    plain IVF scan, or the plain ADC shortlist (re-ranked exactly unless
-    ``rerank`` is 0), as `ivf_topk` / `ivfpq_topk` clamp k and kk."""
-    from repro_torch.kernels.knn_ivf.ops import rerank_stored_inv
+    its current ``nprobe`` / ``rerank``, on one snapshot of its index and
+    the same coarse probe, clamping k and kk as `ivf_topk` / `ivfpq_topk`
+    do: the plain IVF scan, or the plain ADC shortlist re-ranked exactly
+    unless ``rerank`` is 0.  Over a streaming index's delta tier,
+    ``fused`` scans the probed delta sub-lists (IVF-PQ re-ranks over the
+    combined flat tier); ``host`` takes the base's result and merges an
+    exact scan of the whole tier (`knn_topk_reference`), base first."""
+    from repro_torch.kernels.knn_ivf.ops import (DynamicIVFIndex,
+                                                 TierSnapshot,
+                                                 rerank_stored_inv)
     from repro_torch.kernels.knn_ivf.ref import (ivf_probe, ivf_scan_plain,
                                                  ivfpq_adc_plain)
-    idx, q = r._ivf, r._queries(emb)
-    nprobe = max(1, min(r.nprobe, idx.n_clusters))
-    cand = nprobe * idx.list_size
-    k = min(r.k, idx.n_rows, cand)
-    probe = ivf_probe(q, idx.centroids, nprobe)
+    from repro_torch.kernels.knn_topk.ref import knn_topk_reference
+    idx = r._ivf
+    snap = (idx.fused_state() if isinstance(idx, DynamicIVFIndex)
+            else TierSnapshot(idx, None, idx.n_rows, 0))
+    b, d = snap.base, snap.delta
+    dl = d if backend == "fused" else None
+    q = r._queries(emb)
+    nprobe = max(1, min(r.nprobe, b.n_clusters))
+    probe = ivf_probe(q, b.centroids, nprobe)
+    cand = nprobe * (b.list_size + (snap.lc if dl is not None else 0))
+    n = snap.n_rows if dl is not None else b.n_rows
+    k = min(r.k, n, cand)
     if r.index == "ivf":
-        out = ivf_scan_plain(q, probe, idx.sup_cm, idx.ids_cm, idx.inv_cm, k)
+        sc, ix = ivf_scan_plain(q, probe, b.sup_cm, b.ids_cm, b.inv_cm, k, dl)
     else:
-        kk = min(max(r.rerank, 1) * k, idx.n_rows, cand) if r.rerank else k
-        out = ivfpq_adc_plain(q, probe, idx.codes_cm, idx.ids_cm,
-                              idx.inv_cm, idx.anchors, idx.codebooks, kk,
-                              idx.m, idx.nbits)
+        kk = min(max(r.rerank, 1) * k, n, cand) if r.rerank else k
+        sc, ix = ivfpq_adc_plain(q, probe, b.codes_cm, b.ids_cm, b.inv_cm,
+                                 b.anchors, b.codebooks, kk, b.m, b.nbits,
+                                 dl)
         if r.rerank:
-            out = rerank_stored_inv(q, idx.sup_flat, idx.inv_flat, out[1],
-                                    k)
-    return out[0].cpu().numpy(), out[1].cpu().numpy()
+            sup, inv = ((snap.sup_all, snap.inv_all) if dl is not None
+                        else (b.sup_flat, b.inv_flat))
+            sc, ix = rerank_stored_inv(q, sup, inv, ix, k)
+    if dl is None and d is not None:
+        k = min(r.k, snap.n_rows)
+        if sc.shape[1] < k:
+            pad = k - sc.shape[1]
+            sc = torch.cat([sc, sc.new_full((len(q), pad), float("-inf"))], 1)
+            ix = torch.cat([ix, ix.new_full((len(q), pad), -1)], 1)
+        ds, di = knn_topk_reference(q, d.rows, min(k, d.rows.shape[0]))
+        di = torch.where(di >= 0, di + d.n_base, di)
+        cs, ci = torch.cat([sc[:, :k], ds], 1), torch.cat([ix[:, :k], di], 1)
+        order = torch.sort(cs, dim=1, descending=True, stable=True).indices
+        sc = torch.gather(cs, 1, order[:, :k])
+        ix = torch.gather(ci, 1, order[:, :k])
+        ix = torch.where(torch.isfinite(sc), ix, torch.full_like(ix, -1))
+    return sc.cpu().numpy(), ix.cpu().numpy()
+
+
+def tail_check(torch, np, r, out, k_s, k_i, lams):
+    """``route_fused``'s output against the plain tail on the CPU fed with
+    the kernel's own neighbours (phase 4a's rule: utilities, kth and
+    agreement at 1e-5; a choice may differ only where two utilities tie).
+    Returns (max error, choices equal to the tail's)."""
+    from repro_torch.core.routers.knn import _serve_tail
+    S, C = (torch.from_numpy(a) for a in (r._S, r._C))
+    tail = [t.numpy() for t in _serve_tail(
+        torch.from_numpy(k_s), torch.from_numpy(k_i), S, C,
+        torch.from_numpy(lams), torch.ones(S.shape[1], dtype=torch.bool),
+        weights=r.weights, temperature=float(r.temperature))]
+    err = max(float(np.abs(a - b).max())
+              for a, b in ((out[1], tail[1]), (out[2], tail[2]),
+                           (out[3], tail[4])))
+    util = tail[1] - lams[:, None] * tail[2]
+    rows = np.arange(len(lams))
+    err = max(err, float(np.abs(util[rows, out[0]]
+                                - util[rows, tail[0]]).max()))
+    assert err <= 1e-5, err
+    return err, int((out[0] == tail[0]).sum())
 
 
 def degraded_checks(torch, np, svc, emb, lams, level):
@@ -1709,7 +1897,6 @@ def degraded_checks(torch, np, svc, emb, lams, level):
     tolerances and tie rule: `kth_tie_error`), the choices against the
     plain tail on the CPU fed with the kernel's own neighbours, and
     ``nprobe`` / ``rerank`` restored after."""
-    from repro_torch.core.routers.knn import _serve_tail
     from repro_torch.kernels.knn_ivf import ops as ivf_ops
     r = svc.router
     saved = (r.nprobe, r.rerank)
@@ -1727,27 +1914,14 @@ def degraded_checks(torch, np, svc, emb, lams, level):
         p_s, p_i = plain_search(torch, r, emb)
     rtol = 1e-4 if r.index == "ivfpq" else 0.0
     err, swaps, empty = kth_tie_error(np, k_s, k_i, p_s, p_i, rtol, 1e-5)
-    S, C = (torch.from_numpy(a) for a in (r._S, r._C))
-    tail = [t.numpy() for t in _serve_tail(
-        torch.from_numpy(k_s), torch.from_numpy(k_i), S, C,
-        torch.from_numpy(lams), torch.ones(S.shape[1], dtype=torch.bool),
-        weights=r.weights, temperature=float(r.temperature))]
-    route_err = max(float(np.abs(a - b).max())
-                    for a, b in ((out[1], tail[1]), (out[2], tail[2]),
-                                 (out[3], tail[4])))
-    util = tail[1] - lams[:, None] * tail[2]
-    rows = np.arange(len(emb))
-    route_err = max(route_err, float(np.abs(
-        util[rows, out[0]] - util[rows, tail[0]]).max()))
-    assert route_err <= 1e-5, (r.index, level, route_err)
+    route_err, equal = tail_check(torch, np, r, out, k_s, k_i, lams)
     assert calls["ivfpq_adc" if r.index == "ivfpq" else "ivf_topk"] == 1, \
         calls
     return dict(level=level, name=lvl.name, nprobe=nprobe, rerank=rerank,
                 wrapper_calls=calls, cuda_launches=cuda_launches,
                 neighbour_max_abs_err=err, ids_kept_by_one_side=swaps,
                 empty_slots=empty, route_max_abs_err=route_err,
-                choices_equal=int((out[0] == tail[0]).sum()),
-                restored=True)
+                choices_equal=equal, restored=True)
 
 
 def phase_gateway(torch, ctx, smi):
@@ -1967,6 +2141,326 @@ def phase_gateway(torch, ctx, smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 7: streaming and recovery on the card (slice 9)
+# ---------------------------------------------------------------------------
+
+#: phase 7's new topic, judged with the reference kill child's recipe: the
+#: observed rows score HOT_SCORE on h2o-danube-1.8b
+NEW_TOPIC = "lattice cryptography"
+HOT_SCORE = 9.0
+PHASE7_BUDGET_S = 150.0
+
+
+def timed_attr(obj, name, bucket):
+    """Wrap ``obj.name`` to append each call's wall seconds to ``bucket``;
+    returns the function that removes the wrapper."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        bucket.append(time.perf_counter() - t0)
+        return out
+    setattr(obj, name, wrapper)
+    return lambda: obj.__dict__.pop(name, None)
+
+
+def dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_streaming(torch, ctx, smi):
+    """7: streaming and recovery on the card, at full width, on phase 4's
+    engines, encoder and support: a durable service booted from phase 4b's
+    `knn100-ivfpq` artifact (a `DurabilityManager` over a directory under
+    build/) and phase 4b's `knn100-ivf` router.  a. boot and the bootstrap
+    checkpoint; b. observe 64 texts (phase 4's topics and a new one judged
+    for h2o-danube-1.8b), then route 32 texts: kernel 5 in one call of one
+    CUDA launch over base plus delta, against the plain version, each
+    observed text finding its own row, choices against the plain tail, the
+    new topic choosing h2o-danube-1.8b; c. `knn100-ivf` on both semantics;
+    d. ``degrade=3``; e. compaction while a second thread routes, the
+    compacted base against a fresh build (after it, in this process) byte
+    for byte and its routes against a router over that build bitwise; f. close and recover, routes
+    bitwise equal; g. the recovered service behind the `Gateway`, a drain
+    writing the final checkpoint; h. the walls.  Each step's launch
+    counters are zeroed before it and read after it."""
+    import shutil
+    import threading
+    import numpy as np
+    from repro_torch.core.routers import make_router
+    from repro_torch.kernels.knn_ivf import ops as ivf_ops
+    from repro_torch.launch.serve import TOPICS
+    from repro_torch.serving.durability import DurabilityManager
+    from repro_torch.serving.gateway import MODEL_PREFIX, Gateway
+    from repro_torch.serving.router_service import RouterService
+
+    t_phase = time.perf_counter()
+    wrappers = kernel_wrappers()
+    engines, encoder = ctx["engines"], ctx["encoder"]
+    texts, lams = ctx["texts"], ctx["lams"]
+    rec = {"card": smi}
+
+    def counted(name, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        rec[name] = dict(wall_s=time.perf_counter() - t0, launches={
+            n: w.launches for n, w in wrappers.items() if w.launches})
+        return out
+
+    # a. boot: the bootstrap checkpoint
+    state = ROOT / "build" / "chip_smoke" / "state"
+    shutil.rmtree(state, ignore_errors=True)
+    dur = DurabilityManager(state, device="cuda")
+    svc = counted("a_boot", lambda: RouterService.from_artifact(
+        ctx["ivfpq_path"], engines, device="cuda", encoder=encoder,
+        durability=dur, engine_timeout_s=ENGINE_TIMEOUT_S))
+    r = svc.router
+    assert dur.checkpoints_written == 1
+    rec["a_boot"].update(bootstrap_checkpoint_bytes=dir_bytes(
+        dur.checkpoints.dir))
+    emit("streaming_a_boot", **rec["a_boot"])
+
+    # b. observe 64 texts, then route 32
+    new_texts = [f"{NEW_TOPIC} feedback {i}" for i in range(16)]
+    old_texts = [f"{TOPICS[i % len(TOPICS)]} feedback {i}" for i in range(48)]
+    fb_texts = old_texts + new_texts
+    fb_scores = np.tile(np.array([[0.2, HOT_SCORE]], np.float32), (64, 1))
+    assert svc.model_names == ["qwen3-4b", "h2o-danube-1.8b"], \
+        svc.model_names
+    log_s, append_s, ckpt_s = [], [], []
+    undo = [timed_attr(dur, "log", log_s),
+            timed_attr(r, "partial_fit", append_s),
+            timed_attr(dur, "checkpoint", ckpt_s)]
+    support = counted("b_observe_64", lambda: svc.observe(fb_texts,
+                                                          fb_scores))
+    n_base = r._ivf.fused_state().base.n_rows
+    assert support == n_base + 64 and r._ivf.delta_rows == 64
+    route_texts = texts + new_texts
+    emb = encoder.embed_texts(route_texts)
+    lam32 = np.concatenate([lams, np.zeros(16, np.float32)])
+    out = counted("b_route_32", lambda: svc.route_fused(emb, lam32))
+    snap = r._ivf.fused_state()
+    d = snap.delta
+    assert r.resolve_backend(32) == "fused"
+    assert rec["b_route_32"]["launches"].get("ivfpq_adc") == 1, rec
+    assert ivf_ops.ivfpq_adc.last_cuda_launches == 1
+    assert ivf_ops.fused_fits(snap.base.m, snap.base.nbits,
+                              snap.base.codes_cm.shape[1],
+                              snap.base.list_size, r.nprobe,
+                              min(r.rerank * r.k, snap.n_rows), d.lmax)
+    k_s, k_i = r._neighbors(emb, "fused")
+    p_s, p_i = plain_search(torch, r, emb, "fused")
+    err, swaps, _ = kth_tie_error(np, k_s, k_i, p_s, p_i, 1e-4, 1e-5)
+    own = n_base + 48 + np.arange(16)
+    for i, row in enumerate(own):
+        hit = k_i[16 + i] == row
+        assert hit.any() and float(k_s[16 + i][hit][0]) >= 0.999, \
+            ("an observed text does not find its own row", i)
+    route_err, _ = tail_check(torch, np, r, out, k_s, k_i, lam32)
+    chose = [svc.model_names[c] for c in out[0][16:]]
+    assert chose == ["h2o-danube-1.8b"] * 16, chose
+    rec["b_route_32"].update(
+        neighbour_max_abs_err=err, ids_kept_by_one_side=swaps,
+        route_max_abs_err=route_err, own_rows_found=16,
+        new_topic_choices=chose[0], delta_rows=int(d.rows.shape[0]),
+        lmax=int(d.lmax), cuda_launches_of_ivfpq_adc=1)
+    emit("streaming_b_observe_route", observe=rec["b_observe_64"],
+         route=rec["b_route_32"], wal_fsync_s=log_s, append_s=append_s)
+
+    # c. knn100-ivf on both semantics, with the same 64 rows observed
+    ivf_r = ctx["ivf_svc"].router
+    ivf_svc = RouterService(ivf_r, engines, encoder=encoder)
+    ivf_svc.observe(fb_texts, fb_scores)
+    c_rec = {}
+    for be, kern in (("fused", ("ivf_topk",)),
+                     ("host", ("ivf_topk", "knn_topk"))):
+        k_s, k_i = counted(f"c_ivf_{be}", lambda: ivf_r._neighbors(emb, be))
+        got = rec[f"c_ivf_{be}"]["launches"]
+        assert all(got.get(n) == 1 for n in kern), (be, got)
+        if be == "fused":
+            assert ivf_ops.ivf_scan.last_cuda_launches == 1
+        p_s, p_i = plain_search(torch, ivf_r, emb, be)
+        err, swaps, _ = kth_tie_error(np, k_s, k_i, p_s, p_i, 0.0, 1e-5)
+        c_rec[be] = dict(rec[f"c_ivf_{be}"], neighbour_max_abs_err=err,
+                         ids_kept_by_one_side=swaps,
+                         delta_ids_in_result=int((k_i >= ivf_r._ivf.fused_state()
+                                                  .base.n_rows).sum()))
+    emit("streaming_c_ivf_semantics", **c_rec)
+
+    # d. degrade=3 serves the base only
+    deg = counted("d_degrade_3", lambda: svc.route_fused(emb, lam32,
+                                                         degrade=3))
+    with r.degraded(svc.ladder[3]):
+        _, d_i = r._neighbors(emb, "fused")
+    assert (d_i < n_base).all(), "a degraded route retrieved delta rows"
+    assert rec["d_degrade_3"]["launches"].get("ivfpq_adc") == 1
+    emit("streaming_d_degrade_3", **rec["d_degrade_3"],
+         observed_rows_retrieved=0,
+         choices=[svc.model_names[c] for c in deg[0][16:20]])
+
+    # e. compaction while a second thread routes the 32 texts
+    stop, errors, walls = threading.Event(), [], []
+
+    def router_loop():
+        while not stop.is_set():
+            try:
+                t0 = time.perf_counter()
+                pending = r._ivf.recluster_pending
+                svc.route_fused(emb, lam32)
+                walls.append((pending and r._ivf.recluster_pending,
+                              time.perf_counter() - t0))
+            except Exception as exc:              # raised below
+                errors.append(exc)
+                return
+            # a route every 100 ms: the rebuild's numpy loops need the GIL
+            # (a route every 5 ms tripled the compaction's wall on the card)
+            time.sleep(0.1)
+
+    rng = np.random.default_rng(19)
+    batches = []
+    for bi in range(9):
+        tx = [f"{TOPICS[(bi + i) % len(TOPICS)]} stream {bi} {i}"
+              for i in range(512)]
+        batches.append((encoder.embed_texts(tx),
+                        rng.uniform(0.2, 1.0, (512, 2)).astype(np.float32)))
+    for w in wrappers.values():
+        w.launches = 0
+    t_e = time.perf_counter()
+    th = threading.Thread(target=router_loop, daemon=True)
+    th.start()
+    rows = None
+    try:
+        for bi, (X, S) in enumerate(batches[:8]):
+            svc.observe(X, S)
+            if r._ivf.recluster_pending and rows is None:
+                rows = r._ivf.all_rows()
+                t_rc = time.perf_counter()
+        assert rows is not None, "no compaction started"
+        r.join_recluster()
+        compaction_s = time.perf_counter() - t_rc
+    finally:
+        stop.set()
+        th.join(120)
+    assert not errors, errors
+    during = sum(1 for p, _ in walls if p)
+    assert during >= 1, "no route landed during the rebuild"
+    assert r._ivf.delta_rows == 0 and r._ivf.reclusters == 1
+    # a fresh build over the same rows, in this process after the
+    # compaction: a build with another BLAS thread count (a subprocess with
+    # one thread) gave other lists, and one beside the compaction slowed
+    # both 2.4x on the card's host
+    t_f = time.perf_counter()
+    fr = make_router("knn100-ivfpq", device="cuda")
+    kw = r._ivf.build_kw
+    fr._ivf = ivf_ops.build_ivfpq_index(
+        rows, n_clusters=kw.get("n_clusters"), m=kw.get("m"),
+        nbits=kw.get("nbits", 8), seed=kw.get("seed", 0),
+        lane_pad=kw.get("lane_pad", 8), device="cuda")
+    fresh_build_s = time.perf_counter() - t_f
+    base = r._ivf.fused_state().base
+    for h in ("centroids_h", "anchors_h", "codes_h", "ids_h", "inv_h",
+              "codebooks_h", "sup_flat_h"):
+        assert np.array_equal(getattr(fr._ivf, h), getattr(base, h)), \
+            f"the compacted {h} differs from a fresh build"
+    for a in ("model_names", "embed_dim", "fit_seed", "default_lam", "_X",
+              "_S", "_C"):
+        setattr(fr, a, getattr(r, a))
+    live, other = r.serve_fused(emb, lam32), fr.serve_fused(emb, lam32)
+    assert all(np.array_equal(a, b) for a, b in zip(live, other)), \
+        "the compacted router routes differently from a fresh build"
+    ln, fn_ = r._neighbors(emb, "fused"), fr._neighbors(emb, "fused")
+    assert all(np.array_equal(a, b) for a, b in zip(ln, fn_))
+    e_walls = sorted(w for _, w in walls)
+    rec["e_compaction"] = dict(
+        wall_s=time.perf_counter() - t_e, compaction_s=compaction_s,
+        fresh_build_s=fresh_build_s, routes=len(walls),
+        routes_during_rebuild=during,
+        route_wall_median_s=e_walls[len(e_walls) // 2],
+        launches={n: w.launches for n, w in wrappers.items() if w.launches},
+        delta_rows_peak=64 + 8 * 512, base_rows_after=base.n_rows,
+        fresh_build_bytes_equal=True, fresh_router_routes_bitwise_equal=True)
+    emit("streaming_e_compaction", **rec["e_compaction"])
+    # the ninth batch lands on the compacted base (and writes the
+    # checkpoint the compaction asked for)
+    counted("e_ninth_batch", lambda: svc.observe(*batches[8]))
+    occupancy = r._ivf.delta_occupancy()
+    delta_bytes = r._ivf.delta_device_bytes
+
+    # f. one more batch, close, recover on the card
+    X = encoder.embed_texts([f"{NEW_TOPIC} late {i}" for i in range(32)])
+    svc.observe(X, np.tile(np.array([[0.2, HOT_SCORE]], np.float32),
+                           (32, 1)))
+    before = (svc.route_fused(emb, lam32), r._neighbors(emb, "fused"),
+              r.support_size)
+    svc.close()
+    dur.close()
+    for u in undo:
+        u()
+    svc2 = counted("f_recover", lambda: RouterService.recover(
+        state, engines, device="cuda", encoder=encoder,
+        engine_timeout_s=ENGINE_TIMEOUT_S))
+    st = svc2.recovery_status()
+    assert st["status"] == "ready" and st["replayed_batches"] >= 1, st
+    assert svc2.router.support_size == before[2]
+    after = (svc2.route_fused(emb, lam32), svc2.router._neighbors(emb,
+                                                                  "fused"))
+    for a, b in zip(before[0] + before[1], after[0] + after[1]):
+        assert np.array_equal(a, b), "the recovered service routes otherwise"
+    rec["f_recover"].update(recovery=st, support_size=before[2],
+                            routes_bitwise_equal=True)
+    emit("streaming_f_recover", **rec["f_recover"])
+
+    # g. the recovered service behind the gateway; a drain's checkpoint
+    gw = Gateway(svc2, host="127.0.0.1", port=0, max_batch=16,
+                 close_timeout_s=0.01, max_pending=32).start()
+    try:
+        status, _, health = http_get(gw.port, "/health")
+        assert status == 200 and health["status"] == "ok", (status, health)
+        _, _, stats = http_get(gw.port, "/stats")
+        assert stats["service"]["durability"]["checkpoints"]["on_disk"] >= 1
+        model = MODEL_PREFIX + svc2.spec
+        _, _, served, toks, _ = counted("g_one_request", lambda: sse_chat(
+            gw.port, f"{model}@lam=0.5", new_texts[0], 8))
+        ref = svc2.serve_texts([new_texts[0]], lam=0.5, max_new_tokens=8)[0]
+        assert (served, toks) == (ref.model, ref.request.output_tokens)
+        n_ck = svc2.durability.checkpoints_written
+        gw.begin_drain()
+        gw.drain(timeout_s=30.0)
+        assert svc2.durability.checkpoints_written == n_ck + 1
+    finally:
+        gw.close()
+    assert_dark(gw.port)
+    rec["g_gateway"] = dict(health=200, served_by=served, tokens_equal=True,
+                            drain_checkpoint_written=True)
+    emit("streaming_g_gateway", **rec["g_gateway"])
+
+    # h. the walls: the recovered router (a tier of 544 rows) and the
+    # router over the fresh build (no tier)
+    assert svc2.router._ivf.delta_rows == 512 + 32
+    with_delta = route_walls(torch, lambda: svc2.router.serve_fused(
+        emb, lam32))
+    no_delta = route_walls(torch, lambda: fr.serve_fused(emb, lam32))
+    wall = time.perf_counter() - t_phase
+    emit("streaming_h_walls", card=smi,
+         observe_batch_s=rec["b_observe_64"]["wall_s"],
+         observe_wal_fsync_s=log_s, observe_append_s=append_s,
+         checkpoint_s=ckpt_s, route_with_delta_s=with_delta,
+         route_without_delta_s=no_delta, compaction_s=compaction_s,
+         recover_s=rec["f_recover"]["wall_s"],
+         bootstrap_checkpoint_s=rec["a_boot"]["wall_s"],
+         delta_device_bytes=delta_bytes,
+         delta_occupancy_max=int(occupancy.max()),
+         delta_rows_at_close=int(svc2.router._ivf.delta_rows),
+         phase_wall_s=wall, budget_s=PHASE7_BUDGET_S)
+    svc2.durability.close()
+    assert wall < PHASE7_BUDGET_S, f"phase 7 took {wall:.1f} s"
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -2014,6 +2508,7 @@ def main(argv=None):
         phase_forward_decode(torch)
         phase_mamba_serving(torch, ctx)
         phase_gateway(torch, ctx, smi)
+        phase_streaming(torch, ctx, smi)
         path_of = {"ivf_topk": second, "ivfpq_adc": second,
                    "ssd_intra": third, "ssd_intra_bwd": third}
         launches = {n: path_of.get(n, first)[n] for n in main_cases}

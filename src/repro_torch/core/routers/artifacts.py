@@ -11,7 +11,12 @@ Layout (one directory per artifact)::
 
 State keys are ``<attr>`` for plain arrays and scalars and ``<attr>/<field>``
 for a frozen IVF / IVF-PQ index (the two field sets are disjoint, which is
-how a reader tells them apart).  The writer writes format 6: both files are
+how a reader tells them apart).  A streaming `DynamicIVFIndex` stores its
+base under ``<attr>/base/<field>``, its delta tier verbatim
+(``<attr>/delta_x``, ``<attr>/delta_assign``), its counters
+(``delta_cap``, ``appends``, ``reclusters``) and the build parameters a
+compaction replays (``<attr>/build/<key>``, -1 for unset); a background
+compaction still running is joined before the state is read.  The writer writes format 6: both files are
 published atomically through `repro_torch.persist` and the manifest carries
 ``state_sha256``.  The reader takes formats 1-6: a checksum is verified
 where the manifest has one, and format <= 3 files, whose packed PQ lists
@@ -21,9 +26,6 @@ are row-major ``(C, L, MB)``, are transposed once to the code-major
 A manifest's ``dispatch_policy`` loads as a `DispatchPolicy` (``None``
 where the manifest has none, as format <= 4 files) and is written back
 through ``to_dict``, so a policy crosses between the packages unchanged.
-
-Not ported yet: a streaming `DynamicIVFIndex` state (keys under
-``<attr>/base/``) raises `StreamingIndexNotPortedError`.
 """
 from __future__ import annotations
 
@@ -35,9 +37,9 @@ from pathlib import Path
 import numpy as np
 
 from repro_torch import persist
-from repro_torch.kernels.knn_ivf.ops import (IVFIndex, IVFPQIndex,
-                                             StreamingIndexNotPortedError,
-                                             assemble_ivf, assemble_ivfpq)
+from repro_torch.kernels.knn_ivf.ops import (DynamicIVFIndex, IVFIndex,
+                                             IVFPQIndex, assemble_ivf,
+                                             assemble_ivfpq)
 from .dispatch import DispatchPolicy
 from .spec import FAMILIES, router_config, spec_of
 
@@ -67,6 +69,9 @@ _IVFPQ_FIELDS = ("centroids", "anchors", "codes_cm", "ids_cm", "inv_cm",
 _HOST = {"centroids": "centroids_h", "sup_cm": "sup_h", "ids_cm": "ids_h",
          "inv_cm": "inv_h", "anchors": "anchors_h", "codes_cm": "codes_h",
          "codebooks": "codebooks_h", "sup_flat": "sup_flat_h"}
+#: scalar metadata of the streaming tier; build params use -1 = "unset"
+_DYN_META = ("delta_cap", "appends", "reclusters")
+_DYN_BUILD_KEYS = ("n_clusters", "seed", "m", "nbits", "lane_pad")
 
 
 def _scalar(arr):
@@ -78,6 +83,29 @@ def _scalar(arr):
     return float(arr)
 
 
+def _collect_index(val, prefix, out):
+    fields = _IVFPQ_FIELDS if isinstance(val, IVFPQIndex) else _IVF_FIELDS
+    for f in fields:
+        out[f"{prefix}/{f}"] = np.asarray(getattr(val, _HOST.get(f, f)))
+
+
+def _collect_dynamic(val, attr, out):
+    """A `DynamicIVFIndex`: base fields under ``base/``, the tier verbatim,
+    counters and build parameters.  A background compaction is joined
+    first (outside the lock, which its swap needs), then the fields are
+    read under the lock: one consistent (base, delta) pair."""
+    val.join_recluster()
+    with val._lock:
+        _collect_index(val.base, f"{attr}/base", out)
+        out[f"{attr}/delta_x"] = np.asarray(val.delta_x, np.float32)
+        out[f"{attr}/delta_assign"] = np.asarray(val.delta_assign, np.int32)
+        for meta in _DYN_META:
+            out[f"{attr}/{meta}"] = np.asarray(getattr(val, meta))
+    for bk in _DYN_BUILD_KEYS:
+        v = val.build_kw.get(bk)
+        out[f"{attr}/build/{bk}"] = np.asarray(-1 if v is None else int(v))
+
+
 def collect_state(router):
     """Flat ``{key: np.ndarray}`` of every fitted attribute the router's
     ``state_attrs`` declares (missing/None attributes are skipped)."""
@@ -86,11 +114,10 @@ def collect_state(router):
         val = getattr(router, attr, None)
         if val is None:
             continue
-        if isinstance(val, (IVFIndex, IVFPQIndex)):
-            fields = _IVFPQ_FIELDS if isinstance(val, IVFPQIndex) \
-                else _IVF_FIELDS
-            for f in fields:
-                out[f"{attr}/{f}"] = np.asarray(getattr(val, _HOST.get(f, f)))
+        if isinstance(val, DynamicIVFIndex):
+            _collect_dynamic(val, attr, out)
+        elif isinstance(val, (IVFIndex, IVFPQIndex)):
+            _collect_index(val, attr, out)
         else:
             out[attr] = np.asarray(val)
     return out
@@ -109,6 +136,28 @@ def _restore_index(sub, device):
                           device=device)
 
 
+def _restore_dynamic(sub, device):
+    """Inverse of ``_collect_dynamic``: the base from its prefixed fields,
+    then the tier, counters and build parameters (the tier's device
+    buffers are built once, from the restored rows)."""
+    base = {k[len("base/"):]: v for k, v in sub.items()
+            if k.startswith("base/")}
+    build_kw = {}
+    for bk in _DYN_BUILD_KEYS:
+        arr = sub.get(f"build/{bk}")
+        if arr is not None and int(arr) != -1:
+            build_kw[bk] = int(arr)
+    dyn = DynamicIVFIndex(_restore_index(base, device),
+                          delta_cap=int(sub["delta_cap"]), build_kw=build_kw)
+    with dyn._lock:
+        dyn.delta_x = np.asarray(sub["delta_x"], np.float32)
+        dyn.delta_assign = np.asarray(sub["delta_assign"], np.int32)
+        dyn.appends = int(sub["appends"])
+        dyn.reclusters = int(sub["reclusters"])
+        dyn._refresh()
+    return dyn
+
+
 def restore_state(router, state):
     """Inverse of ``collect_state``: group keys by attribute, rebuild plain
     arrays, python scalars and frozen indexes on the router's device."""
@@ -123,9 +172,8 @@ def restore_state(router, state):
         if list(sub) == [""]:
             arr = sub[""]
             setattr(router, attr, _scalar(arr) if arr.ndim == 0 else arr)
-        elif "delta_x" in sub or any(k.startswith("base/") for k in sub):
-            raise StreamingIndexNotPortedError(
-                f"artifact state {attr!r} holds a streaming index")
+        elif "delta_x" in sub:
+            setattr(router, attr, _restore_dynamic(sub, router.device))
         elif set(sub) in (set(_IVF_FIELDS), set(_IVFPQ_FIELDS)):
             setattr(router, attr, _restore_index(sub, router.device))
         else:

@@ -29,10 +29,25 @@ fitted `DispatchPolicy` (``router.dispatch_policy``) is carried as the
 reference carries it: `resolve_backend` returns the reference's pick, its
 ``lane_pad`` shapes the index built at ``fit``, and its wave constants
 reach `MicroBatcher.from_policy`.  ``degraded(level)`` serves one wave at
-a degradation-ladder level (smaller ``nprobe``, no exact re-rank).
+a degradation-ladder level (smaller ``nprobe``, no exact re-rank, no
+delta tier).
 
-Not ported yet: streaming updates (``online=True``, ``partial_fit``) and
-the selection formulation (``fit_selection`` / ``select``).
+Streaming updates: ``partial_fit(X, scores, costs)`` appends observations
+to the support arrays; for the approximate indexes the rows also land in a
+`DynamicIVFIndex` delta tier that the very next route retrieves (probed
+per-centroid sub-lists on the fused backend, an exact scan of the whole
+tier on the staged ones: the backend picks the neighbours once there is a
+tier, as in the reference) and that is compacted by a full re-cluster once
+it exceeds ``delta_cap``, synchronously or on a background thread
+(``recluster="background"``).  ``online=True`` (spec
+``@online=1,delta_cap=..``) wraps the index at fit time, otherwise the
+first ``partial_fit`` wraps it.  The device copies of the support (and the
+exact index's rows) have power-of-two capacities and grow by copies of the
+appended rows; they grow BEFORE the index appends, so every id a search can
+return is covered by the support a route reads after it.
+
+Not ported yet: the selection formulation (``fit_selection`` /
+``select``; ``_train_best`` stays None).
 """
 from __future__ import annotations
 
@@ -43,7 +58,7 @@ import torch
 
 from repro_torch.kernels.knn_ivf.ops import (DEFAULT_DELTA_CAP,
                                              DEFAULT_NPROBE, DEFAULT_RERANK,
-                                             StreamingIndexNotPortedError,
+                                             DynamicIVFIndex,
                                              build_ivf_index, check_backend,
                                              build_ivfpq_index, ivf_topk,
                                              ivfpq_topk)
@@ -133,8 +148,6 @@ class KNNRouter(Router):
             raise ValueError(f"index must be one of {_INDEXES}, "
                              f"got {index!r}")
         check_backend(backend)
-        if online:
-            raise StreamingIndexNotPortedError("KNNRouter(online=True)")
         self.k = k
         self.weights = weights
         self.use_pallas = use_pallas
@@ -149,14 +162,15 @@ class KNNRouter(Router):
         self.delta_cap = int(delta_cap)
         self.backend = backend
         self.device = torch.device(device)
-        #: degradation state set by `degraded` for one wave; there is no
-        #: streaming delta tier to skip yet, so it changes no retrieval
+        #: degradation state set by `degraded` for one wave: serve the
+        #: streaming index's base only
         self._skip_delta = False
         #: fitted `DispatchPolicy` (or None = static defaults), set by an
         #: artifact load, not a constructor parameter, so spec strings and
         #: ``router_config`` stay policy-free
         self.dispatch_policy = None
         self._dev = {}           # device-resident support + mask cache
+        self._recluster_hook = None
 
     @property
     def exec_backend(self) -> str:
@@ -180,24 +194,54 @@ class KNNRouter(Router):
         pol = getattr(self, "dispatch_policy", None)
         return pol.tiles_for(self.index) if pol is not None else {}
 
+    def _delta_frac(self) -> float:
+        """Fraction of served rows in the streaming delta tier: the dispatch
+        policy's third axis."""
+        ivf = getattr(self, "_ivf", None)
+        if isinstance(ivf, DynamicIVFIndex):
+            snap = ivf.fused_state()
+            if snap.n_rows:
+                # repro: allow-unlocked: immutable snapshot taken under the lock
+                return (snap.n_rows - snap.base.n_rows) / snap.n_rows
+        return 0.0
+
     def resolve_backend(self, n_queries: int | None = None) -> str:
         """The reference's serving backend for a batch of ``n_queries``:
         explicit ``backend=`` wins, then ``use_pallas``, then the fitted
         `DispatchPolicy` cell for (index, batch, delta fraction), then the
-        static default.  The delta fraction is 0: the streaming tier is not
-        ported.  On a CUDA router every one of these names runs the same
-        kernels, so the policy picks nothing the port can differ on until
-        the autotuner is ported (ROADMAP.md queue 1, item 7)."""
+        static default.  On a frozen index every name runs the same
+        kernels; with a delta tier ``"fused"`` probes the delta sub-lists
+        and the others scan the whole tier exactly, so from there on the
+        policy picks the neighbours, not only the speed (as it does in the
+        reference)."""
         if self.backend is not None:
             return self.backend
         if self.use_pallas:
             return "pallas"
         pol = getattr(self, "dispatch_policy", None)
         if pol is not None and n_queries:
-            be = pol.exec_backend_for(self.index, int(n_queries), 0.0)
+            be = pol.exec_backend_for(self.index, int(n_queries),
+                                      self._delta_frac())
             if be is not None:
                 return be
         return "fused" if self.index in ("ivfpq", "exact") else "host"
+
+    def join_recluster(self) -> None:
+        """Block until an in-flight background compaction has swapped in
+        (no-op otherwise): the teardown hook of `RouterService.close`."""
+        ivf = getattr(self, "_ivf", None)
+        if isinstance(ivf, DynamicIVFIndex):
+            ivf.join_recluster()
+
+    def set_recluster_hook(self, fn) -> None:
+        """Register ``fn()`` to run after every compaction swap (the
+        durability layer's checkpoint trigger), on the live
+        `DynamicIVFIndex` now and on one `partial_fit` wraps later.  It may
+        run on the background rebuild thread: flag-setting only."""
+        self._recluster_hook = fn
+        ivf = getattr(self, "_ivf", None)
+        if isinstance(ivf, DynamicIVFIndex):
+            ivf.on_recluster = fn
 
     # ---- deadline-driven graceful degradation ----
     @contextlib.contextmanager
@@ -226,6 +270,22 @@ class KNNRouter(Router):
             self.nprobe, self.rerank, self._skip_delta = saved
 
     # ---- fit = store the support set (+ coarse quantizer / PQ codebooks) --
+    def _index_build_kw(self, seed: int) -> dict:
+        """Builder kwargs a `DynamicIVFIndex` re-cluster replays so the
+        compacted index equals a from-scratch build bitwise."""
+        kw = {"n_clusters": self.n_clusters, "seed": seed}
+        if self.index == "ivfpq":
+            kw.update(m=self.m, nbits=self.nbits)
+        lp = self._policy_tiles().get("lane_pad")
+        if lp:
+            kw["lane_pad"] = int(lp)
+        return kw
+
+    def _wrap_dynamic(self, seed: int) -> None:
+        self._ivf = DynamicIVFIndex(self._ivf, delta_cap=self.delta_cap,
+                                    build_kw=self._index_build_kw(seed))
+        self._ivf.on_recluster = self._recluster_hook
+
     def fit(self, ds: RoutingDataset, seed: int = 0) -> "KNNRouter":
         self._record_fit(ds, seed)
         self._dev = {}
@@ -244,45 +304,126 @@ class KNNRouter(Router):
             self._ivf = build_ivfpq_index(self._X, self.n_clusters, m=self.m,
                                           nbits=self.nbits, seed=seed,
                                           device=self.device, **lane)
+        if self.online and self.index != "exact":
+            self._wrap_dynamic(seed)
+        return self
+
+    # ---- streaming updates: appending a row IS the whole training step ----
+    def partial_fit(self, X: np.ndarray, scores: np.ndarray,
+                    costs: np.ndarray | None = None,
+                    recluster="auto") -> "KNNRouter":
+        """Absorb new (embedding, per-model score/cost) observations without
+        refitting: rows are appended to the support arrays and, for the
+        approximate indexes, to the index's delta tier, so the very next
+        route can retrieve them.  ``costs`` defaults to zero.
+
+        ``recluster``: ``"auto"`` compacts once the tier exceeds
+        ``delta_cap``; ``False`` never compacts; ``True`` compacts now;
+        ``"background"`` has the trigger of ``"auto"`` with the rebuild on
+        a daemon thread and an atomic swap.  A frozen approximate index is
+        wrapped into a `DynamicIVFIndex` on the first call."""
+        if getattr(self, "_S", None) is None:
+            raise RuntimeError("KNNRouter.partial_fit() called before fit(); "
+                               "the streaming step appends to a fitted "
+                               "support set")
+        X = np.atleast_2d(np.asarray(X, np.float32))
+        S = np.atleast_2d(np.asarray(scores, np.float32))
+        M = self._S.shape[1]
+        if S.shape != (len(X), M):
+            raise ValueError(f"scores must have shape ({len(X)}, {M}) to "
+                             f"match the fitted model axis, got {S.shape}")
+        if costs is None:
+            C = np.zeros_like(S)
+        else:
+            C = np.atleast_2d(np.asarray(costs, np.float32))
+            if C.shape != S.shape:
+                raise ValueError(f"costs must match scores shape {S.shape}, "
+                                 f"got {C.shape}")
+        Xn = normalize_rows(X)
+        X_all = np.concatenate([self._X, Xn])
+        S_all = np.concatenate([self._S, S])
+        C_all = np.concatenate([self._C, C])
+        # the device support grows first: an id the index returns after the
+        # append below is always covered by the support a route reads
+        self._grow("S", S_all)
+        self._grow("C", C_all)
+        if self.index == "exact":
+            self._grow("X", X_all)
+        self._X, self._S, self._C = X_all, S_all, C_all
+        if self.index != "exact":
+            if not isinstance(self._ivf, DynamicIVFIndex):
+                self._wrap_dynamic(self.fit_seed or 0)
+            self._ivf.append(Xn)
+            if recluster is True:
+                self._ivf.recluster()
+            elif recluster == "auto":
+                self._ivf.maybe_recluster()
+            elif recluster == "background":
+                self._ivf.maybe_recluster(sync=False)
         return self
 
     @property
     def support_size(self) -> int:
+        """Rows currently backing retrieval (grows under partial_fit)."""
         return 0 if getattr(self, "_S", None) is None else len(self._S)
 
-    def _support_dev(self):
-        """Device-resident (S, C), uploaded once per fit."""
-        sc = self._dev.get("SC")
-        if sc is None:
-            sc = tuple(torch.from_numpy(a).to(self.device)
-                       for a in (self._S, self._C))
-            self._dev["SC"] = sc
-        return sc
+    def _grow(self, name: str, host: np.ndarray) -> None:
+        """Bring the device copy ``name`` up to ``host``'s rows.  The buffer
+        has a power-of-two capacity, and only rows it does not hold yet are
+        copied in (into a doubled buffer when it is full); ``host`` only
+        ever grows by appends between fits, so the rows it holds stand.  A
+        route holding an older view keeps reading the rows it had."""
+        ent = self._dev.get(name)
+        n = len(host)
+        buf, lo = (None, 0) if ent is None else ent
+        if buf is None or buf.shape[0] < n:
+            new = torch.empty((1 << max(0, (n - 1).bit_length()),)
+                              + host.shape[1:], dtype=torch.float32,
+                              device=self.device)
+            if lo:
+                new[:lo] = buf[:lo]
+            buf = new
+        if lo < n:
+            buf[lo:n] = torch.from_numpy(host[lo:n]).to(self.device)
+        self._dev[name] = (buf, max(lo, n))
 
-    def _search(self, q):
+    def _dev_rows(self, name: str, host: np.ndarray) -> torch.Tensor:
+        ent = self._dev.get(name)
+        if ent is None or ent[1] < len(host):
+            self._grow(name, host)
+            ent = self._dev[name]
+        return ent[0][:len(host)]
+
+    def _support_dev(self):
+        """Device-resident (S, C) views over the support's rows."""
+        return self._dev_rows("S", self._S), self._dev_rows("C", self._C)
+
+    def _search(self, q, backend: str | None = None):
         """One retrieval over the device index: q (Q, D) unit rows on the
         device -> (sims, idx) device tensors, (Q, k) with k clamped as the
-        reference clamps it (to the support size, and for the approximate
-        indexes to the ``nprobe * L`` rows a query can reach)."""
-        k = min(self.k, len(self._X))
+        reference clamps it.  ``backend`` (default `exec_backend`) matters
+        only to a streaming index; a degraded wave (``_skip_delta``)
+        searches its base only."""
+        be = backend or self.exec_backend
+        ivf = getattr(self, "_ivf", None)
+        if self._skip_delta and isinstance(ivf, DynamicIVFIndex):
+            ivf = ivf.fused_state().base
         if self.index == "ivf":
-            return ivf_topk(q, self._ivf, k, nprobe=self.nprobe)
+            return ivf_topk(q, ivf, self.k, nprobe=self.nprobe, backend=be)
         if self.index == "ivfpq":
-            return ivfpq_topk(q, self._ivf, k, nprobe=self.nprobe,
-                              rerank=self.rerank)
-        X = self._dev.get("X")
-        if X is None:
-            X = self._dev["X"] = torch.from_numpy(self._X).to(self.device)
-        return knn_topk(q, X, k)
+            return ivfpq_topk(q, ivf, self.k, nprobe=self.nprobe,
+                              rerank=self.rerank, backend=be)
+        X = self._dev_rows("X", self._X)
+        return knn_topk(q, X, min(self.k, X.shape[0]))
 
     def _queries(self, X):
         # repro: allow-host: input embeddings arrive as host data
         X = np.atleast_2d(np.asarray(X, np.float32))
         return torch.from_numpy(normalize_rows(X)).to(self.device)
 
-    def _neighbors(self, X):
+    def _neighbors(self, X, backend: str | None = None):
         """One retrieval pass -> numpy (sims, idx)."""
-        sims, idx = self._search(self._queries(X))
+        sims, idx = self._search(self._queries(X), backend)
         return sims.cpu().numpy(), idx.cpu().numpy()
 
     # ---- utility ----
@@ -343,14 +484,16 @@ class KNNRouter(Router):
         """One routed batch on the device: retrieval kernel, neighbour
         utility, confidence and per-request-lambda availability-masked
         selection, copied to the host once, at the end.  Returns numpy
-        (choice, s_hat, c_hat, kth_sim, agreement)."""
+        (choice, s_hat, c_hat, kth_sim, agreement).  Retrieval runs on the
+        backend `resolve_backend` picks for the batch."""
         q = self._queries(X)
         # repro: allow-host: lambdas arrive as host request metadata
         lam_t = torch.from_numpy(np.asarray(lam, np.float32).reshape(-1)).to(
             self.device)
-        S, C = self._support_dev()
         av = self._avail_dev(avail)
-        sims, idx = self._search(q)
+        sims, idx = self._search(q, self.resolve_backend(len(q)))
+        # read after the search: the support covers every id it returned
+        S, C = self._support_dev()
         out = _serve_tail(sims, idx, S, C, lam_t, av, weights=self.weights,
                           temperature=float(self.temperature))
         # repro: allow-host: the single end-of-batch materialization
@@ -369,7 +512,12 @@ class KNNRouter(Router):
     def load_state_dict(self, state):
         super().load_state_dict(state)
         self._dev = {}
-        if (getattr(self, "_X", None) is None
-                and getattr(self, "_ivf", None) is not None):
-            self._X = self._ivf.rows()             # exact float copies
+        ivf = getattr(self, "_ivf", None)
+        if isinstance(ivf, DynamicIVFIndex):
+            ivf.on_recluster = self._recluster_hook
+        if getattr(self, "_X", None) is None and ivf is not None:
+            if isinstance(ivf, DynamicIVFIndex):
+                self._X = ivf.all_rows()           # base + pending delta
+            else:
+                self._X = ivf.rows()               # exact float copies
         return self

@@ -9,6 +9,9 @@
     knn100-ivfpq@m=16,nbits=8,rerank=4   ... with explicit PQ knobs
     knn100@lam=0.5      ... with a default routing lambda of 0.5
     knn10@weights=softmax,temperature=10.0
+    knn100-ivf@online=1,delta_cap=4096   streaming index: appended rows land
+                        in a delta tier the next route retrieves, with a
+                        re-cluster once it exceeds delta_cap
 
 ``lam`` is reserved: it sets the router's default cost/quality trade-off
 used when a request carries no lambda of its own.  Constructor overrides

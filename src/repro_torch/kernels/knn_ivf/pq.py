@@ -8,8 +8,10 @@ RESIDUAL against its cluster's raw-space anchor; a query builds one
 
     dot(q, x_i)  ~=  q @ anchor_c  +  sum_j  LUT[j, code_ij]
 
-The numpy functions are copied unchanged from the reference, so a port
-build and a JAX build on the same rows and seed give the same bytes.
+The numpy functions are the reference's (`_kmeans_subspace` groups a
+center's members by one stable sort instead of a mask a center, which
+selects the same rows in the same order), so a port build and a JAX build
+on the same rows and seed give the same bytes.
 ``unpack_codes_cm`` is the torch twin of the reference's code-major
 unpack, used by the plain ADC version and the decode oracle.
 """
@@ -49,10 +51,16 @@ def _kmeans_subspace(x: np.ndarray, n_centers: int, seed: int,
         d2 = (np.square(x).sum(1, keepdims=True)
               - 2.0 * (x @ cent.T) + np.square(cent).sum(1))
         assign = np.argmin(d2, axis=1)
+        # each center's members as one slice of the rows sorted stably by
+        # center: the rows `x[assign == c]` selects, in the same order, so
+        # the same means bit for bit, without a mask over all rows a center
+        order = np.argsort(assign, kind="stable")
+        xs = x[order]
+        ends = np.cumsum(np.bincount(assign, minlength=n_centers))
         for c in range(n_centers):
-            members = assign == c
-            if members.any():
-                cent[c] = x[members].mean(axis=0)
+            s0 = ends[c - 1] if c else 0
+            if ends[c] > s0:
+                cent[c] = xs[s0:ends[c]].mean(axis=0)
             else:
                 cent[c] = x[rng.integers(0, n)]
     return cent.astype(np.float32)

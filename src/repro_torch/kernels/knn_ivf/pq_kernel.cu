@@ -63,6 +63,21 @@
 //           select.cuh).
 // A table larger than LUT_MAX_BYTES does not fit beside the block's other
 // shared memory; the launch refuses it (the wrapper raises first).
+//
+// Delta sub-lists (a streaming index's tier, `_fused_dyn_ivfpq_topk_impl`,
+// src/repro/kernels/knn_ivf/ops.py:1231): the rows' residual codes against
+// their own centroid's anchor, with the base codebooks, stored code-major
+// (MB, >= nd) in append order and grouped by centroid as rows
+// perm[off[c] .. off[c + 1]).  The slot that probes list c also scores c's
+// sub-list with the same table and the same anchor dot; its keys sit at
+// P L + p dmax + l of the query's keys (dmax the largest sub-list), id
+// n_base + row, zero past the sub-list's end, so base rows win ties.  On
+// the fused path the block that scans a probed list scores its sub-list
+// too, reading the codes through L2 (a sub-list may be longer than a
+// block's shared memory), and stores the keys straight into the leader's
+// (DSMEM); the leader selects over P (L + dmax) keys.  On the three
+// launches the scan block of slot p does the same into the keys in device
+// memory.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -98,12 +113,58 @@ __global__ void adc_lut_kernel(const float* __restrict__ q,
   }
 }
 
+// The delta tier of one call (dmax == 0: none): codes (MB, stride) u8
+// code-major, inv (nd,), off (C + 1,), perm (nd,)
+struct Delta {
+  const unsigned char* codes;
+  const float* inv;
+  const int* off;
+  const int* perm;
+  int n_base;
+  int dmax;
+  long long stride;
+};
+
+// ADC score of code column `col` (bytes col, col + stride, ...) against the
+// table: the same loop, in the same order, as a base row's
+template <int NBITS>
+__device__ __forceinline__ float adc_sum(const float* lut,
+                                         const unsigned char* cl,
+                                         long long stride, int MB) {
+  float acc = 0.f;
+  if (NBITS == 8) {
+#pragma unroll 8
+    for (int b = 0; b < MB; ++b) acc += lut[(b << 8) + cl[b * stride]];
+  } else {
+#pragma unroll 4
+    for (int b = 0; b < MB; ++b) {
+      const int byte = cl[b * stride];
+      acc += lut[(2 * b) * 16 + (byte & 0xF)];
+      acc += lut[(2 * b + 1) * 16 + (byte >> 4)];
+    }
+  }
+  return acc;
+}
+
+// Key of row l (< dmax) of slot cid's delta sub-list: 0 past its end or for
+// a probe id out of range
+template <int NBITS>
+__device__ __forceinline__ u64 delta_key(const float* lut, Delta dl, int cid,
+                                         int C, int l, float aq, int MB) {
+  if (cid < 0 || cid >= C) return 0ull;
+  const int o = dl.off[cid];
+  if (l >= dl.off[cid + 1] - o) return 0ull;
+  const int row = __ldg(dl.perm + o + l);
+  const float acc = adc_sum<NBITS>(lut, dl.codes + row, dl.stride, MB);
+  return make_key((acc + aq) * dl.inv[row], dl.n_base + row, true);
+}
+
 __global__ void __launch_bounds__(SCAN_THREADS)
 adc_scan_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
                 const unsigned char* __restrict__ codes,
                 const int* __restrict__ ids, const float* __restrict__ inv,
                 const float* __restrict__ anchors,
-                const float* __restrict__ lut_g,
+                const float* __restrict__ lut_g, Delta dl,
                 unsigned long long* __restrict__ keys, int C, int MB, int L,
                 int D, int P, int m, int nbits) {
   extern __shared__ __align__(16) float lut[];          // (m, K)
@@ -128,27 +189,26 @@ adc_scan_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
 #pragma unroll
   for (int w = 0; w < SCAN_THREADS / 32; ++w) aq += red[w];
 
-  unsigned long long* out = keys + ((size_t)qi * P + p) * L;
+  const size_t n = (size_t)P * (L + dl.dmax);
+  unsigned long long* out = keys + (size_t)qi * n + (size_t)p * L;
   for (int l = tid; l < L; l += SCAN_THREADS) {
     if (!live) {
       out[l] = 0ull;
       continue;
     }
     const unsigned char* cl = codes + (size_t)cid * MB * L + l;
-    float acc = 0.f;
-    if (nbits == 8) {
-      for (int j = 0; j < MB; ++j) acc += lut[(j << 8) + cl[(size_t)j * L]];
-    } else {
-      for (int b = 0; b < MB; ++b) {
-        const int byte = cl[(size_t)b * L];
-        acc += lut[(2 * b) * 16 + (byte & 0xF)];
-        acc += lut[(2 * b + 1) * 16 + (byte >> 4)];
-      }
-    }
+    const float acc = nbits == 8 ? adc_sum<8>(lut, cl, L, MB)
+                                 : adc_sum<4>(lut, cl, L, MB);
     const size_t row = (size_t)cid * L + l;
     const int id = ids[row];
     out[l] = make_key((acc + aq) * inv[row], id, id >= 0);
   }
+  // this slot's delta sub-list, padded with zero keys to dmax
+  unsigned long long* dout =
+      keys + (size_t)qi * n + (size_t)P * L + (size_t)p * dl.dmax;
+  for (int l = tid; l < dl.dmax; l += SCAN_THREADS)
+    dout[l] = nbits == 8 ? delta_key<8>(lut, dl, cid, C, l, aq, MB)
+                         : delta_key<4>(lut, dl, cid, C, l, aq, MB);
 }
 
 
@@ -159,22 +219,23 @@ __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 // Dynamic shared memory of a fused block, in three regions: the table (which
 // the leader reuses for its selection's histogram and sort buffer once every
 // row is scored), this block's lists' codes (which the leader reuses for all
-// P x L keys of its query), and this block's keys with its anchor dots.
+// P x (L + dmax) keys of its query), and this block's keys with its anchor
+// dots.
 struct FusedSmem {
   int lut, codes, keys, total;
   __host__ __device__ FusedSmem(int m, int nbits, int MB, int L, int P,
-                                int kk) {
+                                int kk, int dmax) {
     const int PB = (P + CL - 1) / CL;
     lut = align16(imax(m * (1 << nbits) * 4, sel_smem(kk)));
-    codes = align16(imax(PB * align16(MB * L), P * L * 8));
+    codes = align16(imax(PB * align16(MB * L), P * (L + dmax) * 8));
     keys = align16(PB * L * 8 + PB * 4);
     total = lut + codes + keys;
   }
 };
 
 __host__ __device__ inline int fused_smem(int m, int nbits, int MB, int L,
-                                          int P, int kk) {
-  return FusedSmem(m, nbits, MB, L, P, kk).total;
+                                          int P, int kk, int dmax) {
+  return FusedSmem(m, nbits, MB, L, P, kk, dmax).total;
 }
 
 template <int NBITS>
@@ -183,9 +244,9 @@ adc_fused_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
                  const unsigned char* __restrict__ codes,
                  const int* __restrict__ ids, const float* __restrict__ inv,
                  const float* __restrict__ anchors,
-                 const float* __restrict__ cb, float* __restrict__ out_s,
-                 int* __restrict__ out_i, int C, int MB, int L, int D, int P,
-                 int m, int kk) {
+                 const float* __restrict__ cb, Delta dl,
+                 float* __restrict__ out_s, int* __restrict__ out_i, int C,
+                 int MB, int L, int D, int P, int m, int kk) {
   constexpr int K = 1 << NBITS;
   cg::cluster_group cluster = cg::this_cluster();
   const int r = (int)cluster.block_rank();
@@ -193,7 +254,7 @@ adc_fused_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
             warp = tid >> 5;
   const int PB = (P + CL - 1) / CL;
   const int CB = align16(MB * L);
-  const FusedSmem lay(m, NBITS, MB, L, P, kk);
+  const FusedSmem lay(m, NBITS, MB, L, P, kk, dl.dmax);
   extern __shared__ __align__(16) unsigned char smem[];
   float* lut = reinterpret_cast<float*>(smem);                   // (m, K)
   unsigned char* cs = smem + lay.lut;                            // PB x CB
@@ -314,18 +375,7 @@ adc_fused_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
     for (int l = tid; l < L; l += FT) {
       u64 key = 0ull;
       if (live) {
-        float acc = 0.f;
-        if (NBITS == 8) {
-#pragma unroll 8
-          for (int b = 0; b < MB; ++b) acc += lut[(b << 8) + cl[b * L + l]];
-        } else {
-#pragma unroll 4
-          for (int b = 0; b < MB; ++b) {
-            const int byte = cl[b * L + l];
-            acc += lut[(2 * b) * 16 + (byte & 0xF)];
-            acc += lut[(2 * b + 1) * 16 + (byte >> 4)];
-          }
-        }
+        const float acc = adc_sum<NBITS>(lut, cl + l, L, MB);
         const long long row = (long long)cid * L + l;
         const int id = ids[row];
         key = make_key((acc + aq[j]) * inv[row], id, id >= 0);
@@ -340,14 +390,20 @@ adc_fused_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
       const int p = r + CL * j;
       if (p >= P) break;
       for (int l = tid; l < L; l += FT) dst[p * L + l] = keys[j * L + l];
+      // the slot's delta sub-list, scored into the leader's keys directly
+      const int cid = q_probe[(long long)qi * P + p];
+      for (int l = tid; l < dl.dmax; l += FT)
+        dst[P * L + p * dl.dmax + l] =
+            delta_key<NBITS>(lut, dl, cid, C, l, aq[j], MB);
     }
   }
   cluster.sync();                         // the leader holds every key
   if (r != 0) return;
 
-  // the leader: the top kk of the query's P x L keys
-  block_topk([&](int e) { return all[e]; }, P * L, kk, ~0ull, hist, sorted,
-             out_s + (long long)qi * kk, out_i + (long long)qi * kk);
+  // the leader: the top kk of the query's P x (L + dmax) keys
+  block_topk([&](int e) { return all[e]; }, P * (L + dl.dmax), kk, ~0ull,
+             hist, sorted, out_s + (long long)qi * kk,
+             out_i + (long long)qi * kk);
 }
 
 // The fused launch's configuration; clusters receives how many clusters of
@@ -380,10 +436,10 @@ cudaError_t fused_config(int Q, int smem, cudaStream_t st,
 template <int NBITS>
 int fused_launch(const float* q, const int* q_probe, const unsigned char* codes,
                  const int* ids, const float* inv, const float* anchors,
-                 const float* cb, float* out_s, int* out_i, int Q, int P,
-                 int C, int MB, int L, int D, int m, int kk,
+                 const float* cb, Delta dl, float* out_s, int* out_i, int Q,
+                 int P, int C, int MB, int L, int D, int m, int kk,
                  cudaStream_t st) {
-  const int smem = fused_smem(m, NBITS, MB, L, P, kk);
+  const int smem = fused_smem(m, NBITS, MB, L, P, kk, dl.dmax);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int clusters = 0;
@@ -391,8 +447,8 @@ int fused_launch(const float* q, const int* q_probe, const unsigned char* codes,
   if (e != cudaSuccess) return (int)e;
   if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
   e = cudaLaunchKernelEx(&cfg, adc_fused_kernel<NBITS>, q, q_probe, codes,
-                         ids, inv, anchors, cb, out_s, out_i, C, MB, L, D, P,
-                         m, kk);
+                         ids, inv, anchors, cb, dl, out_s, out_i, C, MB, L, D,
+                         P, m, kk);
   if (e != cudaSuccess) return (int)e;
   e = cudaGetLastError();
   g_launches += e == cudaSuccess;
@@ -409,10 +465,11 @@ unsigned long long ivfpq_adc_device_launches() { return g_launches; }
 // Shared memory a fused block of this shape takes, and how many clusters of
 // 8 such blocks the device can hold at once (0: it cannot run fused).
 int ivfpq_adc_fused_plan(int m, int nbits, int MB, int L, int P, int kk,
-                         int* smem, int* clusters) {
-  if (m < 1 || L < 1 || P < 1 || kk < 1 || !(nbits == 4 || nbits == 8))
+                         int dmax, int* smem, int* clusters) {
+  if (m < 1 || L < 1 || P < 1 || kk < 1 || dmax < 0 ||
+      !(nbits == 4 || nbits == 8))
     return (int)cudaErrorInvalidValue;
-  *smem = fused_smem(m, nbits, MB, L, P, kk);
+  *smem = fused_smem(m, nbits, MB, L, P, kk, dmax);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   return nbits == 8
@@ -421,18 +478,29 @@ int ivfpq_adc_fused_plan(int m, int nbits, int MB, int L, int P, int kk,
 }
 
 // q (Q, D) f32; q_probe (Q, P) i32; codes (C, MB, L) u8; ids / inv (C, L);
-// anchors (C, D) f32; cb (m, 2^nbits, D / m) f32; out (Q, k).  fused != 0:
-// one launch (k <= 2,048, (MB L) % 4 == 0, the block's shared memory within
-// the limit; lut and keys unused).  Otherwise lut (Q, m, 2^nbits) f32 and
-// keys (Q, P * L) u64 scratch for the three launches.
+// anchors (C, D) f32; cb (m, 2^nbits, D / m) f32; the delta tier (dmax >
+// 0): dcodes (MB, dstride) u8 code-major and dinv (nd,) in append order,
+// doff (C + 1,) and dperm (nd,) i32 grouping them by centroid, ids n_base +
+// row; out (Q, k).  fused != 0: one launch (k <= 2,048, (MB L) % 4 == 0,
+// the block's shared memory within the limit; lut and keys unused).
+// Otherwise lut (Q, m, 2^nbits) f32 and keys (Q, P * (L + dmax)) u64
+// scratch for the three launches.
 int ivfpq_adc_launch(const void* q, const void* q_probe, const void* codes,
                      const void* ids, const void* inv, const void* anchors,
-                     const void* cb, void* lut, void* keys, void* out_s,
-                     void* out_i, int Q, int P, int C, int MB, int L, int D,
-                     int m, int nbits, int k, int fused, void* stream) {
-  if (k < 1 || Q < 1 || P < 1 || L < 1 || m < 1 || D % m ||
+                     const void* cb, const void* dcodes, const void* dinv,
+                     const void* doff, const void* dperm, void* lut,
+                     void* keys, void* out_s, void* out_i, int Q, int P, int C,
+                     int MB, int L, int D, int m, int nbits, int k, int fused,
+                     int n_base, int dmax, int dstride, void* stream) {
+  if (k < 1 || Q < 1 || P < 1 || L < 1 || m < 1 || D % m || dmax < 0 ||
+      (dmax > 0 && (!dcodes || !dinv || !doff || !dperm || dstride < 1)) ||
+      (long long)P * (L + dmax) > INT_MAX ||
       !(nbits == 8 ? MB == m : nbits == 4 && 2 * MB == m))
     return (int)cudaErrorInvalidValue;
+  const Delta dl{static_cast<const unsigned char*>(dcodes),
+                 static_cast<const float*>(dinv),
+                 static_cast<const int*>(doff),
+                 static_cast<const int*>(dperm), n_base, dmax, dstride};
   const int K = 1 << nbits;
   const int smem = m * K * (int)sizeof(float);
   if (smem > LUT_MAX_BYTES) return (int)cudaErrorInvalidValue;
@@ -446,8 +514,9 @@ int ivfpq_adc_launch(const void* q, const void* q_probe, const void* codes,
                     static_cast<const int*>(ids),
                     static_cast<const float*>(inv),
                     static_cast<const float*>(anchors),
-                    static_cast<const float*>(cb), static_cast<float*>(out_s),
-                    static_cast<int*>(out_i), Q, P, C, MB, L, D, m, k, st);
+                    static_cast<const float*>(cb), dl,
+                    static_cast<float*>(out_s), static_cast<int*>(out_i), Q,
+                    P, C, MB, L, D, m, k, st);
     };
     return nbits == 8 ? args(fused_launch<8>) : args(fused_launch<4>);
   }
@@ -467,12 +536,13 @@ int ivfpq_adc_launch(const void* q, const void* q_probe, const void* codes,
       qf, static_cast<const int*>(q_probe),
       static_cast<const unsigned char*>(codes), static_cast<const int*>(ids),
       static_cast<const float*>(inv), static_cast<const float*>(anchors), lp,
-      kp, C, MB, L, D, P, m, nbits);
+      dl, kp, C, MB, L, D, P, m, nbits);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   ++g_launches;
   g_launches += (k + SEL_KMAX - 1) / SEL_KMAX;
-  return (int)select_topk(kp, Q, P * L, k, static_cast<float*>(out_s),
+  return (int)select_topk(kp, Q, P * (L + dmax), k,
+                          static_cast<float*>(out_s),
                           static_cast<int*>(out_i), st);
 }
 

@@ -17,7 +17,7 @@ Pieces (wired together by `RouterService` / `MicroBatcher`):
   probe re-opens it with a doubled backoff).  ``stats()`` is the JSON-ready
   dict the gateway's ``/health`` endpoint serves.
 * `Overloaded` / `CircuitOpenError` / `EngineDeadlineExceeded` /
-  `InjectedFault` — typed errors.  Load shedding is always
+  `InjectedFault` / `FeedbackValidationError` — typed errors.  Load shedding is always
   reject-with-retry-after, never a silent drop.
 * `DegradationLadder` — maps (queue depth, deadline headroom) to a
   retrieval degradation level: shrink ``nprobe``, drop the exact re-rank
@@ -29,10 +29,6 @@ Pieces (wired together by `RouterService` / `MicroBatcher`):
 * `ExecutionReport` — `RouterService.execute`'s return type: the
   ``{model: decode_steps}`` dict plus the per-model error report, the
   reroute trail and the shed list.
-
-Not ported yet: ``FeedbackValidationError``, which belongs to
-``RouterService.observe`` and the streaming tier (ROADMAP.md queue 1,
-item 3).
 """
 from __future__ import annotations
 
@@ -81,6 +77,18 @@ class EngineDeadlineExceeded(RuntimeError):
                          f"execution deadline")
         self.model = model
         self.timeout_s = float(timeout_s)
+
+
+class FeedbackValidationError(ValueError):
+    """An ``observe()`` batch failed validation BEFORE the write-ahead log:
+    an empty batch, non-finite embeddings / scores / costs, or a shape
+    that does not match the fitted model axis.  Raised before the WAL
+    write, so garbage never becomes durable state that every recovery
+    would replay.  A ValueError, carrying the offending ``field``."""
+
+    def __init__(self, field: str, message: str):
+        super().__init__(message)
+        self.field = field
 
 
 class InjectedFault(RuntimeError):

@@ -58,10 +58,11 @@ Boot (reduced-config pool, synthetic support set)::
     curl -N localhost:8800/v1/chat/completions -d '{...}'
 
 The engines, the encoder and the router live on ``--device`` (the card by
-default; ``cpu`` runs the kernels' plain versions).  Not ported yet:
-durability (``--state-dir``, the final checkpoint of a drain, the
-"starting" readiness of a recovery replay), which raises
-`DurabilityNotPortedError` (ROADMAP.md queue 1, item 3).
+default; ``cpu`` runs the kernels' plain versions).  ``--state-dir DIR``
+makes the service durable: observe() batches are write-ahead-logged and
+checkpointed under DIR, a drain writes a final checkpoint, and a DIR that
+already holds a checkpoint boots through `RouterService.recover` (readiness
+answers 503 "starting" while a replay is pending) instead of refitting.
 """
 from __future__ import annotations
 
@@ -94,17 +95,6 @@ _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             504: "Gateway Timeout"}
 
 _MAX_BODY_BYTES = 1 << 20
-
-
-class DurabilityNotPortedError(NotImplementedError):
-    """A durable gateway (``--state-dir``: WAL, checkpoints, recovery
-    replay) was asked for; durability is not ported yet."""
-
-    def __init__(self, what: str):
-        super().__init__(f"{what}: durability (the write-ahead log, "
-                         f"checkpoints and recovery) is not ported to "
-                         f"repro_torch yet (ROADMAP.md, queue 1, item 3); "
-                         f"boot without a state directory")
 
 
 class GatewayError(Exception):
@@ -416,9 +406,9 @@ class Gateway:
 
     def drain(self, timeout_s: float = 60.0) -> None:
         """SIGTERM graceful shutdown: stop admissions, let the in-flight
-        waves resolve (bounded by ``timeout_s``), then take the port dark
-        (`close`).  The reference writes a final durability checkpoint
-        here; durability is not ported."""
+        waves resolve (bounded by ``timeout_s``), write a final durability
+        checkpoint (a durable service), then take the port dark
+        (`close`)."""
         self.begin_drain()
         log.info("draining: admissions stopped, waiting for in-flight waves")
         deadline = time.monotonic() + max(0.0, timeout_s)
@@ -431,6 +421,12 @@ class Gateway:
         # give just-resolved handlers one beat to flush their last bytes
         # before the event loop stops
         time.sleep(5 * self.poll_interval_s)
+        try:
+            path = self.service.checkpoint()
+            if path is not None:
+                log.info("final checkpoint written to %s", path)
+        except Exception:
+            log.exception("final checkpoint failed during drain")
         self.close()
         log.info("drain complete, port dark")
 
@@ -1022,10 +1018,14 @@ def demo_gateway(pool=("qwen3-4b", "mamba2-370m"), router: str = "knn10",
     """Build an (unstarted) gateway over a pool of reduced-config engines
     and a router fitted on the synthetic routed-serving support set, all on
     ``device`` (the card by default; ``"cpu"`` runs the kernels' plain
-    versions).  ``state_dir`` (a durable service) raises
-    `DurabilityNotPortedError`."""
-    if state_dir:
-        raise DurabilityNotPortedError(f"state_dir={state_dir!r}")
+    versions).
+
+    ``state_dir`` makes the service durable: observe() batches are
+    write-ahead-logged and checkpointed there, and a directory that already
+    holds a checkpoint boots through `RouterService.recover` (WAL-suffix
+    replay) instead of refitting — restart = resume."""
+    from pathlib import Path
+
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.routers import make_router
     from repro_torch.launch.serve import build_support
@@ -1037,10 +1037,22 @@ def demo_gateway(pool=("qwen3-4b", "mamba2-370m"), router: str = "knn10",
                                    seed=i, device=device)
                for i, name in enumerate(pool)}
     encoder = default_encoder(device)
-    ds = build_support(list(pool), n=n_support, seed=seed, encoder=encoder)
-    svc = RouterService(make_router(router, device=device), engines, ds=ds,
-                        seed=seed, lam=lam, engine_timeout_s=engine_timeout_s,
-                        encoder=encoder)
+    svc_kw = dict(lam=lam, engine_timeout_s=engine_timeout_s,
+                  encoder=encoder)
+    ckpts = Path(state_dir) / "checkpoints" if state_dir else None
+    if ckpts is not None and ckpts.exists() and any(ckpts.iterdir()):
+        svc = RouterService.recover(state_dir, engines, device=device,
+                                    **svc_kw)
+    else:
+        durability = None
+        if state_dir:
+            from .durability import DurabilityManager
+            durability = DurabilityManager(state_dir, device=device)
+        ds = build_support(list(pool), n=n_support, seed=seed,
+                           encoder=encoder)
+        svc = RouterService(make_router(router, device=device), engines,
+                            ds=ds, seed=seed, durability=durability,
+                            **svc_kw)
     return Gateway(svc, **gateway_kw)
 
 
@@ -1060,8 +1072,9 @@ def main(argv=None) -> None:
                     help="where the engines, encoder and router run "
                          "(default: the card; cpu runs the plain versions)")
     ap.add_argument("--state-dir", default=None,
-                    help="durability root (WAL + checkpoints); not ported "
-                         "yet, so any value raises")
+                    help="durability root (WAL + checkpoints); a dir that "
+                         "already holds a checkpoint boots via recovery "
+                         "replay instead of refitting")
     ap.add_argument("--drain-timeout", type=float, default=30.0,
                     help="SIGTERM graceful-drain budget in seconds")
     args = ap.parse_args(argv)

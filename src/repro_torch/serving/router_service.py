@@ -16,10 +16,15 @@ the gateway's ``/health`` and ``/stats``, and `MicroBatcher` /
 `WaveScheduler` (`serving/scheduler.py`) coalesce single requests into
 one ``route_fused`` a wave.
 
-Not ported yet: ``observe`` and durability (the WAL, checkpoints and crash
-recovery; ROADMAP.md queue 1, item 3).  Until then ``stats()`` reports
-``durability`` and ``recovery`` as None and `recovery_status()` returns
-None.
+``observe`` closes the loop: routed-then-judged feedback becomes support
+rows (and delta-tier index rows) in place, so the next route retrieves it;
+compaction runs behind the router's ``delta_cap``, by default on a
+background thread.  With a `DurabilityManager` (``durability=``) every
+batch is validated, written to the write-ahead log and fsync'd BEFORE it is
+applied, checkpoints follow a batch cadence and every compaction, and
+`recover` (`open_recovery` + `complete_recovery`) boots a service from the
+newest valid checkpoint plus the WAL suffix it does not cover.  ``close()``
+joins a running compaction and writes the checkpoint it asked for.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ from repro_torch.core.routers.knn import _select
 from . import encoder as enc
 from .engine import IncompleteDrainError, Request, ServingEngine
 from .faults import (CircuitOpenError, DegradationLadder,
-                     EngineDeadlineExceeded, EngineHealth, ExecutionReport)
+                     EngineDeadlineExceeded, EngineHealth, ExecutionReport,
+                     FeedbackValidationError)
 
 
 @dataclasses.dataclass
@@ -119,7 +125,8 @@ class RouterService:
                  max_route_attempts: int = 3,
                  retry_backoff_s: float = 0.0,
                  ladder: Optional[DegradationLadder] = None,
-                 encoder: Optional[enc.QueryEncoder] = None):
+                 encoder: Optional[enc.QueryEncoder] = None,
+                 durability=None):
         if isinstance(router, (str, RouterSpec)):
             router = make_router(router)
         if router.model_names is None and ds is None:
@@ -140,6 +147,7 @@ class RouterService:
         self.encoder = encoder if encoder is not None else \
             enc.default_encoder(str(getattr(router, "device", "cuda")))
         self._uid = 0
+        self.observed = 0          # feedback rows ingested via observe()
         self.log: List[RoutedResult] = []
         self.health: Dict[str, EngineHealth] = {
             m: EngineHealth(m, **(breaker or {})) for m in self.model_names}
@@ -148,6 +156,24 @@ class RouterService:
         self.max_route_attempts = int(max_route_attempts)
         self.retry_backoff_s = float(retry_backoff_s)
         self.ladder = ladder if ladder is not None else DegradationLadder()
+        #: `repro_torch.serving.durability.DurabilityManager` (or None):
+        #: every observe() batch is WAL-logged and fsync'd before it touches
+        #: the index; checkpoints run on the batch cadence and after every
+        #: compaction.  Duck-typed, so this module never imports it.
+        self.durability = durability
+        #: recovery progress ({"status": "replaying" / "ready", counters});
+        #: None for a service that did not boot through recovery
+        self._recovery: Optional[Dict] = None
+        self._pending_replay: List = []
+        if durability is not None:
+            hook = getattr(self.router, "set_recluster_hook", None)
+            if callable(hook):
+                hook(durability.request_checkpoint)
+            if not durability.checkpoints.list():
+                # bootstrap snapshot: recovery always has a base to replay
+                # onto, even if the process dies before the first cadence
+                # checkpoint
+                durability.checkpoint(self.router)
 
     @classmethod
     def from_artifact(cls, path, engines: Dict[str, ServingEngine], *,
@@ -199,10 +225,7 @@ class RouterService:
         """JSON-ready service health snapshot, the payload the gateway's
         ``/health`` and ``/stats`` serve: per-engine breaker state plus
         service counters, passed through `to_jsonable` so no numpy or torch
-        value from the routing internals can make ``json.dumps`` raise.
-        ``observed``, ``durability`` and ``recovery`` keep the reference's
-        keys; feedback and durability are not ported, so they read 0 /
-        None."""
+        value from the routing internals can make ``json.dumps`` raise."""
         support = getattr(self.router, "support_size", None)
         return to_jsonable({
             "spec": self.spec,
@@ -213,24 +236,27 @@ class RouterService:
             # perform the open -> half_open probe transition itself
             "available": {m: self.health[m].retry_after_s() == 0.0
                           for m in self.model_names},
-            "observed": 0,
+            "observed": self.observed,
             "routed": len(self.log),
             "support_size": support,
-            "durability": None,
+            "durability": (None if self.durability is None
+                           else self.durability.stats()),
             "recovery": self.recovery_status(),
         })
 
-    def recovery_status(self) -> Optional[Dict]:
-        """Replay progress of a recovering service; None, since a port
-        service never boots through recovery (durability is not ported)."""
-        return None
-
     # ---- lifecycle ----
     def close(self) -> None:
-        """Synchronization point before teardown.  The reference joins a
-        background index compaction here; the port has no streaming tier,
-        so there is nothing to join.  Idempotent; the service stays
-        usable."""
+        """Join an in-flight background compaction, so teardown or an
+        artifact save cannot race its swap, and write the checkpoint a
+        finished compaction asked for.  Idempotent and safe to call
+        concurrently (each caller joins the thread it observed); the
+        service stays usable."""
+        jr = getattr(self.router, "join_recluster", None)
+        if callable(jr):
+            jr()
+        if self.durability is not None and self.durability.checkpoint_pending:
+            with self.durability.mutex:
+                self.durability.checkpoint(self.router)
 
     def __enter__(self) -> "RouterService":
         return self
@@ -331,6 +357,167 @@ class RouterService:
                 c_row=np.asarray(c_hat[i]).copy(),
                 degradation=int(degrade)))
         return results
+
+    # ---- feedback ingestion ----
+    def observe(self, queries, scores, costs=None,
+                recluster="background") -> int:
+        """Routed-then-judged traffic becomes new support rows in place, so
+        the very next route retrieves it.  ``queries``: texts (embedded by
+        this service's encoder) or an (n, D) array; ``scores``: judged
+        per-model quality (n, M) in ``model_names`` order; ``costs``:
+        optional, same shape, default zero.  ``recluster`` as
+        `KNNRouter.partial_fit` (default: compaction on a background
+        thread once the tier exceeds ``delta_cap``).
+
+        With a `DurabilityManager` the batch is validated, written to the
+        WAL and fsync'd, and only then applied; every validation failure
+        (`FeedbackValidationError`) is raised before the WAL write.  Returns
+        the router's support size after ingestion."""
+        pf = getattr(self.router, "partial_fit", None)
+        if not callable(pf):
+            raise TypeError(f"router {self.spec!r} does not support online "
+                            f"updates (no partial_fit); use a kNN-family "
+                            f"router, e.g. 'knn100-ivf@online=1'")
+        emb, S, C = self._validate_feedback(queries, scores, costs)
+        dur = self.durability
+        if dur is None:
+            pf(emb, S, C, recluster=recluster)
+            self.observed += len(emb)
+            return int(getattr(self.router, "support_size", -1))
+        with dur.mutex:
+            seq = dur.log(emb, S, C)       # fsync ack BEFORE any mutation
+            pf(emb, S, C, recluster=recluster)
+            dur.note_applied(seq)
+            self.observed += len(emb)
+            if dur.should_checkpoint():
+                dur.checkpoint(self.router)
+        return int(getattr(self.router, "support_size", -1))
+
+    def _validate_feedback(self, queries, scores, costs):
+        """Typed validation of one observe() batch, all before the WAL
+        write.  Returns (emb, scores, costs) as f32 arrays."""
+        if len(queries) == 0:
+            raise FeedbackValidationError(
+                "queries", "observe() got an empty batch — nothing to log "
+                "or apply")
+        if isinstance(queries[0], str):
+            emb = self.encoder.embed_texts(list(queries))
+        else:
+            # repro: allow-host: feedback embeddings arrive as host data
+            emb = np.atleast_2d(np.asarray(queries, np.float32))
+        if emb.ndim != 2 or emb.shape[0] == 0:
+            raise FeedbackValidationError(
+                "queries", f"embeddings must be a non-empty (n, D) matrix, "
+                           f"got shape {emb.shape}")
+        dim = getattr(self.router, "embed_dim", None)
+        if dim is not None and emb.shape[1] != dim:
+            raise FeedbackValidationError(
+                "queries", f"embedding dim {emb.shape[1]} does not match "
+                           f"the router's fitted dim {dim}")
+        if not np.isfinite(emb).all():
+            raise FeedbackValidationError(
+                "queries", "embeddings contain NaN/inf — refusing to make "
+                           "non-finite support rows durable")
+        M = len(self.model_names)
+        S = np.atleast_2d(np.asarray(scores, np.float32))
+        if S.shape != (len(emb), M):
+            raise FeedbackValidationError(
+                "scores", f"scores must have shape ({len(emb)}, {M}) in "
+                          f"model order {self.model_names}, got {S.shape}")
+        if not np.isfinite(S).all():
+            raise FeedbackValidationError("scores", "scores contain NaN/inf")
+        if costs is None:
+            C = np.zeros_like(S)
+        else:
+            C = np.atleast_2d(np.asarray(costs, np.float32))
+            if C.shape != S.shape:
+                raise FeedbackValidationError(
+                    "costs", f"costs must match scores shape {S.shape}, "
+                             f"got {C.shape}")
+            if not np.isfinite(C).all():
+                raise FeedbackValidationError("costs",
+                                              "costs contain NaN/inf")
+        return emb, S, C
+
+    # ---- durability / crash recovery ----
+    def checkpoint(self):
+        """Snapshot the router through the attached `DurabilityManager`
+        (joining a running compaction first); None without one."""
+        if self.durability is None:
+            return None
+        with self.durability.mutex:
+            return self.durability.checkpoint(self.router)
+
+    @classmethod
+    def open_recovery(cls, root, engines: Dict[str, ServingEngine], *,
+                      device: str = "cuda",
+                      durability_kw: Optional[Dict] = None,
+                      **service_kw) -> "RouterService":
+        """Phase 1 of crash recovery: load the newest valid checkpoint
+        under ``root`` onto ``device`` (corrupt snapshots are skipped,
+        never loaded) and stage the WAL suffix it does not cover.  The
+        service reports ``recovery_status()["status"] == "replaying"`` (a
+        gateway answers readiness 503 "starting") until
+        `complete_recovery` has replayed it."""
+        from .durability import DurabilityManager
+        dur = DurabilityManager(root, device=device, **(durability_kw or {}))
+        router, covered_seq, skipped = dur.load_latest_checkpoint()
+        if router is None:
+            raise FileNotFoundError(
+                f"no loadable checkpoint under {root!r} "
+                f"(skipped corrupt: {skipped or 'none'}) — recovery needs "
+                f"the bootstrap snapshot a durable service writes at "
+                f"construction")
+        svc = cls(router, engines, durability=dur, **service_kw)
+        svc._pending_replay = dur.pending_records()
+        svc._recovery = {
+            "status": "replaying",
+            "checkpoint_covered_seq": covered_seq,
+            "corrupt_checkpoints_skipped": len(skipped),
+            "skipped_detail": list(skipped),
+            "wal_torn_tail_dropped": dur.wal.torn_tail_dropped,
+            "pending_batches": len(svc._pending_replay),
+            "replayed_batches": 0,
+            "replayed_rows": 0,
+        }
+        return svc
+
+    def complete_recovery(self, recluster="auto") -> int:
+        """Phase 2: replay the staged WAL suffix through ``partial_fit``
+        with the same batch boundaries and synchronous compaction, so the
+        router converges to the uncrashed process's support and retrieval
+        bits.  Replayed batches are not logged again.  Returns the batches
+        replayed; the status becomes "ready"."""
+        dur = self.durability
+        rec = self._recovery
+        if dur is None or rec is None:
+            return 0
+        pf = getattr(self.router, "partial_fit")
+        with dur.mutex:
+            for r in self._pending_replay:
+                pf(r.emb, r.scores, r.costs, recluster=recluster)
+                dur.note_applied(r.seq)
+                self.observed += len(r.emb)
+                rec["replayed_batches"] += 1
+                rec["replayed_rows"] += int(len(r.emb))
+            self._pending_replay = []
+            rec["status"] = "ready"
+        return rec["replayed_batches"]
+
+    @classmethod
+    def recover(cls, root, engines: Dict[str, ServingEngine],
+                **kw) -> "RouterService":
+        """Boot-time crash recovery in one call: the newest valid
+        checkpoint plus the WAL suffix replayed (`open_recovery`, then
+        `complete_recovery`)."""
+        svc = cls.open_recovery(root, engines, **kw)
+        svc.complete_recovery()
+        return svc
+
+    def recovery_status(self) -> Optional[Dict]:
+        """Replay progress ({"status": "replaying" / "ready", counters}),
+        or None for a service that did not boot through recovery."""
+        return None if self._recovery is None else dict(self._recovery)
 
     # ---- execution ----
     def _run_engine(self, m: str, reqs: List[Request]) -> int:

@@ -2,7 +2,7 @@
 package (`repro.core.routers.save_router`) loads in the port and predicts
 the same, and one saved by the port loads in the JAX `load_router`; the
 pinned legacy fixtures load in the port; a corrupt state file raises the
-typed error; the streaming tier, not ported yet, raises its typed error.
+typed error; a streaming (dynamic) index crosses in both directions.
 Predictions are compared at 1e-5 (f32 weighted means over k neighbours;
 kth similarities of -inf compare equal)."""
 import json
@@ -21,8 +21,7 @@ from repro.core.routers import save_router as jax_save  # noqa: E402
 from repro_torch.core.dataset import RoutingDataset  # noqa: E402
 from repro_torch.core.routers import (ArtifactCorruptError,  # noqa: E402
                                       load_router, make_router, save_router)
-from repro_torch.kernels.knn_ivf.ops import (  # noqa: E402
-    StreamingIndexNotPortedError)
+from repro_torch.kernels.knn_ivf.ops import DynamicIVFIndex  # noqa: E402
 from repro_torch.serving.pipeline import RoutingPipeline  # noqa: E402
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
@@ -142,18 +141,38 @@ def test_corrupt_state_raises_typed_error(data, tmp_path):
 
 
 def test_streaming_tier_raises_typed_error(data, tmp_path):
-    jds, _, _ = data
-    with pytest.raises(StreamingIndexNotPortedError, match="ROADMAP"):
-        make_router("knn10-ivf@online=1", device="cpu")
+    """Dynamic artifacts both ways: a JAX router with a pending delta tier
+    loads in the port (the tier bitwise, the counters, the build
+    parameters) and predicts alike on its default backend; the port's saves
+    back and loads in the JAX package alike.  A port save joins a
+    background compaction still running first."""
+    jds, pds, Q = data
+    rng = np.random.default_rng(4)
+    new = rng.normal(size=(40, 32)).astype(np.float32)
+    new_s = rng.uniform(0, 1, (40, 3)).astype(np.float32)
     jr = jax_make("knn10-ivfpq@online=1,delta_cap=50,m=8").fit(jds)
-    jr.partial_fit(np.ones((2, 32), np.float32), np.ones((2, 3), np.float32))
-    path = jax_save(jr, tmp_path / "dyn")
-    # the manifest's online=True and the state's base/ prefix both refuse
-    with pytest.raises(StreamingIndexNotPortedError):
-        load_router(path, device="cpu")
-    manifest = json.loads((path / "manifest.json").read_text())
-    manifest["config"]["online"] = False
-    (path / "manifest.json").write_text(json.dumps(manifest))
-    with pytest.raises(StreamingIndexNotPortedError, match="streaming"):
-        load_router(path, device="cpu")
-    assert issubclass(StreamingIndexNotPortedError, NotImplementedError)
+    jr.partial_fit(new, new_s)
+    pr = load_router(jax_save(jr, tmp_path / "dyn"), device="cpu")
+    assert isinstance(pr._ivf, DynamicIVFIndex) and pr.online
+    np.testing.assert_array_equal(pr._ivf.delta_x, jr._ivf.delta_x)
+    np.testing.assert_array_equal(pr._ivf.delta_assign, jr._ivf.delta_assign)
+    # unset build parameters (None) are stored as -1 and not restored
+    set_kw = {k: v for k, v in jr._ivf.build_kw.items() if v is not None}
+    assert (pr._ivf.appends, pr._ivf.reclusters, pr._ivf.delta_cap,
+            pr._ivf.build_kw) == (jr._ivf.appends, jr._ivf.reclusters, 50,
+                                  set_kw)
+    _assert_same_predictions(jr, pr, Q)
+    back = jax_load(save_router(pr, tmp_path / "back"))
+    np.testing.assert_array_equal(back._ivf.delta_x, jr._ivf.delta_x)
+    _assert_same_predictions(back, pr, Q)
+    # the port's own streaming router, mid-compaction at save time
+    tr = make_router("knn10-ivf@online=1,delta_cap=20", device="cpu").fit(
+        pds)
+    tr.partial_fit(new, new_s, recluster="background")
+    path = save_router(tr, tmp_path / "port")
+    assert not tr._ivf.recluster_pending and tr._ivf.reclusters == 1
+    jb = jax_load(path)
+    assert jb._ivf.reclusters == 1 and jb._ivf.delta_rows == 0
+    np.testing.assert_array_equal(np.asarray(jb._ivf.base.ids_cm),
+                                  tr._ivf.base.ids_h)
+    _assert_same_predictions(jb, tr, Q)

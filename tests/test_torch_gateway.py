@@ -27,8 +27,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.serving.faults import FaultInjector  # noqa: E402
 from repro_torch.serving.gateway import (MODEL_PREFIX,  # noqa: E402
-                                         DurabilityNotPortedError, Gateway,
-                                         GatewayError, demo_gateway, main,
+                                         Gateway, GatewayError, demo_gateway,
                                          parse_model_name)
 from repro_torch.serving.router_service import RouterService  # noqa: E402
 
@@ -471,11 +470,40 @@ def test_clean_shutdown_under_watchdog(gw, watchdog):
 
 
 def test_state_dir_raises_typed_error_and_device_defaults_to_card(tmp_path):
-    with pytest.raises(DurabilityNotPortedError, match="queue 1, item 3"):
-        demo_gateway(device="cpu", state_dir=str(tmp_path))
-    with pytest.raises(DurabilityNotPortedError):
-        main(["--state-dir", str(tmp_path), "--device", "cpu"])
-    assert issubclass(DurabilityNotPortedError, NotImplementedError)
+    """A durable gateway (``state_dir``) boots with its bootstrap
+    checkpoint, takes feedback through ``observe``, and its drain writes a
+    final checkpoint; booting again on the same directory recovers (WAL
+    replay, readiness "ok" once ready) to the same support and choices.
+    The entry point's device defaults to the card."""
+    state = str(tmp_path / "state")
+    g = demo_gateway(device="cpu", state_dir=state, max_batch=8,
+                     close_timeout_s=0.01).start()
+    svc = g.service
+    dur = svc.durability
+    assert dur is not None and dur.checkpoints_written == 1
+    assert svc.recovery_status() is None
+    texts = ["poetry writing question", "world history question"]
+    support = svc.observe(texts, np.array([[0.1, 5.0], [0.1, 5.0]],
+                                          np.float32))
+    assert dur.applied_seq == 0 and _get(g.port, "/health")[0] == 200
+    stats = json.loads(_get(g.port, "/stats")[2])
+    assert stats["service"]["durability"]["wal"]["applied_seq"] == 0
+    before = dur.checkpoints_written
+    g.begin_drain()
+    assert _get(g.port, "/health")[0] == 503
+    g.drain(timeout_s=10.0)
+    assert dur.checkpoints_written == before + 1
+    choice = svc.route_embeddings(svc.encoder.embed_texts(texts))
+    g2 = demo_gateway(device="cpu", state_dir=state).start()
+    try:
+        rec = g2.service.recovery_status()
+        assert rec["status"] == "ready" and rec["checkpoint_covered_seq"] == 0
+        assert g2.service.router.support_size == support
+        np.testing.assert_array_equal(g2.service.route_embeddings(
+            g2.service.encoder.embed_texts(texts)), choice)
+        assert _get(g2.port, "/health")[0] == 200
+    finally:
+        g2.close()
     assert inspect.signature(demo_gateway).parameters["device"].default \
         == "cuda"
 
@@ -486,8 +514,9 @@ def test_pump_builds_no_autograd_graph(gw):
     leaves no ``grad_fn`` on any engine cache."""
     svc = gw.service
     S, C = svc.router._support_dev()
-    svc.router._dev["SC"] = (S.clone().requires_grad_(True),
-                             C.clone().requires_grad_(True))
+    saved = {n: svc.router._dev[n] for n in ("S", "C")}
+    for n, t in (("S", S), ("C", C)):
+        svc.router._dev[n] = (t.clone().requires_grad_(True), t.shape[0])
     box = {}
 
     def route():
@@ -504,7 +533,7 @@ def test_pump_builds_no_autograd_graph(gw):
         assert box["out"][0].model in POOL
         assert _chat(gw.port, max_tokens=2)[0] == 200
     finally:
-        svc.router._dev["SC"] = (S, C)
+        svc.router._dev.update(saved)
     for eng in svc.engines.values():
         for cache in eng.caches:
             assert all(v.grad_fn is None for v in cache.values())

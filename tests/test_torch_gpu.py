@@ -822,3 +822,171 @@ def test_gpu_stats_json_takes_cuda_tensors():
            "v": torch.arange(3, device="cuda").float()}
     assert json.loads(json.dumps(to_jsonable(odd))) == {"n": 7,
                                                         "v": [0.0, 1.0, 2.0]}
+
+
+# ---------------------------------------------------------------------------
+# the streaming tier: kernels 4 and 5 over the probed delta sub-lists
+# ---------------------------------------------------------------------------
+
+def _delta_case(pq, tier, Q=16, nprobe=8, nbits=8):
+    """A small CUDA index wrapped in a `DynamicIVFIndex` whose tier is:
+    ``few`` (one or two rows near each centroid), ``per_list`` (64 rows near
+    each probed centroid), ``skewed`` (4,096 rows in one probed list) or
+    ``empty`` (rows only in lists no query probes).  Returns (queries,
+    probe, base, snapshot)."""
+    q, index = _ivf_index(pq, nbits=nbits)
+    q = q[:Q].contiguous()
+    rng = np.random.default_rng(len(tier) + 10 * pq)
+    probe = ivf_probe(q, index.centroids, nprobe)
+    cent = index.centroids_h
+    probed = sorted(set(probe.cpu().numpy().ravel().tolist()))
+    near = lambda c, n: (cent[c] * 3 + 0.05 * rng.normal(  # noqa: E731
+        size=(n, cent.shape[1]))).astype(np.float32)
+    if tier == "few":
+        rows = np.concatenate([near(c, 1 + c % 2) for c in range(len(cent))])
+    elif tier == "per_list":
+        rows = np.concatenate([near(c, 64) for c in probed])
+    elif tier == "skewed":
+        rows = near(probed[0], 4096)
+    else:
+        free = [c for c in range(len(cent)) if c not in probed]
+        rows = np.concatenate([near(c, 8) for c in free])
+        # split lists can have near-equal centroids: keep the rows that are
+        # assigned to an unprobed list
+        rn = rows / np.linalg.norm(rows, axis=1, keepdims=True)
+        rows = rows[~np.isin(np.argmax(rn @ cent.T, axis=1), probed)]
+    dyn = ivf_ops.DynamicIVFIndex(index)
+    dyn.append(rows)
+    snap = dyn.fused_state()
+    lens = snap.delta.off[1:] - snap.delta.off[:-1]
+    hit = lens[probe.long()].sum().item()
+    assert (hit == 0) == (tier == "empty"), (tier, hit)
+    return q, probe, index, snap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["few", "per_list", "skewed", "empty"])
+@pytest.mark.parametrize("k", [100, 2100])
+def test_gpu_ivf_scan_delta_sublists_match_plain(tier, k):
+    """Kernel 4 with the probed delta sub-lists in the same launch: against
+    its plain version, two calls bitwise equal, one CUDA launch at k <=
+    2,048 (above it the scan and the selection rounds)."""
+    _need_cuda()
+    q, probe, base, snap = _delta_case(False, tier)
+    args = (q, probe, base.sup_cm, base.ids_cm, base.inv_cm, k)
+    out = ivf_ops.ivf_scan(*args, delta=snap.delta)
+    launches = ivf_ops.ivf_scan.last_cuda_launches
+    again = ivf_ops.ivf_scan(*args, delta=snap.delta)
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+    assert launches == (1 if k <= 2048 else 1 + -(-k // 1024))
+    _check_tied(*out, *ivf_scan_plain(*args, snap.delta), 1e-5, 1e-5)
+    if tier == "per_list":
+        assert bool((out[1] >= snap.delta.n_base).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["few", "per_list", "skewed", "empty"])
+@pytest.mark.parametrize("nbits", [8, 4])
+def test_gpu_ivfpq_adc_delta_sublists_match_plain(tier, nbits):
+    """Kernel 5 with the probed delta sub-lists on the path the shape picks
+    and on the three launches: against the plain version, bitwise equal
+    on a second call, one CUDA launch on the fused path."""
+    _need_cuda()
+    q, probe, base, snap = _delta_case(True, tier, nbits=nbits)
+    d = snap.delta
+    args = (q, probe, base.codes_cm, base.ids_cm, base.inv_cm, base.anchors,
+            base.codebooks, 400)
+    ref = ivfpq_adc_plain(*args, base.m, nbits, d)
+    fits = ivf_ops.fused_fits(base.m, nbits, base.codes_cm.shape[1],
+                              base.list_size, probe.shape[1], 400, d.lmax)
+    assert fits == (tier != "skewed")
+    for fused in ([True, False] if fits else [False]):
+        out = ivf_ops._adc_cuda(*args, m=base.m, nbits=nbits, fused=fused,
+                                delta=d)
+        assert ivf_ops.ivfpq_adc.last_cuda_launches == (1 if fused else 3)
+        again = ivf_ops._adc_cuda(*args, m=base.m, nbits=nbits, fused=fused,
+                                  delta=d)
+        assert torch.equal(out[0], again[0]) and torch.equal(out[1],
+                                                             again[1])
+        _check_tied(*out, *ref, 1e-4, 1e-5)
+    out = ivf_ops.ivfpq_adc(*args, m=base.m, nbits=nbits, delta=d)
+    _check_tied(*out, *ref, 1e-4, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["knn20-ivf", "knn20-ivfpq@m=8"])
+def test_gpu_background_compaction_swaps_under_routes(spec, monkeypatch):
+    """Routes on one thread while another observes in batches past
+    ``delta_cap`` with background compaction: no route fails, and one
+    route lands during the rebuild (the rebuild waits for it).  After the
+    join (and a compaction of the rows appended meanwhile) the base equals
+    a fresh build over ``all_rows()`` byte for byte, and routes bitwise as
+    a router serving that build."""
+    _need_cuda()
+    import threading
+    from repro_torch.core.dataset import RoutingDataset
+    from repro_torch.core.routers import make_router
+    rng = np.random.default_rng(11)
+    centers = rng.normal(size=(8, 64)) * 3
+    names = ["a", "b", "c"]
+
+    def data(n):
+        topic = rng.integers(0, 8, n)
+        X = (centers[topic] + rng.normal(size=(n, 64))).astype(np.float32)
+        S = rng.uniform(0.2, 1, (n, 3)).astype(np.float32)
+        return X, S, np.full((n, 3), 0.005, np.float32)
+
+    X, S, C = data(3000)
+    r = make_router(spec, device="cuda", delta_cap=200).fit(
+        RoutingDataset("d", X, S, C, names))
+    Q = data(16)[0]
+    lam = np.linspace(0, 10, 16).astype(np.float32)
+    in_build, routed = threading.Event(), threading.Event()
+    build = ivf_ops.DynamicIVFIndex._build_base
+
+    def held_build(self, rows):
+        in_build.set()
+        routed.wait(60)
+        return build(self, rows)
+
+    monkeypatch.setattr(ivf_ops.DynamicIVFIndex, "_build_base", held_build)
+    stop, errors, during = threading.Event(), [], [0]
+
+    def routes():
+        while not stop.is_set():
+            try:
+                started = in_build.is_set() and r._ivf.recluster_pending
+                r.serve_fused(Q, lam)
+                if started and r._ivf.recluster_pending:
+                    during[0] += 1
+                    routed.set()
+            except Exception as exc:          # noqa: BLE001
+                errors.append(exc)
+                routed.set()
+                return
+
+    t = threading.Thread(target=routes)
+    t.start()
+    for _ in range(6):
+        r.partial_fit(*data(64), recluster="background")
+    r.join_recluster()
+    stop.set()
+    t.join()
+    monkeypatch.undo()
+    assert not errors, errors
+    assert r._ivf.reclusters >= 1 and during[0] >= 1
+    r._ivf.recluster()
+    assert r._ivf.delta_rows == 0
+    dyn = r._ivf
+    build = (ivf_ops.build_ivfpq_index if dyn.is_pq
+             else ivf_ops.build_ivf_index)
+    base = build(dyn.all_rows(), device="cuda", **dyn.build_kw)
+    for f in ("centroids_h", "ids_h", "inv_h",
+              "codes_h" if dyn.is_pq else "sup_h"):
+        assert np.array_equal(getattr(dyn.base, f), getattr(base, f)), f
+    fresh = make_router(spec, device="cuda").fit(
+        RoutingDataset("d", X, S, C, names))
+    fresh._X, fresh._S, fresh._C, fresh._ivf = r._X, r._S, r._C, base
+    fresh._dev = {}
+    for a, b in zip(r.serve_fused(Q, lam), fresh.serve_fused(Q, lam)):
+        np.testing.assert_array_equal(a, b)

@@ -45,6 +45,9 @@ def test_port_imports_without_jax():
             "import repro_torch.serving.scheduler\n"
             "import repro_torch.serving.gateway\n"
             "import repro_torch.core.routers.dispatch\n"
+            "import repro_torch.serving.durability\n"
+            "import repro_torch.launch.kill_child\n"
+            "from repro_torch.kernels.knn_ivf.ops import DynamicIVFIndex\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\n"
