@@ -9,7 +9,10 @@ Layout (one directory per artifact)::
                            dispatch policy, state checksum
     <path>/state.npz       every fitted tensor, flat keys
 
-State keys are ``<attr>`` for plain arrays and scalars and ``<attr>/<field>``
+State keys are ``<attr>`` for plain arrays and scalars,
+``<attr>/<sub>/...`` for a learned router's nested parameter tree (list
+indices as decimal components: ``_params/mlp_s/0/w``, read back through
+`repro_torch.models.convert.router_params_from_jax`), and ``<attr>/<field>``
 for a frozen IVF / IVF-PQ index (the two field sets are disjoint, which is
 how a reader tells them apart).  A streaming `DynamicIVFIndex` stores its
 base under ``<attr>/base/<field>``, its delta tier verbatim
@@ -37,10 +40,12 @@ from pathlib import Path
 import numpy as np
 
 from repro_torch import persist
+from repro_torch.models.convert import router_params_from_jax
 from repro_torch.kernels.knn_ivf.ops import (DynamicIVFIndex, IVFIndex,
                                              IVFPQIndex, assemble_ivf,
                                              assemble_ivfpq)
 from .dispatch import DispatchPolicy
+from .nn_utils import flatten_tree
 from .spec import FAMILIES, router_config, spec_of
 
 FORMAT_VERSION = 6
@@ -118,6 +123,9 @@ def collect_state(router):
             _collect_dynamic(val, attr, out)
         elif isinstance(val, (IVFIndex, IVFPQIndex)):
             _collect_index(val, attr, out)
+        elif isinstance(val, (dict, list, tuple)):
+            for key, leaf in flatten_tree(val, attr).items():
+                out[key] = leaf.detach().cpu().numpy()
         else:
             out[attr] = np.asarray(val)
     return out
@@ -160,7 +168,8 @@ def _restore_dynamic(sub, device):
 
 def restore_state(router, state):
     """Inverse of ``collect_state``: group keys by attribute, rebuild plain
-    arrays, python scalars and frozen indexes on the router's device."""
+    arrays, python scalars, parameter trees and indexes on the router's
+    device."""
     groups = {}
     for key, val in state.items():
         head, _, rest = key.partition("/")
@@ -177,8 +186,7 @@ def restore_state(router, state):
         elif set(sub) in (set(_IVF_FIELDS), set(_IVFPQ_FIELDS)):
             setattr(router, attr, _restore_index(sub, router.device))
         else:
-            raise ValueError(f"unrecognized state field set for {attr!r}: "
-                             f"{sorted(sub)}")
+            setattr(router, attr, router_params_from_jax(sub, router.device))
     return router
 
 

@@ -46,8 +46,11 @@ exact index's rows) have power-of-two capacities and grow by copies of the
 appended rows; they grow BEFORE the index appends, so every id a search can
 return is covered by the support a route reads after it.
 
-Not ported yet: the selection formulation (``fit_selection`` /
-``select``; ``_train_best`` stays None).
+Selection formulation: ``fit_selection(ds, lam)`` stores the gold labels
+of the support rows at ``lam`` (``_train_best``), and ``select(X)`` is the
+neighbours' majority vote over them (ties to the lower model id), on the
+neighbours of whichever index the router uses.  ``partial_fit`` extends
+the labels at the same lambda, so the vote covers every support row.
 """
 from __future__ import annotations
 
@@ -64,7 +67,7 @@ from repro_torch.kernels.knn_ivf.ops import (DEFAULT_DELTA_CAP,
                                              ivfpq_topk)
 from repro_torch.kernels.knn_topk.ops import knn_topk
 from ..dataset import RoutingDataset
-from .base import Router, normalize_rows
+from .base import Router, gold_labels, normalize_rows
 from .spec import register
 
 _INDEXES = ("exact", "ivf", "ivfpq")
@@ -130,8 +133,10 @@ def _serve_tail(sims, idx, S, C, lam, avail, *, weights: str,
     return choice, s_hat, c_hat, kth, agree
 
 
-@register("knn", k_param="k", supports_ivf=True)
+@register("knn", k_param="k", default_ks=(10, 100), supports_ivf=True,
+          paper_rank=0)
 class KNNRouter(Router):
+    is_parametric = False
     state_attrs = ("_X", "_S", "_C", "_ivf", "_train_best", "_sel_lam")
 
     def __init__(self, k: int = 100, weights: str = "uniform",
@@ -171,6 +176,8 @@ class KNNRouter(Router):
         self.dispatch_policy = None
         self._dev = {}           # device-resident support + mask cache
         self._recluster_hook = None
+        suffix = {"exact": "", "ivf": " IVF", "ivfpq": " IVF-PQ"}[index]
+        self.name = f"kNN (k={k}){suffix}"
 
     @property
     def exec_backend(self) -> str:
@@ -350,6 +357,12 @@ class KNNRouter(Router):
         if self.index == "exact":
             self._grow("X", X_all)
         self._X, self._S, self._C = X_all, S_all, C_all
+        if getattr(self, "_train_best", None) is not None:
+            # keep the selection vote consistent: extend the gold labels at
+            # the lambda fit_selection derived them with
+            lam = self._sel_lam if self._sel_lam is not None else 0.0
+            self._train_best = np.concatenate(
+                [self._train_best, gold_labels(S, C, lam)])
         if self.index != "exact":
             if not isinstance(self._ivf, DynamicIVFIndex):
                 self._wrap_dynamic(self.fit_seed or 0)
@@ -437,6 +450,27 @@ class KNNRouter(Router):
 
     def predict_utility(self, X: np.ndarray):
         return self._utility_from(*self._neighbors(X))
+
+    # ---- selection: neighbour majority vote ----
+    def fit_selection(self, ds: RoutingDataset, lam: float, seed: int = 0):
+        self.fit(ds, seed=seed)
+        _, S, C = ds.part("train")
+        self._sel_lam = float(lam)      # partial_fit extends the vote labels
+        self._train_best = gold_labels(S, C, lam)
+        return self
+
+    def select(self, X: np.ndarray) -> np.ndarray:
+        if getattr(self, "_train_best", None) is None:
+            raise RuntimeError("KNNRouter.select() called before "
+                               "fit_selection(); the neighbour vote needs the "
+                               "training labels derived at a fixed lambda")
+        _, idx = self._neighbors(X)
+        valid = idx >= 0
+        votes = self._train_best[np.maximum(idx, 0)]   # (Q, k)
+        M = self._S.shape[1]
+        counts = np.stack([((votes == m) & valid).sum(1) for m in range(M)],
+                          axis=1)
+        return np.argmax(counts, axis=1)
 
     # ---- practitioner diagnostics (§8): per-query confidence ----
     def _confidence_from(self, sims, idx):

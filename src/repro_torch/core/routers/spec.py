@@ -14,7 +14,10 @@
                         re-cluster once it exceeds delta_cap
 
 ``lam`` is reserved: it sets the router's default cost/quality trade-off
-used when a request carries no lambda of its own.  Constructor overrides
+used when a request carries no lambda of its own; families whose
+constructor also takes ``lam`` (LinUCB) receive it in both places.  The
+registry (``build_registry``) and the paper's table order
+(``paper_order``) derive from the registrations.  Constructor overrides
 passed to ``make_router`` (``make_router("knn10", device="cpu")``) apply on
 top of the spec's kwargs.  ``parse_spec`` / ``format_spec`` round-trip;
 legacy underscore names (``knn10_ivf``) are accepted as aliases of the
@@ -25,7 +28,8 @@ from __future__ import annotations
 import dataclasses
 import inspect
 import re
-from typing import Dict, Mapping, Optional
+from functools import partial
+from typing import Dict, Mapping, Optional, Tuple
 
 RESERVED_KEYS = ("lam",)
 
@@ -48,24 +52,36 @@ class RouterSpec:
 class RouterFamily:
     family: str
     cls: type
-    k_param: Optional[str]
+    k_param: Optional[str]          # constructor kwarg that receives <k>
+    default_ks: Tuple[int, ...]     # registry-enumerated k variants
     supports_ivf: bool
+    paper_rank: Optional[int]       # position in the paper's tables; None = extra
     ctor_params: frozenset
+
+    def variant_names(self):
+        for k in self.default_ks or (None,):
+            yield format_spec(RouterSpec(self.family, k=k))
+            if self.supports_ivf:
+                yield format_spec(RouterSpec(self.family, k=k, ivf=True))
+                yield format_spec(RouterSpec(self.family, k=k, ivf=True,
+                                             pq=True))
 
 
 FAMILIES: Dict[str, RouterFamily] = {}
 
 
 def register(family: str, *, k_param: Optional[str] = None,
-             supports_ivf: bool = False):
+             default_ks: Tuple[int, ...] = (), supports_ivf: bool = False,
+             paper_rank: Optional[int] = None):
     """Class decorator: declare ``cls`` as the implementation of ``family``."""
     def deco(cls):
         params = inspect.signature(cls.__init__).parameters
         ctor = frozenset(p for p in params if p != "self")
         if family in FAMILIES:
             raise ValueError(f"router family {family!r} registered twice")
-        FAMILIES[family] = RouterFamily(family, cls, k_param, supports_ivf,
-                                        ctor)
+        FAMILIES[family] = RouterFamily(family, cls, k_param,
+                                        tuple(default_ks), supports_ivf,
+                                        paper_rank, ctor)
         cls.spec_family = family
         return cls
     return deco
@@ -156,7 +172,9 @@ def make_router(spec, **overrides):
         kw["index"] = "ivfpq" if spec.pq else "ivf"
     kw.update(spec.kwargs)
     kw.update(overrides)
-    lam = kw.pop("lam", None)
+    lam = kw.get("lam")
+    if "lam" not in fam.ctor_params:
+        kw.pop("lam", None)
     unknown = sorted(set(kw) - fam.ctor_params)
     if unknown:
         raise ValueError(f"unknown constructor kwargs {unknown} for family "
@@ -190,3 +208,19 @@ def router_config(router) -> Dict[str, object]:
             continue
         cfg[p] = getattr(router, p)
     return cfg
+
+
+def build_registry() -> Dict[str, object]:
+    """name -> factory, enumerated from the registered families; a factory
+    takes constructor overrides (``REGISTRY["mlp"](device="cpu")``)."""
+    return {name: partial(make_router, name)
+            for fam in FAMILIES.values() for name in fam.variant_names()}
+
+
+def paper_order():
+    """The paper's Table 2/5 router ordering, derived from registration."""
+    return [format_spec(RouterSpec(fam.family, k=k))
+            for fam in sorted((f for f in FAMILIES.values()
+                               if f.paper_rank is not None),
+                              key=lambda f: f.paper_rank)
+            for k in fam.default_ks or (None,)]

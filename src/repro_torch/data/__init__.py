@@ -1,3 +1,5 @@
-"""Training data of the port: `lm_data.py` is a copy of the JAX package's
-`repro.data.lm_data` (numpy only), so both packages draw the same batches
-byte for byte."""
+"""Data of the port, numpy copies of the JAX package's `repro.data`
+modules, so both packages draw the same bytes: `lm_data.py` (training
+batches), `synthetic.py` (the seeded routing-benchmark generator),
+`routing_bench.py` (the columns of the paper's Tables 2 and 5 and the
+RouterBench tasks) and `prices.py` (Appendix B's model pools and prices)."""

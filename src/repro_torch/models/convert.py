@@ -9,7 +9,15 @@ Mamba-2 LM (``ssm.in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``,
 ``dt_bias``, ``norm.scale``, ``out_proj``) and the query encoder (which
 uses ``embed`` and the stack).  Every leaf keeps its dtype: a JAX leaf
 whose dtype differs from the port's parameter (an f32 ``A_log`` in a bf16
-model stays f32 on both sides) is refused."""
+model stays f32 on both sides) is refused.
+
+``router_params_from_jax(flat, device)`` does the same for a learned
+router: the reference's parameter tree, as numpy arrays keyed by artifact
+path below the attribute (``mlp_s/0/w``, ``self_attn/wq/b``), becomes the
+port's tree of f32 tensors on ``device``, leaf for leaf (a weight keeps
+the reference's ``(din, dout)`` layout).  `artifacts.load_router` reads
+every router's ``_params`` / ``_sel_params`` through it, so a router
+fitted in JAX predicts in the port."""
 from __future__ import annotations
 
 from typing import Dict
@@ -58,3 +66,16 @@ def params_from_jax(tree, cfg, device="cpu") -> LM:
                                  f"dtype {t.dtype}")
             t.copy_(torch.from_numpy(np.array(leaf, np.float32)))
     return lm
+
+
+def router_params_from_jax(flat: Dict[str, np.ndarray], device="cpu"):
+    """{artifact path: array} of one router attribute -> the port's tree of
+    f32 tensors on ``device`` (lists where every key at a level is a
+    decimal index, dicts elsewhere, as the reference's reader rebuilds)."""
+    # imported here: the routers' artifacts import this module
+    from repro_torch.core.routers.nn_utils import to_device, unflatten_tree
+    for key, arr in flat.items():
+        if np.asarray(arr).dtype.kind != "f":
+            raise ValueError(f"{key}: a router parameter must be floating, "
+                             f"got {np.asarray(arr).dtype}")
+    return to_device(unflatten_tree(dict(flat)), device)

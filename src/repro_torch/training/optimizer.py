@@ -41,13 +41,16 @@ def schedule(opt: OptConfig, step) -> torch.Tensor:
 
 
 def init(params: Tensors) -> dict:
-    """m, v (zeros) and the f32 master copy of every parameter; step 0."""
+    """m, v (zeros) and the f32 master copy of every parameter; step 0, on
+    the parameters' device, so a step's schedule never waits for a copy
+    from the host."""
     f32 = torch.float32
+    dev = next(iter(params.values())).device
     return {"m": {n: torch.zeros_like(p, dtype=f32) for n, p in params.items()},
             "v": {n: torch.zeros_like(p, dtype=f32) for n, p in params.items()},
             "master": {n: p.detach().to(f32).clone()
                        for n, p in params.items()},
-            "step": torch.zeros((), dtype=torch.int32)}
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def global_norm(tensors: Tensors) -> torch.Tensor:
@@ -60,9 +63,13 @@ def update(opt: OptConfig, grads: Tensors, state: dict,
            params: Tensors) -> Dict[str, torch.Tensor]:
     """One AdamW step: clip by the global norm, bias-corrected moments,
     decoupled weight decay on the f32 master, parameters cast back to
-    their dtype.  ``state`` and ``params`` are updated in place.  Returns
-    {"grad_norm", "lr"}."""
-    step = state["step"] + 1
+    their dtype.  ``state`` and ``params`` are updated in place, the step
+    counter too, so a step captured in a CUDA graph replays as the next
+    step.  The moments and weights go through multi-tensor (``_foreach``)
+    ops, one launch for many parameters, in the order of the reference's
+    per-leaf formula.  Returns {"grad_norm", "lr"}."""
+    state["step"].add_(1)
+    step = state["step"]
     gnorm = global_norm(grads)
     scale = torch.clamp(opt.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(opt, step)
@@ -71,18 +78,21 @@ def update(opt: OptConfig, grads: Tensors, state: dict,
     bc2 = 1 - opt.b2 ** stepf
     dev = next(iter(params.values())).device
     scale, lr, bc1, bc2 = (t.to(dev) for t in (scale, lr, bc1, bc2))
-    for name, p in params.items():
-        g = grads[name].float() * scale
-        m = opt.b1 * state["m"][name] + (1 - opt.b1) * g
-        v = opt.b2 * state["v"][name] + (1 - opt.b2) * g * g
-        mh = m / bc1
-        vh = v / bc2
-        master = state["master"][name]
-        new_master = master - lr * (mh / (torch.sqrt(vh) + opt.eps)
-                                    + opt.weight_decay * master)
-        state["m"][name].copy_(m)
-        state["v"][name].copy_(v)
-        master.copy_(new_master)
-        p.copy_(new_master)
-    state["step"] = step
+    names = list(params)
+    m, v, master = ([state[k][n] for n in names] for k in ("m", "v",
+                                                           "master"))
+    g = torch._foreach_mul([grads[n].float() for n in names], scale)
+    # m = b1 m + (1 - b1) g;  v = b2 v + ((1 - b2) g) g
+    torch._foreach_mul_(m, opt.b1)
+    torch._foreach_add_(m, torch._foreach_mul(g, 1 - opt.b1))
+    torch._foreach_mul_(v, opt.b2)
+    torch._foreach_add_(v, torch._foreach_mul(
+        torch._foreach_mul(g, 1 - opt.b2), g))
+    # master -= lr (m / bc1 / (sqrt(v / bc2) + eps) + wd master)
+    den = torch._foreach_sqrt(torch._foreach_div(v, bc2))
+    torch._foreach_add_(den, opt.eps)
+    upd = torch._foreach_div(torch._foreach_div(m, bc1), den)
+    torch._foreach_add_(upd, torch._foreach_mul(master, opt.weight_decay))
+    torch._foreach_sub_(master, torch._foreach_mul(upd, lr))
+    torch._foreach_copy_([params[n] for n in names], master)
     return {"grad_norm": gnorm, "lr": lr}

@@ -176,3 +176,83 @@ def test_streaming_tier_raises_typed_error(data, tmp_path):
     np.testing.assert_array_equal(np.asarray(jb._ivf.base.ids_cm),
                                   tr._ivf.base.ids_h)
     _assert_same_predictions(jb, tr, Q)
+
+
+# ---------------------------------------------------------------------------
+# the learned families: every family of the registry crosses both ways
+# ---------------------------------------------------------------------------
+
+#: one spec per learned family of REGISTRY (the kNN family is SPECS above);
+#: linear and mlp also carry a fitted selection head (``_sel_params``)
+LEARNED = ["linear", "linear_mf", "mlp", "mlp_mf", "graph10", "attn10",
+           "dattn10", "linucb"]
+
+
+def _kw(spec):
+    return {} if spec in ("linear", "linucb") else {"epochs": 1}
+
+
+def _fit(make, spec, ds, **extra):
+    r = make(spec, **_kw(spec), **extra).fit(ds)
+    if spec in ("linear", "mlp"):
+        r.fit_selection(ds, 0.5 / ds.c_max)
+        r.fit(ds)                  # the utility fit beside the head
+    return r
+
+
+def _leaves(path):
+    with np.load(path / "state.npz") as z:
+        return {k: z[k].shape for k in z.files}
+
+
+def _assert_same_learned(a, b, Q, spec):
+    for x, y in zip(a.predict_utility(Q), b.predict_utility(Q)):
+        np.testing.assert_allclose(np.asarray(x), np.asarray(y), atol=TOL)
+    if spec in ("linear", "mlp"):
+        assert (np.asarray(a.select(Q)) == np.asarray(b.select(Q))).all()
+
+
+@pytest.fixture(scope="module")
+def learned_saved(data, tmp_path_factory):
+    """Each learned family fitted once in each package and saved."""
+    jds, tds, _ = data
+    root = tmp_path_factory.mktemp("learned")
+    out = {}
+    for spec in LEARNED:
+        jr = _fit(jax_make, spec, jds)
+        tr = _fit(make_router, spec, tds, device="cpu")
+        out[spec] = (jr, jax_save(jr, root / f"{spec}-jax"),
+                     tr, save_router(tr, root / f"{spec}-port"))
+    return out
+
+
+@pytest.mark.parametrize("spec", LEARNED)
+def test_learned_jax_artifact_loads_in_port(spec, data, learned_saved,
+                                            tmp_path):
+    _, _, Q = data
+    jr, jpath, _, _ = learned_saved[spec]
+    tr = load_router(jpath, device="cpu")
+    assert type(tr).__name__ == type(jr).__name__
+    assert tr.model_names == jr.model_names and tr.embed_dim == 32
+    _assert_same_learned(tr, jr, Q, spec)
+    # written back by the port: the same manifest keys and leaves
+    back = save_router(tr, tmp_path / "back")
+    mj = json.loads((jpath / "manifest.json").read_text())
+    mt = json.loads((back / "manifest.json").read_text())
+    assert sorted(mt) == sorted(mj) and mt["config"] == mj["config"]
+    assert _leaves(back) == _leaves(jpath)
+
+
+@pytest.mark.parametrize("spec", LEARNED)
+def test_learned_port_artifact_loads_in_jax(spec, data, learned_saved,
+                                            tmp_path):
+    _, _, Q = data
+    _, jpath, tr, tpath = learned_saved[spec]
+    jr = jax_load(tpath)
+    assert type(jr).__name__ == type(tr).__name__
+    _assert_same_learned(tr, jr, Q, spec)
+    assert _leaves(tpath) == _leaves(jpath)
+    back = jax_save(jr, tmp_path / "back")
+    assert sorted(json.loads((back / "manifest.json").read_text())) == \
+        sorted(json.loads((tpath / "manifest.json").read_text()))
+    assert _leaves(back) == _leaves(tpath)

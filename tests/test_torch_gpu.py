@@ -990,3 +990,90 @@ def test_gpu_background_compaction_swaps_under_routes(spec, monkeypatch):
     fresh._dev = {}
     for a, b in zip(r.serve_fused(Q, lam), fresh.serve_fused(Q, lam)):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the paper's evaluation on the card: learned routers and the self-query
+# ---------------------------------------------------------------------------
+
+def _eval_data(n=300):
+    from repro_torch.data.prices import ROUTERBENCH
+    from repro_torch.data.synthetic import GenSpec, generate
+    return generate(GenSpec("small", ROUTERBENCH["RouterBench"],
+                            n_queries=n, ambient_dim=64, seed=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["linear", "linear_mf", "mlp", "mlp_mf",
+                                  "graph10", "attn10", "dattn10"])
+def test_gpu_learned_fit_matches_cpu_forward(spec):
+    """A fit on the card (2 epochs), its state copied to a CPU router: the
+    CPU forward at the card's weights within 1e-4 (f32 products in another
+    order; TF32 is off by default); the loss finite."""
+    _need_cuda()
+    from repro_torch.core.routers import make_router
+    ds = _eval_data()
+    kw = {} if spec == "linear" else {"epochs": 2}
+    gr = make_router(spec, device="cuda", **kw).fit(ds)
+    cr = make_router(spec, device="cpu", **kw)
+    cr.load_state_dict(gr.state_dict())
+    X = ds.part("test")[0]
+    (gs, gc), (cs, cc) = gr.predict_utility(X), cr.predict_utility(X)
+    scale = getattr(gr, "_c_scale", 1.0)
+    assert np.abs(gs - cs).max() <= 1e-4 and np.abs(gc - cc).max() <= 1e-4 * scale
+    if spec != "linear":
+        assert all(np.isfinite(gr.train_losses))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,k", [(1400, 11), (1400, 101), (5040, 11)])
+def test_gpu_self_query_matches_plain(N, k):
+    """Kernel 1 with the support as its own queries (Q = N, the graph and
+    attentive fits' exclude_self search): scores and ids against the plain
+    version outside ties, and each row's top-1 is itself."""
+    _need_cuda()
+    s = torch.from_numpy(_knn_data(1, N, 768, N)[1]).cuda()
+    q = s / s.norm(dim=1, keepdim=True)
+    n0 = knn_topk.launches
+    ks, ki = knn_topk(q, s, k)
+    assert knn_topk.launches == n0 + 1
+    _check_tied(ks, ki, *knn_topk_reference(q, s, k), 1e-5, 1e-5)
+    assert (ki[:, 0].cpu() == torch.arange(N, dtype=torch.int32)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["graph10", "attn10"])
+def test_gpu_neighbour_fit_launches_kernel_not_plain(spec, monkeypatch):
+    _need_cuda()
+    from repro_torch.core.routers import make_router
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(knn_ops, "knn_topk_reference", refuse)
+    n0 = knn_topk.launches
+    r = make_router(spec, epochs=1, device="cuda").fit(_eval_data())
+    assert knn_topk.launches == n0 + 1          # the fit's self-query
+    r.predict_utility(_eval_data().part("test")[0])
+    assert knn_topk.launches == n0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["mlp", "graph10", "attn10"])
+def test_gpu_graphed_fit_matches_eager_fit(spec, monkeypatch):
+    """12 epochs over 700 train rows: the full batches replayed from the
+    CUDA graph (after three eager ones; each epoch's partial batch eager)
+    against the same fit with every step eager on the card.  The same
+    kernels in the same order: losses and predictions within 1e-5."""
+    _need_cuda()
+    from repro_torch.core.routers import make_router
+    from repro_torch.core.routers import nn_utils
+    ds = _eval_data(1000)
+    gr = make_router(spec, epochs=12, device="cuda").fit(ds)
+    monkeypatch.setattr(nn_utils._GraphedStep, "WARMUP", 10**9)
+    er = make_router(spec, epochs=12, device="cuda").fit(ds)
+    for a, b in zip(gr.train_losses, er.train_losses):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    X = ds.part("test")[0]
+    for a, b in zip(gr.predict_utility(X), er.predict_utility(X)):
+        assert np.abs(a - b).max() <= 1e-5 * max(1.0, np.abs(b).max())

@@ -176,7 +176,11 @@ def test_spec_grammar_and_router_construction():
     assert isinstance(r, KNNRouter) and r.k == 10 and r.default_lam == 0.5
     assert r.weights == "softmax" and spec_of(r) == "knn10"
     assert parse_spec("knn100").k == 100
-    for bad in ("knn10-ivfp", "mlp", "knn10@nope=1", "knn10@", "knn-pq"):
+    # every family of the registry is registered; an unknown family, a k
+    # suffix on a family without one and an -ivf suffix on a family
+    # without an IVF backend are refused
+    for bad in ("knn10-ivfp", "hnsw10", "mlp10", "mlp-ivf", "knn10@nope=1",
+                "knn10@", "knn-pq"):
         with pytest.raises(ValueError):
             make_router(bad)
     with pytest.raises(ValueError, match="index"):

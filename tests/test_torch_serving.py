@@ -47,6 +47,16 @@ def test_port_imports_without_jax():
             "import repro_torch.core.routers.dispatch\n"
             "import repro_torch.serving.durability\n"
             "import repro_torch.launch.kill_child\n"
+            "import repro_torch.core.eval, repro_torch.core.diagnostics\n"
+            "import repro_torch.core.routers.nn_utils\n"
+            "import repro_torch.core.routers.linear, repro_torch.core.routers.mf\n"
+            "import repro_torch.core.routers.mlp, repro_torch.core.routers.graph\n"
+            "import repro_torch.core.routers.attentive\n"
+            "import repro_torch.core.routers.bandit\n"
+            "import repro_torch.data.synthetic, repro_torch.data.prices\n"
+            "import repro_torch.data.routing_bench\n"
+            "from repro_torch.core.routers import REGISTRY, PAPER_ORDER\n"
+            "assert len(PAPER_ORDER) == 12 and 'linucb' in REGISTRY\n"
             "from repro_torch.kernels.knn_ivf.ops import DynamicIVFIndex\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
