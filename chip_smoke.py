@@ -122,15 +122,39 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      version of kernel 1 reached with a CUDA tensor.  Phase 3 runs kernel
      1 at this phase's shapes too (the self-query at Q = N = 1,400 and
      5,040, and Q 300 x N 1,050 at D 3,584).
+  9. the other text families (slice 11, `phase_families`; 150 s budget):
+     a. `repro_torch.launch.train.main --arch h2o-danube-1.8b` at its
+        published widths and depth in bf16: 10 steps of batch 2 x 4,096
+        (the reference's TRAIN_4K length, hd 80, window 4,096, 24 layers,
+        remat), counters zeroed before and read after: the loss finite
+        and falling, kernel 2 >= 2 x 24 x 10 launches and kernel 2b (the
+        flash backward) >= 24 x 10, no plain attention reached with a CUDA
+        tensor; `--ckpt` (the reference's layout) read back through the
+        port's reader, bitwise equal; one step under `torch.profiler`
+        (device time by kernel, idle share).
+     b. one model at a time at its published widths in bf16, seeded, freed
+        before the next: zamba2-7b at full depth (81 layers, the shared
+        block at hd 112), starcoder2-15b at 8 of 40 layers, qwen1.5-32b at
+        8 of 64, deepseek-v2 at 2 of 60 (MLA + 160 experts), llama4-
+        maverick at 1 of 24 groups (one dense and one MoE layer): `forward`
+        over 256 tokens against 256 teacher-forced `decode_step`s (relative
+        L2 of each position's logits <= 0.25), a `ServingEngine` serving 4
+        prompts x 8 tokens, kernels 2 and 3 (and 6 for zamba2) launched,
+        MoE's dropped slots and the peak memory printed.
+     Phase 3 runs kernel 2b at 9a's shape and at head dims 64, 80, 112 and
+     128, G 1, 5 and 12, causal, windowed and non-causal, S not a multiple
+     of its tiles, f32 and bf16, each against autograd through the plain
+     version and SDPA's backward; and kernels 2 and 3 at hd 112.
 The line before the last is the kernels' JSON summary, the last line the
 device record.  Its cases are the main path's: for kernels 4 and 5 the
 fitted phase-4 index (the synthetic one with --kernels); kernel 6's
-launches are read on phase 5a's training path.
+launches are read on phase 5a's training path, kernel 2b's on phase 9a's.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import math
 import subprocess
@@ -153,6 +177,11 @@ KERNEL_SOURCES = {
                  "src/repro/kernels/knn_topk/kernel.py:79"),
     "flash_attention": ("src/repro_torch/kernels/flash_attention/kernel.cu",
                         "src/repro/kernels/flash_attention/kernel.py:90"),
+    # the gradient of kernel 2: the JAX trainer differentiates the jnp
+    # `attend_ref` (src/repro/models/attention.py:66) that kernel 2 computes
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/flash_attention/bwd_kernel.cu",
+        "src/repro/kernels/flash_attention/kernel.py:90"),
     "decode_attention": ("src/repro_torch/kernels/decode_attention/kernel.cu",
                          "src/repro/kernels/decode_attention/kernel.py:63"),
     "ivf_topk": ("src/repro_torch/kernels/knn_ivf/kernel.cu",
@@ -385,6 +414,88 @@ def flash_case(torch, timer, B, S, H, KV, hd, dtype, causal, window, tol,
                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
 
 
+def grad_err(torch, out, ref, dtype):
+    """A gradient of kernel 2b against the plain version's f32 gradient on
+    the same input values: the largest |out - ref| and its largest ratio
+    to the limit (<= 1 passes): f32 2e-5 + 1e-5 |ref|; bf16 1e-2, or
+    bf16's own rounding 2^-8 |ref| + 2e-5 where larger (`attn_err`)."""
+    d = (out.float() - ref).abs()
+    if dtype == torch.bfloat16:
+        lim = torch.maximum(torch.full_like(ref, 1e-2),
+                            ref.abs() * 2.0 ** -8 + 2e-5)
+    else:
+        lim = 2e-5 + 1e-5 * ref.abs()
+    return float(d.max()), float((d / lim).max())
+
+
+def flash_bwd_case(torch, timer, B, S, KV, G, hd, dtype, causal, window,
+                   gen):
+    """Kernel 2b (dQ, dK, dV from the forward's f32 out and log-sum-exp)
+    against autograd through the plain version in f32 on the same values
+    (`grad_err`), called twice (bitwise-equal: no atomics).  Timed alone
+    (the forward not included); the library time is the backward of
+    `scaled_dot_product_attention` at the same shape (a boolean mask where
+    the window is shorter than S).  Bound: the bytes of q, k, v, dO, the
+    f32 o and lse read and dq, dk, dv written once, or 10 B H hd flops a
+    live pair (S, dP, dV, dK, dQ) at the dtype's peak."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain)
+    H = KV * G
+    q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
+    do = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
+    _, lse, out32 = fops._forward(q, k, v, causal, window, True)
+    bwd = lambda: fops.flash_attention_bwd(q, k, v, do, causal=causal,
+                                           window=window, out=out32, lse=lse)
+    got, again = bwd(), bwd()
+    ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                    do.float(), causal=causal, window=window)
+    torch.cuda.synchronize()
+    errs = [grad_err(torch, a, r, dtype) for a, r in zip(got, ref)]
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "a second backward returned other bits"
+    ratio = max(e[1] for e in errs)
+    assert ratio <= 1.0, errs
+    ref_std = [float(r.std()) for r in ref]
+    del ref, again
+    ms = timer(bwd)
+    plain_ms = timer(lambda: flash_attention_bwd_plain(
+        q, k, v, do, causal=causal, window=window), iters=3)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    kw = dict(enable_gqa=KV != H)
+    if window and window < S:
+        i = torch.arange(S, device="cuda")
+        m = (i[:, None] - i[None, :] < window)
+        if causal:
+            m &= i[:, None] >= i[None, :]
+        kw["attn_mask"] = m
+    else:
+        kw["is_causal"] = causal
+    lo = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    dot = do.transpose(1, 2)
+    lib = timer(lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,
+                                            retain_graph=True))
+    esz = q.element_size()
+    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * esz \
+        + (B * S * H * hd + B * H * S) * 4 \
+        + (B * S * H * hd + 2 * B * S * KV * hd) * esz
+    b_ms, b_by = bound(nbytes, 10 * B * H * hd * live_pairs(S, S, causal,
+                                                            window), dtype)
+    return dict(case=f"B={B} S={S} H={H} KV={KV} G={G} hd={hd} "
+                     f"{str(dtype)[6:]} causal={causal} window={window}",
+                max_abs_err=max(e[0] for e in errs), err_over_tol=ratio,
+                err_by_output=dict(zip(("dq", "dk", "dv"),
+                                       [e[1] for e in errs])),
+                ref_std=ref_std, tol="f32 2e-5 + 1e-5 |ref|; bf16 1e-2 "
+                "or 2^-8 |ref| + 2e-5", repeat_bitwise_equal=True, ms=ms,
+                plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
+
+
 def decode_case(torch, timer, pos, S, KV, G, hd, dtype, ring, tol, gen):
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -611,7 +722,10 @@ def phase_kernels(torch, seed):
             (2, 256, 32, 8, 80, f32, True, 64, 2e-5),
             (8, 100, 12, 4, 64, f32, True, 0, 2e-5),
             (2, 200, 8, 8, 128, f32, False, 0, 2e-5),
-            (256, 40, 16, 4, 128, bf16, True, 16, 1e-2)]):
+            (256, 40, 16, 4, 128, bf16, True, 16, 1e-2),
+            # zamba2-7b's shared block: hd 3,584 / 32 = 112, G 1
+            (2, 512, 32, 32, 112, bf16, True, 0, 1e-2),
+            (1, 150, 32, 32, 112, f32, True, 0, 2e-5)]):
         r = flash_case(torch, timer, *args,
                        gen=gen("flash", *args[:5], str(args[5]), *args[6:8]))
         emit("kernel", name="flash_attention", **r)
@@ -626,7 +740,10 @@ def phase_kernels(torch, seed):
             ([700, 63, 64, 0], 64, 2, 2, 64, f32, True, 2e-5),
             ([0, 63, 64, 511], 512, 8, 4, 128, bf16, False, 1e-2),
             ([-1, 127, 128, 300], 512, 8, 4, 128, bf16, True, 1e-2),
-            ([-1, 64, 65, 99], 100, 8, 4, 64, f32, False, 2e-5)]):
+            ([-1, 64, 65, 99], 100, 8, 4, 64, f32, False, 2e-5),
+            # hd 112 (zamba2-7b's shared block, G 1) in both cache modes
+            ([100, 511, 7, 300], 512, 32, 1, 112, bf16, False, 1e-2),
+            ([700, 63, 64, 0], 256, 32, 1, 112, f32, True, 2e-5)]):
         r = decode_case(torch, timer, *args,
                         gen=gen("decode", *args[:5], str(args[5]), args[6]))
         emit("kernel", name="decode_attention", **r)
@@ -635,6 +752,28 @@ def phase_kernels(torch, seed):
     main.update(phase_ivf_kernels(torch, timer, gen))
     phase_delta_kernels(torch, timer, gen)
     main.update(phase_ssd_kernels(torch, timer, gen))
+    # kernel 2b, last (its SDPA-backward timings after every profiled
+    # case): danube's training shape (phase 9a's), then head dims 64,
+    # 80, 112 and 128, G 1, 5 and 12, causal, windowed (window < S) and
+    # non-causal, S not a multiple of the 64-row tiles, f32 and bf16
+    for i, args in enumerate([
+            (2, 4096, 8, 4, 80, bf16, True, 4096),
+            (2, 130, 2, 1, 64, f32, True, 0),
+            (1, 200, 1, 5, 80, f32, True, 48),
+            (1, 100, 1, 12, 112, f32, False, 0),
+            (1, 257, 2, 1, 128, f32, True, 64),
+            (1, 333, 1, 5, 64, f32, False, 40),
+            (2, 130, 2, 5, 112, bf16, True, 0),
+            (1, 300, 1, 12, 128, bf16, True, 100),
+            (2, 96, 2, 1, 80, bf16, False, 0),
+            (1, 1000, 4, 12, 128, bf16, True, 0),
+            (2, 512, 32, 1, 112, bf16, True, 0)]):
+        r = flash_bwd_case(torch, timer, *args,
+                           gen=gen("flash_bwd", *args[:5], str(args[5]),
+                                   *args[6:]))
+        emit("kernel", name="flash_attention_bwd", **r)
+        if i == 0:
+            main["flash_attention_bwd"] = r
     return main
 
 
@@ -1058,11 +1197,13 @@ def phase_delta_kernels(torch, timer, gen):
 def kernel_wrappers():
     """Every kernel's wrapper, by the name in the kernels line."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd)
     from repro_torch.kernels.knn_ivf.ops import ivf_scan, ivfpq_adc
     from repro_torch.kernels.knn_topk.ops import knn_topk
     from repro_torch.kernels.ssd_scan.ops import ssd_intra, ssd_intra_bwd
     return {"knn_topk": knn_topk, "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention, "ivf_topk": ivf_scan,
             "ivfpq_adc": ivfpq_adc, "ssd_intra": ssd_intra,
             "ssd_intra_bwd": ssd_intra_bwd}
@@ -2761,6 +2902,295 @@ def phase_evaluation(torch, smi):
     assert wall < PHASE8_BUDGET_S, f"phase 8 took {wall:.1f} s"
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the other text families train and serve (slice 11)
+# ---------------------------------------------------------------------------
+
+PHASE9_BUDGET_S = 150.0
+#: 9a: danube at its published widths and depth, TRAIN_4K's length
+TRAIN9 = dict(arch="h2o-danube-1.8b", steps=10, batch=2, seq=4096)
+#: 9b: (arch, depth cut: layers, or groups of the pattern, None = full,
+#: dtype of the forward-against-decode check).  Widths are the published
+#: ones; the cuts keep each model's weights and caches on one 80 GB card
+#: (qwen1.5-32b at 64 layers is ~70 GB in bf16) and the phase in its
+#: budget.  The check runs in f32 where the model fits the card in f32
+#: (llama4-maverick's 128 experts take 64 GB in f32: bf16 there)
+SERVE9 = [("zamba2-7b", None, "float32"), ("starcoder2-15b", 8, "float32"),
+          ("qwen1.5-32b", 8, "float32"), ("deepseek-v2-236b", 2, "float32"),
+          ("llama4-maverick-400b-a17b", 1, "bfloat16")]
+#: 9b's forward-against-decode limits: the largest relative L2 distance
+#: ||decode - forward|| / ||forward|| of one position's logits, over the
+#: positions whose MoE routes agree.  In f32 phase 5b's 2e-3 (the CPU
+#: parity tests hold 1e-4 at reduced depth); in bf16 0.05: the two paths
+#: round in other places (2^-8 a rounding) and the dense 8-layer models
+#: read ~0.011 in bf16 on an H100, while logits of a wrong mask,
+#: position or cache are uncorrelated with the forward's (~sqrt(2)).  A
+#: route that differs (a near-tie of router logits ordered otherwise by
+#: the paths' roundings) is counted and may take at most 10% of positions
+DECODE9_TOL = {"float32": 2e-3, "bfloat16": 0.05}
+DECODE9_MAX_FLIPS = 0.10
+
+
+def depth_cut(cfg, n):
+    """``cfg`` with ``n`` groups of its pattern (n layers for a one-layer
+    pattern), no tail; None keeps it whole."""
+    if n is None:
+        return cfg
+    return cfg.replace(n_groups=n, n_layers=n * len(cfg.pattern),
+                       tail_pattern=(), n_tail_groups=0)
+
+
+def refuse_plain_on_cuda(torch):
+    """Patch the flash kernels' plain versions to fail on a CUDA tensor;
+    returns the undo."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    saved = {n: getattr(fops, n) for n in ("flash_attention_reference",
+                                           "flash_attention_bwd_plain")}
+
+    def guard(name):
+        def fn(*a, **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                raise AssertionError(f"{name} reached with a CUDA tensor")
+            return saved[name](*a, **kw)
+        return fn
+    for n in saved:
+        setattr(fops, n, guard(n))
+    return lambda: [setattr(fops, n, f) for n, f in saved.items()]
+
+
+def phase_train_attention(torch, wrappers):
+    """9a: `repro_torch.launch.train.main --arch h2o-danube-1.8b` at its
+    published widths and depth (24 layers, hd 80, window 4,096) in bf16,
+    10 steps of batch 2 x 4,096 with per-layer remat, `--ckpt` into the
+    git-ignored build directory; the counters zeroed just before and read
+    just after.  The loss must stay finite and fall; kernel 2 runs twice a
+    layer and step (forward and the remat's recompute), kernel 2b once; no
+    plain attention is reached with a CUDA tensor.  The checkpoint is read
+    back through the port's reader, bitwise equal to the trained weights.
+    Then one more step of the trained model under `torch.profiler`:
+    device time by kernel, idle share."""
+    import numpy as np
+    from repro_torch.launch import train
+    from repro_torch.training import checkpoint as CKPT
+    ckpt = ROOT / "build" / "phase9" / "danube.npz"
+    argv = ["--arch", TRAIN9["arch"], "--steps", str(TRAIN9["steps"]),
+            "--batch", str(TRAIN9["batch"]), "--seq", str(TRAIN9["seq"]),
+            "--log-every", "1", "--ckpt", str(ckpt)]
+    torch.cuda.reset_peak_memory_stats()
+    undo = refuse_plain_on_cuda(torch)
+    for w in wrappers.values():
+        w.launches = 0
+    state = {}
+    t0 = time.perf_counter()
+    try:
+        hist = train.main(argv, state=state)
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    walls = [h["wall_s"] for h in hist]
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    cfg, lm = state["cfg"], state["lm"]
+    n_attn = len(cfg.pattern) * cfg.n_groups
+    t1 = time.perf_counter()
+    back = CKPT.load_lm(str(ckpt), cfg, device="cuda")
+    equal = all(torch.equal(a, b) for a, b in zip(
+        lm.state_dict().values(), back.state_dict().values()))
+    ck_bytes = ckpt.stat().st_size
+    read_s = time.perf_counter() - t1
+    ckpt.unlink()
+    del back
+    tokens = TRAIN9["batch"] * TRAIN9["seq"]
+    rec = dict(arch=cfg.name, dtype=cfg.dtype, layers=n_attn,
+               head_dim=cfg.head_dim, window=cfg.sliding_window,
+               batch=TRAIN9["batch"], seq=TRAIN9["seq"], loss=losses,
+               grad_norm=[h["grad_norm"] for h in hist], step_wall_s=walls,
+               median_step_wall_s_after_first=steady,
+               tokens_per_s=tokens / steady, run_wall_s=wall,
+               max_memory_allocated=peak,
+               launches={n: launches[n] for n in ("flash_attention",
+                                                  "flash_attention_bwd")},
+               other_launches={n: v for n, v in launches.items() if n not in
+                               ("flash_attention", "flash_attention_bwd")},
+               checkpoint_bytes=ck_bytes, checkpoint_read_s=read_s,
+               checkpoint_bitwise_equal=equal)
+    emit("train_attention", **rec)
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    assert launches["flash_attention"] >= 2 * n_attn * TRAIN9["steps"], \
+        launches
+    assert launches["flash_attention_bwd"] >= n_attn * TRAIN9["steps"], \
+        launches
+    assert equal, "the checkpoint read back differs from the weights"
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN9["batch"], TRAIN9["seq"] + 1))).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step_fn, opt_state = state["step_fn"], state["opt_state"]
+    prof = device_profile(torch, lambda: step_fn(lm, opt_state, batch),
+                          top=10, groups={"flash_fwd": "flash_fwd",
+                                          "flash_bwd": "flash_bwd"})
+    emit("train_attention_profile", one_step=prof)
+    del lm, opt_state, batch, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def decode_check(torch, name, depth, dtype):
+    """9b's check for one model: ``dtype`` weights (seeded, on the card) at
+    a capacity that drops nothing (a decode step of one token never
+    drops: C >= 8 > k; the drops themselves are held against the reference
+    on the CPU), `forward` over 256 tokens against 256 teacher-forced
+    `decode_step`s.  Each MoE layer's routes are recorded in both paths;
+    positions where they differ are counted, not compared."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    cfg = depth_cut(get_config(name), depth).replace(dtype=dtype)
+    if cfg.n_experts:
+        cfg = cfg.replace(capacity_factor=float(cfg.n_experts))
+    routes, route = [], moe.route
+
+    def recorded(p, c, tokens):
+        out = route(p, c, tokens)
+        routes.append(out[1])
+        return out
+    moe.route = recorded
+    try:
+        lm = M.init_params(cfg, seed=11, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(11)
+        S = 256
+        toks = torch.randint(1, cfg.vocab_size, (1, S), device="cuda",
+                             generator=g)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            full = M.forward(lm, cfg, {"tokens": toks})[0][0]
+        n_moe = len(routes)
+        fwd_routes = torch.stack(routes) if routes else None   # (L, S, k)
+        routes.clear()
+        caches = M.init_caches(cfg, 1, S, device="cuda")
+        rel = []
+        agree = 0
+        for t in range(S):
+            logits, caches = M.decode_step(lm, cfg, caches,
+                                           toks[:, t:t + 1],
+                                           torch.full((1,), t,
+                                                      device="cuda"))
+            ref = full[t]
+            rel.append(torch.linalg.vector_norm(logits[0] - ref)
+                       / torch.linalg.vector_norm(ref))
+            agree += logits[0].argmax() == ref.argmax()
+        rel = torch.stack(rel).cpu().numpy()
+        same = np.ones(S, bool)
+        if n_moe:
+            dec = torch.stack(routes).reshape(S, n_moe, -1).transpose(0, 1)
+            same = (dec == fwd_routes).all(-1).all(0).cpu().numpy()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        moe.route = route
+    del lm, caches, full
+    torch.cuda.empty_cache()
+    tol = DECODE9_TOL[dtype]
+    rec = dict(check_dtype=dtype, decode_rel_l2_max=float(rel[same].max()),
+               decode_rel_l2_median=float(np.median(rel[same])),
+               decode_tol=tol, route_flips=int((~same).sum()),
+               rel_l2_at_flips=[float(x) for x in rel[~same]],
+               argmax_equal=int(agree), of=S, check_s=wall)
+    assert rec["decode_rel_l2_max"] <= tol, (name, rec)
+    assert rec["route_flips"] <= DECODE9_MAX_FLIPS * S, (name, rec)
+    return rec
+
+
+def serve_family(torch, wrappers, name, depth, check_dtype):
+    """9b for one model, the counters zeroed before and read after:
+    `decode_check` in ``check_dtype``, then the served model: seeded bf16
+    weights on the card at the published widths (``depth`` cut) and
+    capacity, `forward` over 256 tokens (MoE's dropped (token, choice)
+    slots), and a `ServingEngine` serving 4 prompts x 8 tokens; the peak
+    memory."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import Request, ServingEngine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    rec = dict(arch=name, depth_cut=depth)
+    rec.update(decode_check(torch, name, depth, check_dtype))
+    cfg = depth_cut(get_config(name), depth)
+    moe.moe_ffn.dropped = moe.moe_ffn.routed = 0
+    t0 = time.perf_counter()
+    lm = M.init_params(cfg, seed=11, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    toks = torch.randint(1, cfg.vocab_size, (1, 256), device="cuda",
+                         generator=g)
+    with torch.no_grad():
+        M.forward(lm, cfg, {"tokens": toks})
+    fwd_moe = (int(moe.moe_ffn.dropped), int(moe.moe_ffn.routed))
+    eng = ServingEngine(cfg, lm, max_slots=4, cache_len=64, device="cuda")
+    rng = np.random.default_rng(11)
+    reqs = [Request(uid=i, prompt_tokens=rng.integers(
+        1, cfg.vocab_size, 4 + i).astype(np.int32), max_new_tokens=8)
+        for i in range(4)]
+    steps = eng.run_until_drained(reqs)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    rec.update(layers=cfg.total_blocks(),
+               params=sum(p.numel() for p in lm.parameters()),
+               dtype=cfg.dtype, tokens=[r.output_tokens for r in reqs],
+               engine_steps=steps, serve_s=time.perf_counter() - t0,
+               launches={n: v for n, v in launches.items() if v},
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    if cfg.n_experts:
+        rec.update(moe_forward_dropped=fwd_moe[0],
+                   moe_forward_routed=fwd_moe[1],
+                   capacity_factor=cfg.capacity_factor)
+    emit("serve_family", **rec)
+    kinds = [k for k, _ in cfg.pattern]
+    n_gqa = sum(k in ("attn", "shared_attn") for k in kinds) * cfg.n_groups
+    n_ssm = kinds.count("ssm") * cfg.n_groups + \
+        [k for k, _ in cfg.tail_pattern].count("ssm") * cfg.n_tail_groups
+    assert all(len(r.output_tokens) == 8 and r.error is None for r in reqs)
+    # the check's and the served forward, then the decode steps
+    assert launches["flash_attention"] == 2 * n_gqa, launches
+    assert launches["decode_attention"] >= n_gqa * 256, launches
+    assert launches["ssd_intra"] == 2 * n_ssm, launches
+    del eng, lm
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_families(torch, smi):
+    """9: the other text families on the card (slice 11), within
+    `PHASE9_BUDGET_S`: a. attention training (`phase_train_attention`);
+    b. each of `SERVE9` served at its published widths
+    (`serve_family`), one model at a time, freed before the next.
+    Returns 9a's launch counts (the path that introduced kernel 2b)."""
+    wrappers = kernel_wrappers()
+    t_phase = time.perf_counter()
+    launches = phase_train_attention(torch, wrappers)
+    t_train = time.perf_counter() - t_phase
+    walls = {}
+    for name, depth, check_dtype in SERVE9:
+        t0 = time.perf_counter()
+        serve_family(torch, wrappers, name, depth, check_dtype)
+        walls[name] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    emit("families", nvidia_smi=smi, train_wall_s=t_train,
+         serve_wall_s=walls, depth_cuts={n: d for n, d, _ in SERVE9},
+         phase_wall_s=wall, budget_s=PHASE9_BUDGET_S)
+    assert wall < PHASE9_BUDGET_S, f"phase 9 took {wall:.1f} s"
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -2809,9 +3239,16 @@ def main(argv=None):
         phase_mamba_serving(torch, ctx)
         phase_gateway(torch, ctx, smi)
         phase_streaming(torch, ctx, smi)
+        # phases 8 and 9 use none of phase 4's engines and services (~16
+        # GB): free them before 9's models, which take up to 59 GB
+        ctx.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_evaluation(torch, smi)
+        ninth = phase_families(torch, smi)
         path_of = {"ivf_topk": second, "ivfpq_adc": second,
-                   "ssd_intra": third, "ssd_intra_bwd": third}
+                   "ssd_intra": third, "ssd_intra_bwd": third,
+                   "flash_attention_bwd": ninth}
         launches = {n: path_of.get(n, first)[n] for n in main_cases}
     assert "jax" not in sys.modules and "repro" not in sys.modules
 

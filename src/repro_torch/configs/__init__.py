@@ -1,14 +1,19 @@
-"""Architecture registry of the port: the three pool models it serves (two
-dense, one Mamba-2 SSM).
+"""Architecture registry of the port: the reference's eight text
+architectures (dense, MoE, MLA + MoE, Mamba-2 SSM and the hybrid with a
+shared attention block).
 
-`base.py`, `qwen3_4b.py`, `h2o_danube_1_8b.py` and `mamba2_370m.py` are
-copies of the JAX package's config modules (`repro.configs`), kept here so
-the port imports nothing of `repro`."""
+`base.py` and the config modules are copies of the JAX package's
+(`repro.configs`), kept here so the port imports nothing of `repro`.  The
+two architectures with a vision or audio front end (internvl2-76b,
+seamless-m4t-medium) are not ported yet."""
 from .base import ATTN_DENSE, SSM, ModelConfig, reduced
-from . import h2o_danube_1_8b, mamba2_370m, qwen3_4b
+from . import (deepseek_v2_236b, h2o_danube_1_8b, llama4_maverick_400b_a17b,
+               mamba2_370m, qwen1_5_32b, qwen3_4b, starcoder2_15b, zamba2_7b)
 
 ARCHS = {m.CONFIG.name: m.CONFIG
-         for m in (h2o_danube_1_8b, mamba2_370m, qwen3_4b)}
+         for m in (h2o_danube_1_8b, qwen3_4b, llama4_maverick_400b_a17b,
+                   mamba2_370m, deepseek_v2_236b, qwen1_5_32b,
+                   starcoder2_15b, zamba2_7b)}
 
 
 def get_config(name: str) -> ModelConfig:

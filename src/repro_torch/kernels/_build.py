@@ -24,6 +24,7 @@ from typing import Dict, Iterable
 #: kernel name -> its source, relative to this directory
 KERNELS = {"knn_topk": "knn_topk/kernel.cu",
            "flash_attention": "flash_attention/kernel.cu",
+           "flash_attention_bwd": "flash_attention/bwd_kernel.cu",
            "decode_attention": "decode_attention/kernel.cu",
            "ivf_topk": "knn_ivf/kernel.cu",
            "ivfpq_adc": "knn_ivf/pq_kernel.cu",

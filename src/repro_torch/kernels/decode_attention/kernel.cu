@@ -49,7 +49,8 @@
 //
 // ptxas -v (sm_90a): split 32-47 registers, combine 32, no spills; dynamic
 // shared memory SPLIT (2 hd esz + 16) + 16 hd 4 + 16 SPLIT 4 bytes, 45 KB
-// at bf16, hd 128.
+// at bf16, hd 128.  Head dims 64, 80, 112 and 128 (a row is a whole
+// number of 16-byte chunks and of 4-column chunks at each).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -277,6 +278,7 @@ int dispatch_hd(int hd, const void* q, const void* ck, const void* cv,
   switch (hd) {
     case 64: return launch<T, 64>(q, ck, cv, pos, o, part, B, S, KV, G, ring, scale, st);
     case 80: return launch<T, 80>(q, ck, cv, pos, o, part, B, S, KV, G, ring, scale, st);
+    case 112: return launch<T, 112>(q, ck, cv, pos, o, part, B, S, KV, G, ring, scale, st);
     case 128: return launch<T, 128>(q, ck, cv, pos, o, part, B, S, KV, G, ring, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -288,7 +290,7 @@ extern "C" {
 
 // q (B, H, hd) with H = KV * G; cache_k / cache_v (B, S, KV, hd), 16-byte
 // aligned; pos (B,) int32; o (B, H, hd).  f32 (bf16 == 0) or bf16; hd in
-// {64, 80, 128}; part f32 scratch of B H n_split (hd + 2) floats,
+// {64, 80, 112, 128}; part f32 scratch of B H n_split (hd + 2) floats,
 // n_split = ceil(S / 64).
 int decode_attention_launch(const void* q, const void* ck, const void* cv,
                             const void* pos, void* o, void* part, int bf16,

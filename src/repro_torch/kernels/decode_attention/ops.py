@@ -18,7 +18,7 @@ import torch
 from .. import _build
 from .ref import decode_attention_reference
 
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (64, 80, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 GMAX = 16      # kernel.cu: GMAX, query heads per KV head
 SPLIT = 64     # kernel.cu: SPLIT, cache rows a split block owns

@@ -36,26 +36,26 @@
 // half-warp shuffles (a row's 16 threads are one half-warp); P goes to
 // shared memory only for the same half-warp to read back, and P.V runs
 // over the same rows with 4-column chunks per thread, the accumulator in
-// registers across all key tiles.  Masks select, never multiply.
+// registers across all key tiles.  Masks select, never multiply.  For the
+// backward (bwd_kernel.cu) the block also writes each row's log-sum-exp
+// and, for bf16, the output in f32 before its rounding.
 //
 // ptxas -v (sm_90a): f32 hd 64 80 registers (capped for three blocks an
-// SM; the rolled loops below keep it free of spills), the other five
-// instantiations 114-128 (at most two blocks an SM), no spills.  Dynamic shared
-// memory 71 KB at f32 hd 64 with one key tile (Q, P, K, V), 105 KB
-// double-buffered; 185 KB at f32 hd 128.
+// SM; the rolled loops below keep it free of spills), the other seven
+// instantiations 123-128 (at most two blocks an SM), no spills.  Dynamic
+// shared memory 71 KB at f32 hd 64 with one key tile (Q, P, K, V), 105 KB
+// double-buffered; 185 KB at f32 hd 128, 163 KB at f32 hd 112 (hd 112 =
+// 7 x 16: a 448-byte row is 28 16-byte chunks, 28 4-column chunks, so the
+// second chunk of a thread's columns is live for tx < 12).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 
-#include "../attention_common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per tile
-constexpr int NT = 256;      // a 16 x 16 grid of threads
 constexpr int PLD = BK + 16; // P row stride, floats (two half-warps: banks apart)
-constexpr float LOG2E = 1.4426950408889634f;
 
 enum Mode { FULL = 0, LOWER = 1, UPPER = 2 };
 
@@ -66,53 +66,13 @@ __device__ __forceinline__ constexpr bool sub_live(int a, int b) {
 }
 
 template <typename T, int HD>
-struct Layout {
-  static constexpr int ROW = HD * (int)sizeof(T);    // one row, bytes
-  static constexpr int LD = ROW + 16;                // padded row stride
-  static constexpr int CH = ROW / 16;                // 16-byte chunks a row
-  static constexpr int VE = 16 / (int)sizeof(T);     // elements a chunk
-  static constexpr int C4 = HD / 4;                  // 4-column chunks
-  static constexpr int NC = (C4 + 15) / 16;          // of them per thread
-  static constexpr int TILE = BK * LD;               // one K or V tile
+struct Layout : TileRows<T, HD> {
+  using R = TileRows<T, HD>;
   static constexpr int Q = 0;
-  static constexpr int P = BQ * LD;                  // [BQ][PLD] f32
+  static constexpr int P = BQ * R::LD;               // [BQ][PLD] f32
   static constexpr int KV0 = P + BQ * PLD * 4;       // nbuf x (K, V)
-  static int bytes(int nbuf) { return KV0 + nbuf * 2 * TILE; }
+  static int bytes(int nbuf) { return KV0 + nbuf * 2 * R::TILE; }
 };
-
-// rows [r0, r0 + 64) of a (B, S, heads, HD) tensor into shared memory at
-// dst (row stride LD); rows at or past S are zero
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const T* src,
-                                          int b, int r0, int S, int heads,
-                                          int head, int tid) {
-  using L = Layout<T, HD>;
-  const unsigned char* base = reinterpret_cast<const unsigned char*>(src);
-  for (int e = tid; e < 64 * L::CH; e += NT) {
-    const int r = e / L::CH, c = e - r * L::CH;
-    unsigned char* d = dst + r * L::LD + c * 16;
-    if (r0 + r < S) {
-      const size_t off =
-          ((((size_t)b * S + r0 + r) * heads + head) * HD) * sizeof(T) + c * 16;
-      cp_async16(d, base + off);
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = N / 2; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-template <int N>
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = N / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 // One 64 x 64 tile: scores, online softmax update, P.V into acc.
 template <typename T, int HD, int MODE>
@@ -212,26 +172,16 @@ __device__ __forceinline__ void tile_step(
   __syncwarp();     // P is rewritten by the next tile
 }
 
-__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
-  uint2 v;
-  v.x = *reinterpret_cast<const unsigned*>(&lo);
-  v.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = v;
-}
-
 template <typename T, int HD>
 constexpr int min_blocks() { return HD == 64 && sizeof(T) == 4 ? 3 : 2; }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT, (min_blocks<T, HD>()))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int KV, int causal, int window, float scale2) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, float* __restrict__ o32, int Sq,
+                 int Sk, int H, int KV, int causal, int window,
+                 float scale2) {
   using L = Layout<T, HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -298,7 +248,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int i = q0 + ty + 16 * a;
     if (i >= Sq) continue;
     const float inv = l[a] > 0.f ? 1.f / l[a] : 0.f;
-    T* orow = o + (((size_t)b * Sq + i) * H + h) * HD;
+    // natural-log log-sum-exp of the row's scaled scores; +inf for a row
+    // with no live key, so the backward's recomputed P is 0 there
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * Sq + i] =
+          l[a] > 0.f ? (m[a] + log2f(l[a])) * LN2 : CUDART_INF_F;
+    const size_t row = (((size_t)b * Sq + i) * H + h) * HD;
 #pragma unroll
     for (int n = 0; n < L::NC; ++n) {
       const int cc = tx + 16 * n;
@@ -306,15 +261,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float x[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) x[e] = acc[a][n][e] * inv;
-      store4(orow + 4 * cc, x);
+      store4(o + row + 4 * cc, x);
+      if (o32 != nullptr) store4(o32 + row + 4 * cc, x);
     }
   }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int KV, int causal, int window, float scale,
-           cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           float* o32, int B, int Sq, int Sk, int H, int KV, int causal,
+           int window, float scale, cudaStream_t st) {
   using L = Layout<T, HD>;
   // the attribute is per device, so it is set on every launch
   cudaError_t e = cudaFuncSetAttribute(
@@ -326,19 +282,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, HD><<<grid, NT, L::bytes(nbuf), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, causal,
-      window, scale * LOG2E);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, o32, Sq, Sk, H,
+      KV, causal, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                int B, int Sq, int Sk, int H, int KV, int causal, int window,
-                float scale, cudaStream_t st) {
+                float* lse, float* o32, int B, int Sq, int Sk, int H, int KV,
+                int causal, int window, float scale, cudaStream_t st) {
   switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, st);
-    case 80: return launch<T, 80>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, st);
+    case 64: return launch<T, 64>(q, k, v, o, lse, o32, B, Sq, Sk, H, KV, causal, window, scale, st);
+    case 80: return launch<T, 80>(q, k, v, o, lse, o32, B, Sq, Sk, H, KV, causal, window, scale, st);
+    case 112: return launch<T, 112>(q, k, v, o, lse, o32, B, Sq, Sk, H, KV, causal, window, scale, st);
+    case 128: return launch<T, 128>(q, k, v, o, lse, o32, B, Sq, Sk, H, KV, causal, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -348,16 +305,20 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q (B, Sq, H, hd), k / v (B, Sk, KV, hd), o (B, Sq, H, hd), contiguous and
-// 16-byte aligned, f32 (bf16 == 0) or bf16; hd in {64, 80, 128}; window 0 =
-// none.
+// 16-byte aligned, f32 (bf16 == 0) or bf16; hd in {64, 80, 112, 128};
+// window 0 = none.  For the backward (bwd_kernel.cu), when not null: lse
+// receives each row's natural-log log-sum-exp, f32 (B, H, Sq), and o32 the
+// output in f32 (B, Sq, H, hd), before its rounding to bf16.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                           int bf16, int B, int Sq, int Sk, int H, int KV,
-                           int hd, int causal, int window, float scale,
-                           void* stream) {
+                           void* lse, void* o32, int bf16, int B, int Sq,
+                           int Sk, int H, int KV, int hd, int causal,
+                           int window, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  auto ls = static_cast<float*>(lse);
+  auto o4 = static_cast<float*>(o32);
   if (bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, st);
-  return dispatch_hd<float>(hd, q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, st);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, ls, o4, B, Sq, Sk, H, KV, causal, window, scale, st);
+  return dispatch_hd<float>(hd, q, k, v, o, ls, o4, B, Sq, Sk, H, KV, causal, window, scale, st);
 }
 
 }  // extern "C"

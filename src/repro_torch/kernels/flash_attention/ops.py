@@ -1,9 +1,17 @@
-"""Wrapper of the forward attention kernel (`kernel.cu`); replaces
+"""Wrappers of the forward attention kernel (`kernel.cu`) and its backward
+(`bwd_kernel.cu`); `flash_attention` replaces
 `repro.kernels.flash_attention.ops.flash_attention`.
 
 Model layout in and out: q (B, Sq, H, hd), k / v (B, Sk, KV, hd) ->
-(B, Sq, H, hd) in q.dtype.  CPU tensors take the plain version (`ref.py`);
-CUDA tensors launch the kernel or raise.
+(B, Sq, H, hd) in q.dtype.  CPU tensors take the plain versions (`ref.py`,
+differentiated by autograd); CUDA tensors launch the kernels or raise.  On
+the card, where a gradient is wanted (grad mode on and an input that
+requires it, also inside `torch.utils.checkpoint`), `flash_attention` is a
+`torch.autograd.Function`: its forward launches the forward kernel, which
+also writes each row's log-sum-exp and (for bf16) the output in f32, and
+its backward launches the backward kernels (`flash_attention_bwd`), which
+recompute P from the log-sum-exp and take D = rowsum(dO o O) from the f32
+output, as the reference differentiates through its f32 output.
 """
 from __future__ import annotations
 
@@ -13,65 +21,148 @@ import math
 import torch
 
 from .. import _build
-from .ref import flash_attention_reference
+from .ref import flash_attention_bwd_plain, flash_attention_reference
 
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (64, 80, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _lib():
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
+def _fn(name, symbol, n_ptrs):
+    fn = getattr(_build.load(name), symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
-    return lib
+    return fn
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd)."""
+def _check(q, k, v, what):
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
             or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
             or q.shape[2] % k.shape[2]:
-        raise ValueError(f"flash_attention: q (B, Sq, H, hd) and k/v "
-                         f"(B, Sk, KV, hd) with KV | H expected, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+        raise ValueError(f"{what}: q (B, Sq, H, hd) and k/v (B, Sk, KV, hd) "
+                         f"with KV | H expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention: q, k, v on different devices")
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal,
-                                         window=window)
+        raise ValueError(f"{what}: q, k, v on different devices")
+    return q.device
+
+
+def _check_cuda(what, *ts):
+    q = ts[0]
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"{what}: f32 or bf16 tensors of one dtype "
+                        f"expected, got {[t.dtype for t in ts]}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {q.shape[3]} not in {HEAD_DIMS}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what}: inputs must start on a 16-byte boundary "
+                         f"(16-byte row copies)")
+    if q.shape[0] > 65535 or q.shape[2] > 65535:
+        raise ValueError(f"{what}: B={q.shape[0]} and H={q.shape[2]} must "
+                         f"be <= 65535 (grid axes)")
+
+
+def _forward(q, k, v, causal, window, for_backward):
+    """Launch the forward kernel.  Returns (out, lse, out32): with
+    ``for_backward`` the rows' log-sum-exp (B, H, Sq) and the output in f32
+    (``out`` itself for f32 inputs), else None and None."""
+    _check_cuda("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: f32 or bf16 q/k/v of one dtype "
-                        f"expected, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in "
-                         f"{HEAD_DIMS}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
-    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_attention: q, k, v must start on a 16-byte "
-                         "boundary (16-byte row copies)")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"flash_attention: B={B} and H={H} must be <= 65535 "
-                         f"(grid axes)")
     out = torch.empty_like(q)
+    lse = out32 = o32 = None
+    if for_backward:
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        out32 = out if q.dtype == torch.float32 else torch.empty_like(
+            q, dtype=torch.float32)
+        o32 = None if out32 is out else out32.data_ptr()
     if out.numel() == 0:
-        return out
-    err = _lib().flash_attention_launch(
+        return out, lse, out32
+    err = _fn("flash_attention", "flash_attention_launch", 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if for_backward else None, o32,
         int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KV, hd, int(causal),
         int(window or 0), 1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out, lse, out32
 
 
-#: kernel launches through this wrapper (one per call on a CUDA tensor)
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse, out32 = _forward(q, k, v, causal, window, True)
+        ctx.save_for_backward(q, k, v, out32, lse)
+        ctx.mask = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, do.contiguous(),
+                                         causal=causal, window=window,
+                                         out=out, lse=lse)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd)."""
+    if _check(q, k, v, "flash_attention").type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal,
+                                         window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, False)[0]
+
+
+def flash_attention_bwd(q, k, v, do, *, causal=True, window=0, out=None,
+                        lse=None):
+    """(dq, dk, dv) of `flash_attention` at (q, k, v) for the output
+    gradient ``do`` (B, Sq, H, hd), in the inputs' dtypes.  On the card
+    ``out`` (B, Sq, H, hd) and ``lse`` (B, H, Sq), both f32, are the
+    forward's (`_FlashAttention` passes them); the plain version on the CPU
+    recomputes them."""
+    if _check(q, k, v, "flash_attention_bwd").type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, do, causal=causal,
+                                         window=window)
+    if out is None or lse is None:
+        raise ValueError("flash_attention_bwd: the forward's out and lse are "
+                         "needed on the card")
+    _check_cuda("flash_attention_bwd", q, k, v, do)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if do.shape != q.shape or out.shape != q.shape \
+            or lse.shape != (B, H, Sq) or out.dtype != torch.float32 \
+            or lse.dtype != torch.float32 or not out.is_contiguous() \
+            or not lse.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError("flash_attention_bwd: do of q's shape and the "
+                         "forward's f32 contiguous out (B, Sq, H, hd) and "
+                         "lse (B, H, Sq) expected")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = _fn("flash_attention_bwd", "flash_attention_bwd_launch", 10)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), int(q.dtype == torch.bfloat16), B,
+        Sq, Sk, H, KV, hd, int(causal), int(window or 0),
+        1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+#: forward kernel launches through `flash_attention` (one per call on a
+#: CUDA tensor, also inside the autograd Function)
 flash_attention.launches = 0
+#: calls that launched the backward kernels (each launches the delta, dq
+#: and dkdv kernels)
+flash_attention_bwd.launches = 0

@@ -1,7 +1,8 @@
 """Plain-torch forward attention (the twin of
 `repro.models.attention.attend_ref`, which
 `repro.kernels.flash_attention.ref` delegates to): f32 scores and softmax,
-GQA by head groups, causal and sliding-window masks."""
+GQA by head groups, causal and sliding-window masks; and its gradient
+(`flash_attention_bwd_plain`), the plain version of the backward kernel."""
 from __future__ import annotations
 
 import math
@@ -29,3 +30,14 @@ def flash_attention_reference(q, k, v, *, causal=True, window=0, q_offset=0):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, do, *, causal=True, window=0):
+    """The gradient of `flash_attention_reference`: autograd through the
+    plain forward, as the reference's trainer differentiates `attend_ref`.
+    Returns (dq, dk, dv) in the inputs' dtypes."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention_reference(qq, kk, vv, causal=causal,
+                                        window=window)
+        return torch.autograd.grad(out, (qq, kk, vv), do)

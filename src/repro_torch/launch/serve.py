@@ -7,8 +7,10 @@ text requests at per-request cost/quality lambdas.
       --pool qwen3-4b mamba2-370m h2o-danube-1.8b --requests 8 \\
       --router knn100-ivfpq --save-artifact /tmp/r
 
-Engines are reduced configs, as in the reference CLI (`chip_smoke.py`
-serves the published widths).  ``--device cpu`` runs everything with the
+``--pool`` takes any of the eight text architectures of
+`repro_torch.configs` (e.g. ``--pool zamba2-7b deepseek-v2-236b
+llama4-maverick-400b-a17b``).  Engines are reduced configs, as in the
+reference CLI (`chip_smoke.py` serves the published widths).  ``--device cpu`` runs everything with the
 kernels' plain versions.  With ``--save-artifact`` the fitted router is
 persisted (npz + manifest, the reference's format) and the service is
 re-booted from the artifact before serving.

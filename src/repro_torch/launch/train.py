@@ -6,11 +6,18 @@ weights, the zipf token stream, AdamW with f32 master weights.
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
       --reduced --device cpu --steps 5
 
-On the card (the default ``--device cuda``) every SSM layer's intra-chunk
-pass and its gradient run as CUDA kernels; ``--device cpu`` runs their
-plain versions.  The flash attention kernel has no backward yet, so on the
-card the port trains attention-free models.  Prints each logged step's
-loss, grad norm and wall time; returns the per-step history.
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
+      --steps 10 --batch 2 --seq 4096 --ckpt out.npz
+
+``--arch`` takes the eight text architectures of `repro_torch.configs`
+(dense, MoE, MLA + MoE, Mamba-2 and the hybrid).  On the card (the
+default ``--device cuda``) every attention layer's forward and backward
+run as the flash attention kernels and every SSM layer's intra-chunk pass
+and its gradient as the SSD kernels; ``--device cpu`` runs their plain
+versions.  ``--ckpt`` writes the parameters in the reference's layout
+(`training.checkpoint.save_lm`), which `repro.training.checkpoint.
+restore` loads.  Prints each logged step's loss, grad norm and wall time;
+returns the per-step history.
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ from repro_torch.training import optimizer as O
 from repro_torch.training.train_step import make_train_step
 
 
-def main(argv=None):
+def main(argv=None, state=None):
+    """``state``, a dict when given, receives the trained model ("lm"), its
+    config ("cfg"), optimizer state ("opt_state") and step ("step_fn")."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -72,6 +81,7 @@ def main(argv=None):
         sync()
         wall = time.perf_counter() - t_step
         rec = {"step": step, "loss": float(met["loss"]),
+               "aux_loss": float(met["aux_loss"]),
                "grad_norm": float(met["grad_norm"]), "wall_s": wall}
         history.append(rec)
         if step % args.log_every == 0 or step == args.steps - 1:
@@ -80,8 +90,10 @@ def main(argv=None):
                   f"({(time.perf_counter() - t0) / (step + 1):.2f}s/step)")
 
     if args.ckpt:
-        CKPT.save(args.ckpt, dict(lm.named_parameters()))
+        CKPT.save_lm(args.ckpt, lm, cfg)
         print(f"[train] saved checkpoint -> {args.ckpt}")
+    if state is not None:
+        state.update(lm=lm, cfg=cfg, opt_state=opt_state, step_fn=step_fn)
     return history
 
 

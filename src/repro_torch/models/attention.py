@@ -1,5 +1,6 @@
-"""Grouped-query attention (mirrors `repro.models.attention`'s GQA path):
-RoPE, optional qk-norm and bias, sliding window.
+"""Attention (mirrors `repro.models.attention`): grouped-query attention
+with RoPE, optional qk-norm and bias and a sliding window, and DeepSeek-V2's
+multi-head latent attention (MLA).
 
 `gqa_full` runs the forward attention kernel (`kernels.flash_attention`)
 where the reference calls `attend_ref`; `gqa_decode` writes the new K/V row
@@ -7,8 +8,17 @@ of every slot into the cache and runs the decode attention kernel
 (`kernels.decode_attention`) with the slots' position vector, where the
 reference computes the attention inline.  The cache is updated in place
 (the reference returns new arrays), which saves a copy of the whole cache
-per layer and step."""
+per layer and step.
+
+MLA is jnp in the reference, so torch ops carry it here: its qk dim
+(nope + rope, 192 at full width) differs from its v dim (128), which the
+flash kernel does not take.  `mla_decode` is the absorbed decode over the
+latent cache (B, S, kv_lora_rank) + (B, S, qk_rope_dim);
+``cfg.mla_naive_decode`` selects `mla_decode_naive`, which expands the
+whole latent cache to per-head K / V every step."""
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -85,3 +95,139 @@ def gqa_decode(p: GQA, cfg, x, cache_k, cache_v, pos, *, window=0):
                            ring=window > 0)
     y = out.reshape(B, -1).to(x.dtype) @ p.wo
     return y[:, None, :], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """Parameters of one MLA layer, named as the reference's leaves."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        d, H = cfg.d_model, cfg.n_heads
+        r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+        nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        dt = dtype_of(cfg)
+        self.w_dkv = param((d, r + rd), dt, device)
+        self.kv_norm = RMSNorm(r, dt, device)
+        self.w_uk = param((r, H * nd), dt, device)
+        self.w_uv = param((r, H * vd), dt, device)
+        self.wo = param((H * vd, d), dt, device)
+        if qr:
+            self.w_dq = param((d, qr), dt, device)
+            self.q_norm = RMSNorm(qr, dt, device)
+            self.w_uq = param((qr, H * (nd + rd)), dt, device)
+        else:
+            self.wq = param((d, H * (nd + rd)), dt, device)
+
+    def init_(self, generator):
+        for name in ("w_dkv", "w_uk", "w_uv", "wo", "w_dq", "w_uq", "wq"):
+            if hasattr(self, name):
+                dense_init_(getattr(self, name), generator)
+
+
+def _mla_q(p: MLA, cfg, x, positions):
+    B, S, _ = x.shape
+    H, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        q = rmsnorm(p.q_norm, x @ p.w_dq) @ p.w_uq
+    else:
+        q = x @ p.wq
+    q = q.reshape(B, S, H, nd + rd)
+    return q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta)
+
+
+def _mla_ckv(p: MLA, cfg, x, positions):
+    ckv = x @ p.w_dkv
+    r = cfg.kv_lora_rank
+    c = rmsnorm(p.kv_norm, ckv[..., :r])
+    k_rope = apply_rope(ckv[..., None, r:], positions, cfg.rope_theta)
+    return c, k_rope[..., 0, :]
+
+
+def _mla_scale(cfg):
+    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def mla_full(p: MLA, cfg, x, positions):
+    """Causal full-sequence MLA in f32.  x: (B, S, D)."""
+    B, S, _ = x.shape
+    H, nd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c, k_rope = _mla_ckv(p, cfg, x, positions)
+    k_nope = (c @ p.w_uk).reshape(B, S, H, nd)
+    v = (c @ p.w_uv).reshape(B, S, H, vd)
+    scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                             k_rope.float())) * _mla_scale(cfg)
+    mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.reshape(B, S, -1).to(x.dtype) @ p.wo
+
+
+def _mla_step(p: MLA, cfg, x, cache_c, cache_kr, pos):
+    """The new token's queries and latent row, written into the caches at
+    ``pos`` (clamped, as `dynamic_update_slice` clamps).  Returns
+    (q_nope, q_rope, valid (B, S))."""
+    B = x.shape[0]
+    pos = pos.to(device=x.device, dtype=torch.int32)
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c, k_rope = _mla_ckv(p, cfg, x, positions)
+    S = cache_c.shape[1]
+    rows = torch.arange(B, device=x.device)
+    slot = pos.clamp(0, S - 1)
+    cache_c[rows, slot] = c[:, 0]
+    cache_kr[rows, slot] = k_rope[:, 0]
+    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    return q_nope[:, 0].float(), q_rope[:, 0].float(), valid
+
+
+def _softmax_valid(scores, valid):
+    return torch.softmax(scores.masked_fill(~valid[:, None, :],
+                                            float("-inf")), dim=-1)
+
+
+def mla_decode_naive(p: MLA, cfg, x, cache_c, cache_kr, pos):
+    """Naive MLA decode: the whole latent cache expanded to per-head K / V
+    each step.  Caches updated in place; returns (y, cache_c, cache_kr)."""
+    B = x.shape[0]
+    H, nd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    q_nope, q_rope, valid = _mla_step(p, cfg, x, cache_c, cache_kr, pos)
+    S = cache_c.shape[1]
+    k_nope = (cache_c @ p.w_uk).reshape(B, S, H, nd)
+    v = (cache_c @ p.w_uv).reshape(B, S, H, vd)
+    scores = (torch.einsum("bhd,bshd->bhs", q_nope, k_nope.float())
+              + torch.einsum("bhd,bsd->bhs", q_rope, cache_kr.float())
+              ) * _mla_scale(cfg)
+    out = torch.einsum("bhs,bshd->bhd", _softmax_valid(scores, valid),
+                       v.float())
+    y = out.reshape(B, -1).to(x.dtype) @ p.wo
+    return y[:, None, :], cache_c, cache_kr
+
+
+def mla_decode(p: MLA, cfg, x, cache_c, cache_kr, pos):
+    """Absorbed MLA decode: attention runs in the kv_lora space, so the
+    cache is only (B, S, r + rope_dim).  x: (B, 1, D); pos: (B,) int.
+    Caches updated in place; returns (y, cache_c, cache_kr)."""
+    if getattr(cfg, "mla_naive_decode", False):
+        return mla_decode_naive(p, cfg, x, cache_c, cache_kr, pos)
+    B = x.shape[0]
+    H, nd, vd, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim,
+                    cfg.kv_lora_rank)
+    q_nope, q_rope, valid = _mla_step(p, cfg, x, cache_c, cache_kr, pos)
+    w_uk = p.w_uk.reshape(r, H, nd).float()
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope, w_uk)
+    cf = cache_c.float()
+    scores = (torch.einsum("bhr,bsr->bhs", q_abs, cf)
+              + torch.einsum("bhd,bsd->bhs", q_rope, cache_kr.float())
+              ) * _mla_scale(cfg)
+    out_c = torch.einsum("bhs,bsr->bhr", _softmax_valid(scores, valid), cf)
+    out = torch.einsum("bhr,rhv->bhv", out_c,
+                       p.w_uv.reshape(r, H, vd).float())
+    y = out.reshape(B, -1).to(x.dtype) @ p.wo
+    return y[:, None, :], cache_c, cache_kr

@@ -1,15 +1,17 @@
-"""JAX parameter pytree -> the port's modules.
+"""JAX parameter pytree <-> the port's modules.
 
-``params_from_jax(tree, cfg)`` takes the tree `repro.models.model.
+``params_from_jax(tree, cfg, device)`` takes the tree `repro.models.model.
 init_params` returns, with numpy arrays as leaves
 (``jax.tree.map(np.asarray, params)``), and unstacks the scanned group
-axis into one `Block` or `SSMBlock` per layer, so the same weights compute
-the same function in both packages.  Covers the dense engine LMs, the
-Mamba-2 LM (``ssm.in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``,
-``dt_bias``, ``norm.scale``, ``out_proj``) and the query encoder (which
-uses ``embed`` and the stack).  Every leaf keeps its dtype: a JAX leaf
-whose dtype differs from the port's parameter (an f32 ``A_log`` in a bf16
-model stays f32 on both sides) is refused.
+axis of ``stack/groups`` and ``stack/tail`` into one module per layer (the
+shared block of ``stack/shared`` becomes ``LM.shared``), so the same
+weights compute the same function in both packages.  Covers every text
+architecture and the query encoder (which uses ``embed`` and the stack).
+Every leaf keeps its dtype: a JAX leaf whose dtype differs from the port's
+parameter (an f32 ``A_log`` or MoE ``router`` in a bf16 model stays f32 on
+both sides) is refused.  ``params_to_jax(lm, cfg)`` is the inverse: the
+reference's stacked tree, which `training.checkpoint.save_lm` writes.
+Both converters default to the card, like every entry point of the port.
 
 ``router_params_from_jax(flat, device)`` does the same for a learned
 router: the reference's parameter tree, as numpy arrays keyed by artifact
@@ -34,21 +36,37 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
         for k, v in tree.items():
             _flatten(v, f"{prefix}{k}.", out)
     else:
-        out[prefix[:-1]] = np.asarray(tree)
+        out[prefix[:-1]] = (tree if isinstance(tree, torch.Tensor)
+                            else np.asarray(tree))
 
 
-def params_from_jax(tree, cfg, device="cpu") -> LM:
+def _layer_sources(cfg):
+    """(stack part, pattern slot, group) of each layer in execution order:
+    the scanned groups, then the tail groups."""
+    out = []
+    for part, pattern, n in (("groups", cfg.pattern, cfg.n_groups),
+                             ("tail", cfg.tail_pattern, cfg.n_tail_groups)):
+        out += [(part, i, g) for g in range(n) for i in range(len(pattern))]
+    return out
+
+
+def params_from_jax(tree, cfg, device="cuda", cast=False) -> LM:
+    """The reference's tree -> an `LM` on ``device``.  ``cast`` (the
+    checkpoint reader's) casts each leaf (numpy or torch) to the port's
+    parameter dtype instead of refusing another dtype."""
     state: Dict[str, np.ndarray] = {}
     _flatten({k: tree[k] for k in ("embed", "final_norm", "lm_head")}, "",
              state)
-    groups = tree["stack"]["groups"]
-    n_pat = len(cfg.pattern)
-    for li in range(len(layer_specs(cfg))):
-        g, i = divmod(li, n_pat)
+    stack = tree["stack"]
+    sources = _layer_sources(cfg)
+    assert len(sources) == len(layer_specs(cfg))
+    for li, (part, i, g) in enumerate(sources):
         layer: Dict[str, np.ndarray] = {}
-        _flatten(groups[i], "", layer)
+        _flatten(stack[part][i], "", layer)
         for name, arr in layer.items():
             state[f"blocks.{li}.{name}"] = arr[g]
+    if "shared" in stack:
+        _flatten(stack["shared"], "shared.", state)
     lm = LM(cfg, device)
     own = lm.state_dict()
     if set(own) != set(state):
@@ -61,14 +79,67 @@ def params_from_jax(tree, cfg, device="cpu") -> LM:
             if leaf.shape != tuple(t.shape):
                 raise ValueError(f"{name}: jax shape {leaf.shape} != port "
                                  f"shape {tuple(t.shape)}")
-            if str(leaf.dtype) != str(t.dtype).replace("torch.", ""):
-                raise ValueError(f"{name}: jax dtype {leaf.dtype} != port "
-                                 f"dtype {t.dtype}")
-            t.copy_(torch.from_numpy(np.array(leaf, np.float32)))
+            if not isinstance(leaf, torch.Tensor):
+                if not cast and str(leaf.dtype) != str(t.dtype).replace(
+                        "torch.", ""):
+                    raise ValueError(f"{name}: jax dtype {leaf.dtype} != "
+                                     f"port dtype {t.dtype}")
+                a = np.asarray(leaf, np.float32)
+                leaf = torch.from_numpy(a if a.flags.writeable else a.copy())
+            # to the device first, then the cast there
+            t.copy_(leaf.to(t.device))
     return lm
 
 
-def router_params_from_jax(flat: Dict[str, np.ndarray], device="cpu"):
+def params_to_jax(lm, cfg):
+    """The inverse of `params_from_jax`: the port's parameters (an `LM`, or
+    a ``{name: tensor}`` mapping with its names, e.g. its gradients) as the
+    reference's tree: ``embed``, ``final_norm``, ``lm_head`` and ``stack``
+    with ``groups`` / ``tail`` (one dict per pattern slot, every leaf
+    stacked along a leading group axis) and ``shared``.  Leaves are numpy
+    arrays, floating ones in f32 (exact for bf16; numpy has no bf16),
+    stacked and cast on the tensors' device before the copy to the host."""
+    named = dict(lm.state_dict() if isinstance(lm, torch.nn.Module) else lm)
+
+    def arr(t):
+        t = t.detach()
+        return (t.float() if t.is_floating_point() else t).cpu().numpy()
+
+    def nest(items):
+        out: dict = {}
+        for name, a in items:
+            *path, leaf = name.split(".")
+            d = out
+            for p in path:
+                d = d.setdefault(p, {})
+            d[leaf] = a
+        return out
+
+    tree = nest((k, arr(v)) for k, v in named.items()
+                if not k.startswith(("blocks.", "shared.")))
+    per_slot: Dict[tuple, Dict[str, list]] = {}
+    for li, (part, i, g) in enumerate(_layer_sources(cfg)):
+        slot = per_slot.setdefault((part, i), {})
+        prefix = f"blocks.{li}."
+        for k, v in named.items():
+            if k.startswith(prefix):
+                slot.setdefault(k[len(prefix):], []).append(v.detach())
+    stack: dict = {}
+    for part, pattern in (("groups", cfg.pattern),
+                          ("tail", cfg.tail_pattern)):
+        if pattern:
+            stack[part] = [nest((k, arr(torch.stack(v))) for k, v in
+                                per_slot.get((part, i), {}).items())
+                           for i in range(len(pattern))]
+    shared = [(k[len("shared."):], arr(v)) for k, v in named.items()
+              if k.startswith("shared.")]
+    if shared:
+        stack["shared"] = nest(shared)
+    tree["stack"] = stack
+    return tree
+
+
+def router_params_from_jax(flat: Dict[str, np.ndarray], device="cuda"):
     """{artifact path: array} of one router attribute -> the port's tree of
     f32 tensors on ``device`` (lists where every key at a level is a
     decimal index, dicts elsewhere, as the reference's reader rebuilds)."""

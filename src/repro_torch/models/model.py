@@ -1,6 +1,6 @@
 """Top-level language model, text decoder (mirrors `repro.models.model`):
-embedding, layer stack (dense attention or Mamba-2 layers), final norm, LM
-head.
+embedding, layer stack (dense, MoE, MLA + MoE, Mamba-2 and the hybrid's
+shared attention block), final norm, LM head.
 
     lm = init_params(get_config("qwen3-4b"), seed=0, device="cuda")
     caches = init_caches(cfg, batch=4, cache_len=512, device="cuda")
@@ -29,6 +29,8 @@ class LM(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, dt, device)
         self.lm_head = param((cfg.d_model, cfg.vocab_size), dt, device)
         self.blocks = tfm.stack_init(cfg, device)
+        if tfm.has_shared(cfg):
+            self.shared = tfm.SharedBlock(cfg, device)
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> LM:
@@ -41,21 +43,26 @@ def init_params(cfg, seed: int = 0, device="cuda") -> LM:
     dense_init_(lm.lm_head, g)
     for blk in lm.blocks:
         blk.init_(g)
+    if hasattr(lm, "shared"):
+        lm.shared.init_(g)
     return lm
 
 
-def forward(lm: LM, cfg, batch):
+def forward(lm: LM, cfg, batch, long_mode=False):
     """Full-sequence forward (training / prefill).  batch["tokens"]:
-    (B, S) int.  Returns (logits (B, S, vocab) f32, aux): aux is the
-    reference's MoE balance loss, 0 for the port's expert-free models."""
+    (B, S) int.  Returns (logits (B, S, vocab) f32, aux): aux sums the MoE
+    layers' balance losses (0 without MoE).  ``long_mode`` gives the
+    hybrid's shared block its sliding window."""
     tokens = batch["tokens"]
     x = lm.embed[tokens]
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    x = tfm.stack_full(lm.blocks, cfg, x, positions)
+    x, aux = tfm.stack_full(lm.blocks, cfg, x, positions,
+                            shared=getattr(lm, "shared", None),
+                            long_mode=long_mode)
     x = rmsnorm(lm.final_norm, x)
     logits = (x @ lm.lm_head).float()
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(lm: LM, cfg, batch, aux_weight=0.01):
@@ -79,8 +86,9 @@ def prefill(lm: LM, cfg, batch):
     return forward(lm, cfg, batch)[0]
 
 
-def init_caches(cfg, batch, cache_len, device="cuda"):
-    return tfm.caches_init(cfg, batch, cache_len, device)
+def init_caches(cfg, batch, cache_len, device="cuda", long_mode=False):
+    return tfm.caches_init(cfg, batch, cache_len, device,
+                           long_mode=long_mode)
 
 
 @torch.no_grad()
@@ -89,7 +97,8 @@ def decode_step(lm: LM, cfg, caches, token, pos, feed=None):
     (B,) bool, when given, the slots whose recurrent (SSM) state this step
     advances.  Returns (logits (B, vocab) f32, caches updated in place)."""
     x = lm.embed[token]
-    x, caches = tfm.stack_decode(lm.blocks, cfg, caches, x, pos, feed=feed)
+    x, caches = tfm.stack_decode(lm.blocks, cfg, caches, x, pos, feed=feed,
+                                 shared=getattr(lm, "shared", None))
     x = rmsnorm(lm.final_norm, x)
     logits = (x @ lm.lm_head).float()
     return logits[:, 0], caches

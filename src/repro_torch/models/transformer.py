@@ -1,8 +1,17 @@
 """Layer stack (mirrors `repro.models.transformer`): the reference's scanned
 ``(n_groups, ...)`` parameter stacks become one module per layer, in order
-group by group, pattern slot by pattern slot: a `Block` for a dense
-attention layer ``("attn", "dense")`` and an `SSMBlock` for a Mamba-2 layer
-``("ssm", "none")``."""
+group by group, pattern slot by pattern slot, then the tail groups:
+
+- `Block` for an attention layer ``("attn", "dense" | "moe")`` or an MLA
+  layer ``("mla", "moe")``;
+- `SSMBlock` for a Mamba-2 layer ``("ssm", "none")``;
+- `SharedSlot`, which holds nothing, for a slot of the hybrid's shared
+  attention block ``("shared_attn", "none")``: the one `SharedBlock` lives
+  on the `LM` and is applied at every such slot, so its gradient sums over
+  the slots.
+
+The vision and audio front ends (cross attention, the encoder) are not
+ported: `layer_specs` refuses their configs."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -11,28 +20,34 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN_DENSE, SSM
+from repro_torch.configs.base import (ATTN_DENSE, ATTN_MOE, MLA_MOE,
+                                      SHARED_ATTN, SSM)
+from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .attention import GQA, gqa_decode, gqa_full
+from .attention import GQA, MLA, gqa_decode, gqa_full, mla_decode, mla_full
 from .layers import MLP, RMSNorm, dtype_of, mlp, rmsnorm
 
-PORTED_SPECS = (ATTN_DENSE, SSM)
+PORTED_SPECS = (ATTN_DENSE, ATTN_MOE, MLA_MOE, SSM, SHARED_ATTN)
 
 
 class Block(nn.Module):
-    """One pre-norm attention + SwiGLU block (spec ``("attn", "dense")``)."""
+    """One pre-norm attention (GQA or MLA) layer with a SwiGLU or MoE FFN."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, spec, device):
         super().__init__()
+        kind, ffn = spec
         dt = dtype_of(cfg)
         self.norm1 = RMSNorm(cfg.d_model, dt, device)
-        self.attn = GQA(cfg, device)
+        self.attn = MLA(cfg, device) if kind == "mla" else GQA(cfg, device)
         self.norm2 = RMSNorm(cfg.d_model, dt, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+        if ffn == "moe":
+            self.moe = moe_mod.MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
 
     def init_(self, generator):
         self.attn.init_(generator)
-        self.mlp.init_(generator)
+        (self.moe if hasattr(self, "moe") else self.mlp).init_(generator)
 
 
 class SSMBlock(nn.Module):
@@ -47,9 +62,37 @@ class SSMBlock(nn.Module):
         self.ssm.init_(generator)
 
 
+class SharedBlock(nn.Module):
+    """The hybrid's shared transformer block (attention + SwiGLU), held
+    once (the reference's ``stack/shared``)."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        dt = dtype_of(cfg)
+        self.norm1 = RMSNorm(cfg.d_model, dt, device)
+        self.attn = GQA(cfg, device)
+        self.norm2 = RMSNorm(cfg.d_model, dt, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+
+    def init_(self, generator):
+        self.attn.init_(generator)
+        self.mlp.init_(generator)
+
+
+class SharedSlot(nn.Module):
+    """A slot of the shared block: no weights of its own."""
+
+    def init_(self, generator):
+        pass
+
+
 def layer_specs(cfg):
     """Layer specs in execution order (``pattern`` x ``n_groups``, then the
-    tail); the port runs dense attention and Mamba-2 layers."""
+    tail); configs with a vision or audio front end are refused."""
+    if cfg.frontend != "text" or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} front end and cross attention "
+            f"are not ported; the port runs text decoders")
     specs = [tuple(s) for s in list(cfg.pattern) * cfg.n_groups
              + list(cfg.tail_pattern) * cfg.n_tail_groups]
     bad = sorted({s for s in specs if s not in PORTED_SPECS})
@@ -59,58 +102,106 @@ def layer_specs(cfg):
     return specs
 
 
+def has_shared(cfg) -> bool:
+    return any(k == "shared_attn" for k, _ in cfg.pattern + cfg.tail_pattern)
+
+
 def stack_init(cfg, device) -> nn.ModuleList:
-    return nn.ModuleList(SSMBlock(cfg, device) if spec == SSM
-                         else Block(cfg, device)
-                         for spec in layer_specs(cfg))
+    def one(spec):
+        if spec == SSM:
+            return SSMBlock(cfg, device)
+        if spec == SHARED_ATTN:
+            return SharedSlot()
+        return Block(cfg, spec, device)
+    return nn.ModuleList(one(spec) for spec in layer_specs(cfg))
 
 
-def _apply_full(blk, cfg, x, positions):
+def _ffn(blk, cfg, x):
+    """The FFN half of a `Block`: (x + ffn(norm2 x), aux)."""
+    h = rmsnorm(blk.norm2, x)
+    if hasattr(blk, "moe"):
+        y, aux = moe_mod.moe_ffn(blk.moe, cfg, h)
+        return x + y, aux
+    return x + mlp(blk.mlp, h), None
+
+
+def _apply_full(blk, cfg, x, positions, shared, long_mode):
+    """One layer over a full sequence; returns (x, aux or None)."""
     if isinstance(blk, SSMBlock):
-        return x + ssm_mod.ssm_full(blk.ssm, cfg, rmsnorm(blk.norm1, x))
-    if x.is_cuda and torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "the flash attention kernel has no backward yet: the port trains "
-            "attention-free models on the card")
-    x = x + gqa_full(blk.attn, cfg, rmsnorm(blk.norm1, x), positions,
-                     causal=True, window=cfg.sliding_window)
-    return x + mlp(blk.mlp, rmsnorm(blk.norm2, x))
+        return x + ssm_mod.ssm_full(blk.ssm, cfg, rmsnorm(blk.norm1, x)), None
+    if isinstance(blk, SharedSlot):
+        w = cfg.shared_attn_window if long_mode else 0
+        x = x + gqa_full(shared.attn, cfg, rmsnorm(shared.norm1, x),
+                         positions, causal=True, window=w)
+        return x + mlp(shared.mlp, rmsnorm(shared.norm2, x)), None
+    h = rmsnorm(blk.norm1, x)
+    if isinstance(blk.attn, MLA):
+        x = x + mla_full(blk.attn, cfg, h, positions)
+    else:
+        x = x + gqa_full(blk.attn, cfg, h, positions, causal=True,
+                         window=cfg.sliding_window)
+    return _ffn(blk, cfg, x)
 
 
-def stack_full(blocks, cfg, x, positions):
+def stack_full(blocks, cfg, x, positions, shared=None, long_mode=False):
     """Apply the whole stack to a full sequence (training, forward, the
-    encoder).  With ``cfg.remat`` and gradients on, each layer is
-    recomputed in the backward pass (`torch.utils.checkpoint`), as the
-    reference checkpoints each scanned group."""
+    encoder).  Returns (x, aux): aux sums the MoE layers' balance losses
+    (an f32 zero without MoE).  With ``cfg.remat`` and gradients on, each
+    layer is recomputed in the backward pass (`torch.utils.checkpoint`),
+    as the reference checkpoints each scanned group.  ``long_mode`` gives
+    the shared block its sliding window ``cfg.shared_attn_window``."""
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in blocks:
         if remat:
-            x = checkpoint(_apply_full, blk, cfg, x, positions,
-                           use_reentrant=False)
+            x, a = checkpoint(_apply_full, blk, cfg, x, positions, shared,
+                              long_mode, use_reentrant=False)
         else:
-            x = _apply_full(blk, cfg, x, positions)
-    return x
+            x, a = _apply_full(blk, cfg, x, positions, shared, long_mode)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
-def caches_init(cfg, batch, cache_len, device) -> List[Dict[str, torch.Tensor]]:
+def caches_init(cfg, batch, cache_len, device,
+                long_mode=False) -> List[Dict[str, torch.Tensor]]:
     """One cache per layer: for attention {"k", "v"} of (batch, S, KV, hd),
-    a ring of S = min(cache_len, window) slots with a sliding window; for
-    an SSM layer the conv's trailing inputs and the SSD state."""
-    w = cfg.sliding_window
-    S = min(cache_len, w) if w else cache_len
+    a ring of S = min(cache_len, window) slots with a sliding window (the
+    shared block's window only in ``long_mode``); for MLA the latent rows
+    {"c": (batch, cache_len, kv_lora_rank), "kr": (batch, cache_len,
+    qk_rope_dim)}; for an SSM layer the conv's trailing inputs and the SSD
+    state."""
     dt = dtype_of(cfg)
     caches = []
     for spec in layer_specs(cfg):
-        if spec == SSM:
+        kind = spec[0]
+        if kind == "ssm":
             caches.append(ssm_mod.ssm_state_init(cfg, batch, device))
             continue
+        if kind == "mla":
+            caches.append({
+                "c": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                                 dtype=dt, device=device),
+                "kr": torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                                  dtype=dt, device=device)})
+            continue
+        w = (cfg.sliding_window if kind == "attn"
+             else cfg.shared_attn_window if long_mode else 0)
+        S = min(cache_len, w) if w else cache_len
         shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
         caches.append({"k": torch.zeros(shape, dtype=dt, device=device),
                        "v": torch.zeros(shape, dtype=dt, device=device)})
     return caches
 
 
-def stack_decode(blocks, cfg, caches, x, pos, feed=None):
+def _attn_decode(attn, cfg, x, cache, pos, w):
+    ring = w if (w and cache["k"].shape[1] <= w) else 0
+    h, cache["k"], cache["v"] = gqa_decode(attn, cfg, x, cache["k"],
+                                           cache["v"], pos, window=ring)
+    return h
+
+
+def stack_decode(blocks, cfg, caches, x, pos, feed=None, shared=None):
     """One decode token through the stack; ``caches`` updated in place.
     ``feed`` (B,) bool, when given, names the slots this step feeds: an SSM
     layer keeps the old state of every other slot, so a recurrent state
@@ -128,11 +219,19 @@ def stack_decode(blocks, cfg, caches, x, pos, feed=None):
                 cache[key].copy_(t)
             x = x + h
             continue
-        w = cfg.sliding_window
-        ring = w if (w and cache["k"].shape[1] <= w) else 0
-        h, cache["k"], cache["v"] = gqa_decode(
-            blk.attn, cfg, rmsnorm(blk.norm1, x), cache["k"], cache["v"], pos,
-            window=ring)
-        x = x + h
-        x = x + mlp(blk.mlp, rmsnorm(blk.norm2, x))
+        if isinstance(blk, SharedSlot):
+            x = x + _attn_decode(shared.attn, cfg, rmsnorm(shared.norm1, x),
+                                 cache, pos, cfg.shared_attn_window)
+            x = x + mlp(shared.mlp, rmsnorm(shared.norm2, x))
+            continue
+        h = rmsnorm(blk.norm1, x)
+        if isinstance(blk.attn, MLA):
+            y, cache["c"], cache["kr"] = mla_decode(blk.attn, cfg, h,
+                                                    cache["c"], cache["kr"],
+                                                    pos)
+            x = x + y
+        else:
+            x = x + _attn_decode(blk.attn, cfg, h, cache, pos,
+                                 cfg.sliding_window)
+        x = _ffn(blk, cfg, x)[0]
     return x, caches

@@ -20,7 +20,6 @@ timing races: the process dies exactly at the instrumented instruction.
 from __future__ import annotations
 
 import hashlib
-import io
 import json
 import os
 import signal
@@ -94,6 +93,12 @@ def atomic_write_bytes(path: PathLike, data: bytes, *,
         f.flush()
         if fsync:
             os.fsync(f.fileno())
+    return _publish(tmp, path, fsync)
+
+
+def _publish(tmp: Path, path: Path, fsync: bool) -> Path:
+    """The flushed temp file -> ``path``: ``os.replace`` and a dir fsync,
+    between the kill barriers."""
     maybe_kill("atomic-pre-rename")
     os.replace(tmp, path)
     if fsync:
@@ -115,12 +120,20 @@ def atomic_write_json(path: PathLike, obj, *, indent: int = 2,
 
 def atomic_savez(path: PathLike, *, fsync: bool = True,
                  **arrays) -> Path:
-    """``np.savez`` with atomic publication: the zip is assembled in memory
-    and lands via `atomic_write_bytes`, so a crashed save can never leave a
-    truncated npz at the final path."""
-    bio = io.BytesIO()
-    np.savez(bio, **arrays)
-    return atomic_write_bytes(path, bio.getvalue(), fsync=fsync)
+    """``np.savez`` with atomic publication: the zip streams into the temp
+    file of `atomic_write_bytes` (no copy of the arrays in memory: a
+    model's checkpoint runs to gigabytes) and is published the same way,
+    so a crashed save can never leave a truncated npz at the final path."""
+    path = Path(path)
+    tmp = path.with_name(f"{path.name}.tmp-{os.getpid()}")
+    # repro: allow-plain-write: the temp name of the atomic helper, never
+    # the final path
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        if fsync:
+            os.fsync(f.fileno())
+    return _publish(tmp, path, fsync)
 
 
 def sha256_hex(data: bytes) -> str:

@@ -57,7 +57,7 @@ class QueryEncoder:
         x = self.params.embed[tokens]
         pos = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[0], -1)
-        h = tfm.stack_full(self.params.blocks, self.cfg, x, pos)
+        h = tfm.stack_full(self.params.blocks, self.cfg, x, pos)[0]
         mask = (tokens > 0).float()[..., None]
         return (h * mask).sum(1) / mask.sum(1).clamp_min(1.0)
 

@@ -192,7 +192,7 @@ def test_pipeline_evaluate_and_fit_selection_match_reference(spec, small):
     if spec == "linear":
         # the logistic head starts from the reference's initial weights
         flat = jax_init(jp.router, ds.dim, ds.n_models, selection=True)
-        pp.router._sel_init = lambda gen, D, M: router_params_from_jax(flat)
+        pp.router._sel_init = lambda gen, D, M: router_params_from_jax(flat, device="cpu")
     jsel = jp.fit_selection(jds, lam).router.select(X)
     psel = pp.fit_selection(ds, lam).router.select(X)
     assert (psel == jsel).all()

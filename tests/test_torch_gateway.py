@@ -571,7 +571,7 @@ def test_same_request_streams_the_same_tokens_in_both_packages():
         t_eng[name] = ServingEngine(
             reduced(get_config(name)),
             params_from_jax(jax.tree.map(np.asarray, je.params),
-                            reduced(get_config(name))),
+                            reduced(get_config(name)), device="cpu"),
             max_slots=2, cache_len=48, device="cpu")
     enc_cfg = ModelConfig(
         name="query-encoder", arch_type="dense", n_layers=2, d_model=768,
@@ -585,7 +585,7 @@ def test_same_request_streams_the_same_tokens_in_both_packages():
     jsvc = JaxService(jax_make("knn10"), j_eng, ds=jds, engine_timeout_s=30)
     tsvc = RouterService(make_router("knn10", device="cpu"), t_eng, ds=tds,
                          engine_timeout_s=30, encoder=QueryEncoder(
-                             params_from_jax(enc_params, ENCODER_CFG),
+                             params_from_jax(enc_params, ENCODER_CFG, device="cpu"),
                              device="cpu"))
     # a text whose quality-first choice differs from the cheapest engine
     texts = [f"{t} request number {i}" for i, t in enumerate(

@@ -1077,3 +1077,158 @@ def test_gpu_graphed_fit_matches_eager_fit(spec, monkeypatch):
     X = ds.part("test")[0]
     for a, b in zip(gr.predict_utility(X), er.predict_utility(X)):
         assert np.abs(a - b).max() <= 1e-5 * max(1.0, np.abs(b).max())
+
+
+# ---------------------------------------------------------------------------
+# kernel 2b (the flash attention backward), head dim 112, and the model
+# families that train through them
+# ---------------------------------------------------------------------------
+
+def _bwd_err(got, want, dtype):
+    """Largest |got - want| over (|want| 2^-8 + 2e-5 in bf16, else 2e-5) is
+    at most 1: the plain version's f32 gradient is the yardstick (see
+    chip_smoke.py's `attn_err`), with bf16's own rounding allowed."""
+    d = (got.float() - want).abs()
+    lim = torch.full_like(want, 2e-5 if dtype == torch.float32 else 1e-2)
+    if dtype == torch.bfloat16:
+        lim = torch.maximum(lim, want.abs() * 2.0 ** -8 + 2e-5)
+    return float((d / lim).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,B,S,KV,G,hd,causal,window", [
+    (torch.float32, 2, 130, 2, 1, 64, True, 0),
+    (torch.float32, 1, 200, 1, 5, 80, True, 48),
+    (torch.float32, 1, 100, 1, 12, 112, False, 0),
+    (torch.float32, 1, 257, 2, 1, 128, True, 64),
+    (torch.bfloat16, 2, 130, 2, 5, 112, True, 0),
+    (torch.bfloat16, 1, 300, 1, 12, 128, True, 100),
+    (torch.bfloat16, 2, 96, 2, 1, 80, False, 0),
+])
+def test_gpu_flash_backward_matches_plain(dtype, B, S, KV, G, hd, causal,
+                                          window):
+    """Kernel 2b through the autograd Function (forward with lse, then the
+    backward kernels) against autograd through the plain version in f32 on
+    the same values; f32 limit 2e-5, bf16 1e-2 or its own rounding.  A
+    second backward gives the same bits (no atomics)."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain)
+    g = torch.Generator(device="cuda").manual_seed(S + hd + G)
+    H = KV * G
+    q = torch.randn(B, S, H, hd, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, S, H, hd, device="cuda", generator=g).to(dtype)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n0 = (fops.flash_attention.launches,
+              fops.flash_attention_bwd.launches)
+        out = fops.flash_attention(*leaves, causal=causal, window=window)
+        out.backward(do)
+        assert (fops.flash_attention.launches,
+                fops.flash_attention_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+        grads.append([t.grad for t in leaves])
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                     do.float(), causal=causal,
+                                     window=window)
+    for a, b, w in zip(grads[0], grads[1], want):
+        assert a.dtype == dtype and torch.equal(a, b)
+        assert _bwd_err(a, w, dtype) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 5e-2)])
+def test_gpu_attention_kernels_at_head_dim_112(dtype, tol):
+    """zamba2-7b's shared block: d_model 3,584 / 32 heads = 112."""
+    _need_cuda()
+    q, k, v = (torch.from_numpy(x).cuda().to(dtype)
+               for x in _attn_data(2, 150, 32, 32, 112, 112))
+    torch.testing.assert_close(
+        flash_attention(q, k, v, causal=True, window=0).float(),
+        flash_attention_reference(q, k, v, causal=True, window=0).float(),
+        rtol=tol, atol=tol)
+    q, ck, cv = (torch.from_numpy(x).cuda().to(dtype)
+                 for x in _decode_data(4, 300, 32, 32, 112, 7))
+    pos = torch.tensor([0, 63, 64, 299], dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(
+        decode_attention(q, ck, cv, pos).float(),
+        decode_attention_reference(q, ck, cv, pos).float(), rtol=tol,
+        atol=tol)
+
+
+def _reduced_step(name, device, seed=0):
+    """One AdamW step of ``name``'s reduced config on ``device`` from the
+    same CPU-drawn weights and batch: (metrics, parameters after)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import make_train_step
+    cfg = reduced(get_config(name))
+    lm = M.init_params(cfg, seed=seed, device="cpu").to(device)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 65))).to(
+        device)
+    step = make_train_step(cfg, O.OptConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=4))
+    met = step(lm, O.init(dict(lm.named_parameters())),
+               {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    return met, {n: p.detach() for n, p in lm.named_parameters()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qwen1.5-32b", "starcoder2-15b",
+                                  "llama4-maverick-400b-a17b",
+                                  "deepseek-v2-236b", "zamba2-7b"])
+def test_gpu_new_family_train_step_matches_cpu(name):
+    """A reduced train step on the card (flash forward and backward, MoE,
+    MLA, the shared block, the SSD kernels) against the same step on the
+    CPU's plain versions: loss and grad norm within 1e-4, and every
+    parameter after the AdamW step within 2e-3 (an lr of 1e-3 bounds a
+    step; Adam's normalised update of a near-zero gradient may flip)."""
+    _need_cuda()
+    gm, gp = _reduced_step(name, "cuda")
+    cm, cp = _reduced_step(name, "cpu")
+    for key in ("loss", "aux_loss", "grad_norm"):
+        torch.testing.assert_close(gm[key].cpu(), cm[key], rtol=1e-4,
+                                   atol=1e-4)
+    for n, p in cp.items():
+        torch.testing.assert_close(gp[n].cpu(), p, rtol=0, atol=2e-3,
+                                   msg=n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["llama4-maverick-400b-a17b",
+                                  "deepseek-v2-236b"])
+def test_gpu_moe_train_step_is_bitwise_repeatable(name):
+    """Two runs of the same reduced step on the card give the same bits:
+    the MoE combine sums the k choices in a fixed order and the flash
+    backward has no atomics."""
+    _need_cuda()
+    a_met, a = _reduced_step(name, "cuda", seed=4)
+    b_met, b = _reduced_step(name, "cuda", seed=4)
+    assert torch.equal(a_met["loss"], b_met["loss"])
+    assert torch.equal(a_met["grad_norm"], b_met["grad_norm"])
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+
+
+@pytest.mark.gpu
+def test_gpu_attention_training_never_takes_the_plain_version(monkeypatch):
+    """A reduced starcoder2 step on the card runs both flash kernels and
+    never reaches the plain forward or backward with a CUDA tensor."""
+    _need_cuda()
+    import repro_torch.kernels.flash_attention.ops as fops
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(fops, "flash_attention_reference", refuse)
+    monkeypatch.setattr(fops, "flash_attention_bwd_plain", refuse)
+    n0 = (fops.flash_attention.launches, fops.flash_attention_bwd.launches)
+    met, _ = _reduced_step("starcoder2-15b", "cuda")
+    assert torch.isfinite(met["loss"])
+    assert fops.flash_attention.launches - n0[0] >= 2
+    assert fops.flash_attention_bwd.launches - n0[1] == 2

@@ -76,8 +76,8 @@ def test_nn_forward_matches_reference(nh):
     q = x[:, :, :1]
     want_m = np.asarray(jax_nn.mlp_apply(mlp, jnp.asarray(x)))
     want_a = np.asarray(jax_nn.mha(att, jnp.asarray(q), jnp.asarray(x), nh))
-    pm = router_params_from_jax(flat_numpy({"m": mlp}))["m"]
-    pa = router_params_from_jax(flat_numpy(att))
+    pm = router_params_from_jax(flat_numpy({"m": mlp}), device="cpu")["m"]
+    pa = router_params_from_jax(flat_numpy(att), device="cpu")
     _close(nn.mlp_apply(pm, torch.from_numpy(x)), want_m, TOL)
     _close(nn.mha(pa, torch.from_numpy(q), torch.from_numpy(x), nh),
            want_a, TOL)

@@ -71,7 +71,7 @@ def test_dense_init_is_truncated_fan_in():
 def test_params_from_jax_unstacks_groups_in_layer_order():
     cfg = jax_reduced(jax_get_config("qwen3-4b"))
     tree = _np_tree(jax_M.init_params(jax.random.PRNGKey(0), cfg))
-    lm = params_from_jax(tree, reduced(get_config("qwen3-4b")))
+    lm = params_from_jax(tree, reduced(get_config("qwen3-4b")), device="cpu")
     g = tree["stack"]["groups"]
     # reduced configs run a pattern of two blocks in one group
     np.testing.assert_array_equal(lm.blocks[0].attn.wq.numpy(),
@@ -100,7 +100,8 @@ def test_encoder_embeddings_match_reference(monkeypatch):
         n_heads=12, n_kv_heads=12, d_ff=1536, vocab_size=8192,
         pattern=(ATTN_DENSE,), n_groups=2, dtype="float32", remat=False)
     tree = _np_tree(jax_M.init_params(jax.random.PRNGKey(7), jcfg))
-    enc = QueryEncoder(params_from_jax(tree, ENCODER_CFG), device="cpu")
+    enc = QueryEncoder(params_from_jax(tree, ENCODER_CFG, device="cpu"),
+                       device="cpu")
     # two texts per encoder call, so the chunked concat path is covered
     monkeypatch.setattr(torch_enc, "_CHUNK", 2)
     got = enc.embed_texts(texts)
@@ -141,7 +142,7 @@ def test_teacher_forced_decode_logits_match_reference(name, cache_len, steps):
     jcfg = jax_reduced(jax_get_config(name))
     cfg = reduced(get_config(name))
     params = jax_M.init_params(jax.random.PRNGKey(3), jcfg)
-    lm = params_from_jax(_np_tree(params), cfg)
+    lm = params_from_jax(_np_tree(params), cfg, device="cpu")
     rng = np.random.default_rng(5)
     B = 3
     toks = rng.integers(1, cfg.vocab_size, size=(steps, B)).astype(np.int32)
@@ -166,7 +167,8 @@ def _mamba(seed=3):
     jcfg = jax_reduced(jax_get_config("mamba2-370m"))
     cfg = reduced(get_config("mamba2-370m"))
     params = jax_M.init_params(jax.random.PRNGKey(seed), jcfg)
-    return jcfg, cfg, params, params_from_jax(_np_tree(params), cfg)
+    return jcfg, cfg, params, params_from_jax(_np_tree(params), cfg,
+                                              device="cpu")
 
 
 def test_mamba_config_is_a_copy_and_keeps_f32_ssm_leaves():
@@ -187,7 +189,7 @@ def test_mamba_config_is_a_copy_and_keeps_f32_ssm_leaves():
     jcfg = jax_reduced(jax_get_config("mamba2-370m"), dtype="bfloat16")
     tree = _np_tree(jax_M.init_params(jax.random.PRNGKey(0), jcfg))
     lm = params_from_jax(tree, reduced(get_config("mamba2-370m"),
-                                       dtype="bfloat16"))
+                                       dtype="bfloat16"), device="cpu")
     blk = lm.blocks[1].ssm
     assert blk.A_log.dtype == torch.float32
     assert blk.in_proj.dtype == torch.bfloat16
@@ -230,7 +232,7 @@ def test_mamba_forward_loss_and_gradients_match_reference():
     np.testing.assert_allclose(float(tot.detach()), float(jtot), atol=TOL,
                                rtol=TOL)
     assert float(met["tokens"]) == float(jmet["tokens"]) == 2 * 40 - 3
-    want = params_from_jax(_np_tree(jg), cfg)
+    want = params_from_jax(_np_tree(jg), cfg, device="cpu")
     got = dict(lm.named_parameters())
     for name, w in want.named_parameters():
         g = got[name].grad
@@ -257,9 +259,19 @@ def test_mamba_decode_matches_forward():
                                atol=5e-3)
 
 
-def test_unported_layer_specs_raise():
+@pytest.mark.parametrize("name", ["internvl2-76b", "seamless-m4t-medium"])
+def test_unported_layer_specs_raise(name):
+    """The vision and audio front ends (and cross attention) stay unported:
+    their configs, built with the port's dataclass from the reference's
+    values, are refused; a layer spec outside the ported set is too."""
+    from repro_torch.configs.base import ModelConfig
     from repro_torch.models.transformer import layer_specs
     cfg = reduced(get_config("mamba2-370m"))
     assert layer_specs(cfg) == [("ssm", "none")] * 2
     with pytest.raises(NotImplementedError, match="not ported"):
-        layer_specs(cfg.replace(pattern=(("attn", "moe"),)))
+        layer_specs(cfg.replace(pattern=(("attn", "none"),)))
+    front = ModelConfig(**vars(jax_reduced(jax_get_config(name))))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        layer_specs(front)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        M.LM(front, device="meta")

@@ -313,7 +313,7 @@ def services():
         t_engines[name] = ServingEngine(
             reduced(get_config(name)),
             params_from_jax(jax.tree.map(np.asarray, je.params),
-                            reduced(get_config(name))),
+                            reduced(get_config(name)), device="cpu"),
             max_slots=2, cache_len=48, device="cpu")
     jds = jax_build_support(POOL, n=200)
     tds = RoutingDataset(jds.name, jds.embeddings, jds.scores, jds.costs,
@@ -322,7 +322,8 @@ def services():
     tsvc = RouterService(
         make_router("knn10-ivf", device="cpu"), t_engines, ds=tds,
         encoder=QueryEncoder(params_from_jax(_jax_encoder_params(),
-                                             ENCODER_CFG), device="cpu"))
+                                             ENCODER_CFG, device="cpu"),
+                     device="cpu"))
     return jsvc, tsvc
 
 

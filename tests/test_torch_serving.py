@@ -55,6 +55,20 @@ def test_port_imports_without_jax():
             "import repro_torch.core.routers.bandit\n"
             "import repro_torch.data.synthetic, repro_torch.data.prices\n"
             "import repro_torch.data.routing_bench\n"
+            "import repro_torch.models.moe, repro_torch.configs\n"
+            "import repro_torch.configs.deepseek_v2_236b\n"
+            "import repro_torch.configs.llama4_maverick_400b_a17b\n"
+            "import repro_torch.configs.qwen1_5_32b\n"
+            "import repro_torch.configs.starcoder2_15b\n"
+            "import repro_torch.configs.zamba2_7b\n"
+            "from repro_torch.kernels.flash_attention.ops import "
+            "flash_attention_bwd\n"
+            "from repro_torch.kernels.flash_attention.ref import "
+            "flash_attention_bwd_plain\n"
+            "from repro_torch.training.checkpoint import save_lm, load_lm\n"
+            "from repro_torch.models.convert import params_to_jax\n"
+            "from repro_torch.configs import ARCHS\n"
+            "assert len(ARCHS) == 8\n"
             "from repro_torch.core.routers import REGISTRY, PAPER_ORDER\n"
             "assert len(PAPER_ORDER) == 12 and 'linucb' in REGISTRY\n"
             "from repro_torch.kernels.knn_ivf.ops import DynamicIVFIndex\n"
@@ -105,7 +119,7 @@ def test_serve_texts_matches_reference_text_to_tokens(spec):
         t_engines[name] = ServingEngine(
             reduced(get_config(name)),
             params_from_jax(jax.tree.map(np.asarray, je.params),
-                            reduced(get_config(name))),
+                            reduced(get_config(name)), device="cpu"),
             max_slots=2, cache_len=cache, device="cpu")
     jds = jax_build_support(POOL, n=200)
     tds = RoutingDataset(jds.name, jds.embeddings, jds.scores, jds.costs,
@@ -118,7 +132,8 @@ def test_serve_texts_matches_reference_text_to_tokens(spec):
     tsvc = RouterService(
         make_router(spec, device="cpu"), t_engines, ds=tds,
         encoder=QueryEncoder(params_from_jax(_jax_encoder_params(),
-                                             ENCODER_CFG), device="cpu"))
+                                             ENCODER_CFG, device="cpu"),
+                     device="cpu"))
     assert tsvc.retrieval_backend == jsvc.retrieval_backend
     jres = jsvc.serve_texts(texts, lam=lam, max_new_tokens=5)
     tres = tsvc.serve_texts(texts, lam=lam, max_new_tokens=5)
@@ -260,7 +275,8 @@ def test_mamba_engine_matches_reference_one_request_per_engine():
         return e
 
     def port_engine():
-        return ServingEngine(cfg, params_from_jax(tree, cfg), max_slots=2,
+        return ServingEngine(cfg, params_from_jax(tree, cfg, device="cpu"),
+                             max_slots=2,
                              cache_len=32, device="cpu")
     for i in range(2):
         want = _serve_alone(jax_engine, _prompt(i), 8)

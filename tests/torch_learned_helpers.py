@@ -79,7 +79,7 @@ def fit_both(spec, jds, ds, selection_lam=None, **kw):
     sel = selection_lam is not None
     flat = jax_init(jr, ds.dim, ds.n_models, selection=sel)
     setattr(pr, "_sel_init" if sel else "_init",
-            lambda gen, D, M: router_params_from_jax(flat))
+            lambda gen, D, M: router_params_from_jax(flat, device="cpu"))
     with jax_losses() as seen:
         if sel:
             jr.fit_selection(jds, selection_lam)
