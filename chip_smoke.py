@@ -143,8 +143,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
         MoE's dropped slots and the peak memory printed.
      Phase 3 runs kernel 2b at 9a's shape and at head dims 64, 80, 112 and
      128, G 1, 5 and 12, causal, windowed and non-causal, S not a multiple
-     of its tiles, f32 and bf16, each against autograd through the plain
-     version and SDPA's backward; and kernels 2 and 3 at hd 112.
+     of its tiles, f32 and bf16, with and without a KV head's query heads
+     split over blocks (`kv_splits`), each against autograd through the
+     plain version and SDPA's backward; and kernels 2 and 3 at hd 112.  The
+     build line counts the tensor-core instructions of kernel 2b's dQ /
+     dK-dV kernel (HMMA.16816 in bf16, HMMA.1688 in f32) at each head dim.
 The line before the last is the kernels' JSON summary, the last line the
 device record.  Its cases are the main path's: for kernels 4 and 5 the
 fitted phase-4 index (the synthetic one with --kernels); kernel 6's
@@ -343,8 +346,9 @@ def knn_case(torch, timer, Q, N, D, k, dtype, tol, gen, profile=False,
         # for k <= 128
         p = out["launch_profile"] = device_profile(
             torch, lambda: knn_topk(q, s, k), top=6,
-            groups={"knn_topk": "knn_"}, require="knn_topk")
-        if k <= 128:
+            groups={"knn_topk": "knn_"}, require="knn_topk",
+            library_count=lambda: knn_topk.last_cuda_launches)
+        if k <= 128 and "not_measured" not in p:
             assert p["device_launches"] == p["knn_topk"]["count"] == 1, p
     return out
 
@@ -485,8 +489,10 @@ def flash_bwd_case(torch, timer, B, S, KV, G, hd, dtype, causal, window,
         + (B * S * H * hd + 2 * B * S * KV * hd) * esz
     b_ms, b_by = bound(nbytes, 10 * B * H * hd * live_pairs(S, S, causal,
                                                             window), dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return dict(case=f"B={B} S={S} H={H} KV={KV} G={G} hd={hd} "
                      f"{str(dtype)[6:]} causal={causal} window={window}",
+                kv_splits=fops.kv_splits(B, S, KV, G, sms),
                 max_abs_err=max(e[0] for e in errs), err_over_tol=ratio,
                 err_by_output=dict(zip(("dq", "dk", "dv"),
                                        [e[1] for e in errs])),
@@ -767,7 +773,14 @@ def phase_kernels(torch, seed):
             (1, 300, 1, 12, 128, bf16, True, 100),
             (2, 96, 2, 1, 80, bf16, False, 0),
             (1, 1000, 4, 12, 128, bf16, True, 0),
-            (2, 512, 32, 1, 112, bf16, True, 0)]):
+            (2, 512, 32, 1, 112, bf16, True, 0),
+            # the tensor-core design's edges: hd 112 windowed with S not a
+            # multiple of 64; 8 query tiles x 3 heads through the two-stage
+            # ring of one dkdv block, ragged last tile; G 12 over 12 blocks
+            # (kv_splits) in f32
+            (1, 333, 2, 4, 112, bf16, True, 100),
+            (1, 450, 1, 3, 80, f32, True, 0),
+            (1, 300, 1, 12, 64, f32, True, 0)]):
         r = flash_bwd_case(torch, timer, *args,
                            gen=gen("flash_bwd", *args[:5], str(args[5]),
                                    *args[6:]))
@@ -885,8 +898,10 @@ def ivf_case(torch, timer, index, Q, P, k, tol, gen, label, rows=None,
     if profile:
         p = r["launch_profile"] = device_profile(
             torch, lambda: ivf_scan(*args), top=6,
-            groups={"ivf_topk": "ivf_tile_kernel"}, require="ivf_topk")
-        assert p["device_launches"] == cuda_launches, (p, cuda_launches)
+            groups={"ivf_topk": "ivf_tile_kernel"}, require="ivf_topk",
+            library_count=lambda: ivf_scan.last_cuda_launches)
+        assert p.get("device_launches", p.get("library_launches")) \
+            == cuda_launches, (p, cuda_launches)
     return r
 
 
@@ -938,8 +953,10 @@ def adc_case(torch, timer, index, Q, P, k, gen, label, q=None,
     if profile:
         p = out["launch_profile"] = device_profile(
             torch, call, top=6, groups={"ivfpq_adc": "adc_"},
-            require="ivfpq_adc")
-        assert p["device_launches"] == cuda_launches, (p, cuda_launches)
+            require="ivfpq_adc",
+            library_count=lambda: ivfpq_adc.last_cuda_launches)
+        assert p.get("device_launches", p.get("library_launches")) \
+            == cuda_launches, (p, cuda_launches)
     return out
 
 
@@ -1388,7 +1405,8 @@ def route_walls(torch, fn, reps=7):
     return dict(median_s=walls[reps // 2], min_s=walls[0], max_s=walls[-1])
 
 
-def device_profile(torch, fn, top=8, groups=None, require=None, windows=3):
+def device_profile(torch, fn, top=8, groups=None, require=None, windows=3,
+                   library_count=None):
     """One call of ``fn`` (after a warm one) under `torch.profiler`: the
     device time of each kernel by name, their sum and count, the call's
     host wall with the profiler on, and the device's idle share of that one
@@ -1401,9 +1419,13 @@ def device_profile(torch, fn, top=8, groups=None, require=None, windows=3):
     ``require`` (a label of ``groups``) the window is taken again, up to
     ``windows`` times, until that group's kernels are recorded; the run
     fails if they never are.  ``windows_taken`` says how many it took and
-    ``missed`` what the windows that missed recorded.  Without
-    ``require``, a fault of the profiler itself reads "not measured"; a
-    fault of ``fn`` fails the run."""
+    ``missed`` what the windows that missed recorded.  With
+    ``library_count`` (the kernel library's own count of the CUDA launches
+    of ``fn``'s last call) a group no window recorded reads "not measured"
+    with that count beside it, which must be above 0; the phase-3 cases
+    pass it, since one earlier run lost three IVF-PQ windows of one
+    kernel each.  Without ``require``, a fault of the profiler itself reads "not
+    measured"; a fault of ``fn`` fails the run."""
     missed = []
     for w in range(1, windows + 1):
         out = _profile_window(torch, fn, top, groups or {})
@@ -1415,6 +1437,12 @@ def device_profile(torch, fn, top=8, groups=None, require=None, windows=3):
             del out["all_kernels"]
             return out
         missed.append(out.get("not_measured") or out["all_kernels"])
+    if library_count is not None:
+        n = library_count()
+        assert n > 0, f"{require}: the kernel library counted {n} launches"
+        return dict(not_measured=f"the profiler recorded no {require} "
+                    f"kernel in {windows} windows", library_launches=n,
+                    windows_taken=windows, missed=missed)
     raise AssertionError(f"the profiler recorded no {require} kernel in "
                          f"{windows} windows: {missed}")
 
@@ -3224,8 +3252,21 @@ def main(argv=None):
     # the SSD kernels' products must run on the tensor cores
     hmma = {n: _build.sass_count(n, "HMMA") for n in ("ssd_intra",
                                                       "ssd_intra_bwd")}
-    emit("build_sass", hmma_instructions=hmma)
+    # and so must kernel 2b's dQ and dK / dV passes (one kernel,
+    # flash_bwd_kernel), bf16 (HMMA.16816) and f32 (three TF32 passes,
+    # HMMA.1688), at each head dim
+    bwd = {op: {f: n for f, n in _build.sass_count(
+                "flash_attention_bwd", op, by_function=True).items()
+                if "flash_bwd_kernel" in f}
+           for op in ("HMMA.16816", "HMMA.1688")}
+    emit("build_sass", hmma_instructions=hmma,
+         flash_attention_bwd_hmma=bwd)
     assert all(v > 0 for v in hmma.values()), hmma
+    for op, tag in (("HMMA.16816", "__nv_bfloat16"), ("HMMA.1688", "IfLi")):
+        # the 4 head dims of the one dtype (<float, 64> mangles as
+        # ...IfLi64E...)
+        got = [f for f, n in bwd[op].items() if n > 0]
+        assert len(got) == 4 and all(tag in f for f in got), (op, bwd[op])
 
     main_cases = phase_kernels(torch, args.seed)
     launches = {n: None for n in main_cases}

@@ -122,22 +122,30 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def sass_count(name: str, opcode: str) -> int:
+def sass_count(name: str, opcode: str, by_function: bool = False):
     """Instructions of kernel ``name``'s built library whose SASS opcode
-    starts with ``opcode`` (e.g. "HMMA", the tensor cores' matrix multiply),
-    read with the toolkit's ``cuobjdump -sass``."""
+    starts with ``opcode`` (e.g. "HMMA", the tensor cores' matrix multiply;
+    "HMMA.16816" bf16 / fp16, "HMMA.1688" TF32), read with the toolkit's
+    ``cuobjdump -sass``: their number, or with ``by_function`` a dict of
+    each entry function's (mangled) name to its number."""
     load(name)
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(library_path(name))],
                           capture_output=True, text=True, check=True).stdout
-    n = 0
+    counts: Dict[str, int] = {}
+    fn = ""
     for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            counts.setdefault(fn, 0)
+            continue
         # "/*0130*/  [@P0] HMMA.1688.F32.TF32 R4, R8, R12, R4 ;"
         words = ln.split("*/", 1)[-1].split() if "*/" in ln else []
         if words and words[0].startswith("@"):
             words = words[1:]
-        n += bool(words) and words[0].startswith(opcode)
-    return n
+        if words and words[0].startswith(opcode):
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts if by_function else sum(counts.values())
 
 
 def check(err: int, what: str) -> None:

@@ -32,14 +32,15 @@ struct TileRows {
 };
 
 // rows [r0, r0 + 64) of a (B, S, heads, HD) tensor into shared memory at
-// dst (row stride LD); rows at or past S are zero
-template <typename T, int HD>
+// dst (row stride LD) by the block's THREADS threads; rows at or past S are
+// zero
+template <typename T, int HD, int THREADS = NT>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const T* src,
                                           int b, int r0, int S, int heads,
                                           int head, int tid) {
   using L = TileRows<T, HD>;
   const unsigned char* base = reinterpret_cast<const unsigned char*>(src);
-  for (int e = tid; e < 64 * L::CH; e += NT) {
+  for (int e = tid; e < 64 * L::CH; e += THREADS) {
     const int r = e / L::CH, c = e - r * L::CH;
     unsigned char* d = dst + r * L::LD + c * 16;
     if (r0 + r < S) {

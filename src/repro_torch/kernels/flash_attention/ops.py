@@ -27,13 +27,22 @@ HEAD_DIMS = (64, 80, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _fn(name, symbol, n_ptrs):
+def _fn(name, symbol, n_ptrs, n_ints=9):
     fn = getattr(_build.load(name), symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
+
+
+def kv_splits(B, Sk, KV, G, sms):
+    """Blocks the dK / dV pass splits a KV head's G query heads over: it
+    has ceil(Sk / 64) KV B blocks, and under two a streaming multiprocessor
+    (``sms`` of them) the heads are shared out over up to G blocks, whose
+    f32 partials a third launch adds in a fixed order."""
+    base = -(-Sk // 64) * KV * B
+    return max(1, min(G, -(-2 * sms // base)))
 
 
 def _check(q, k, v, what):
@@ -149,12 +158,18 @@ def flash_attention_bwd(q, k, v, do, *, causal=True, window=0, out=None,
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    err = _fn("flash_attention_bwd", "flash_attention_bwd_launch", 10)(
+    splits = kv_splits(B, Sk, KV, H // KV, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    part = None if splits == 1 else torch.empty(
+        (splits, 2, B, Sk, KV, hd), dtype=torch.float32, device=q.device)
+    err = _fn("flash_attention_bwd", "flash_attention_bwd_launch", 11, 10)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), int(q.dtype == torch.bfloat16), B,
-        Sq, Sk, H, KV, hd, int(causal), int(window or 0),
-        1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
+        dv.data_ptr(), delta.data_ptr(),
+        None if part is None else part.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, Sq, Sk, H, KV, hd, int(causal),
+        int(window or 0), splits, 1.0 / math.sqrt(hd),
+        _build.stream_ptr(q.device))
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
@@ -163,6 +178,6 @@ def flash_attention_bwd(q, k, v, do, *, causal=True, window=0, out=None,
 #: forward kernel launches through `flash_attention` (one per call on a
 #: CUDA tensor, also inside the autograd Function)
 flash_attention.launches = 0
-#: calls that launched the backward kernels (each launches the delta, dq
-#: and dkdv kernels)
+#: calls that launched the backward kernels (each launches the delta kernel
+#: and the dQ / dK-dV kernel, and the partials' sum where `kv_splits` > 1)
 flash_attention_bwd.launches = 0

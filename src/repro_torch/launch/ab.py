@@ -1,9 +1,10 @@
-"""Two checkouts of this repository on one GPU, in turns: training steps or
-the retrieval kernels.
+"""Two checkouts of this repository on one GPU, in turns: training steps,
+the retrieval kernels or the attention kernels.
 
     python -m repro_torch.launch.ab --a ../parent --b . train -- \\
         --arch mamba2-370m --steps 10 --batch 4 --seq 2048
     python -m repro_torch.launch.ab --a ../parent --b . retrieval
+    python -m repro_torch.launch.ab --a ../parent --b . attention
 
 Runs the child once per turn, in the order A, B, B, A, each in a fresh
 process with ``PYTHONPATH=<checkout>/src`` and the checkout as its working
@@ -33,6 +34,20 @@ The children:
              a device spin that lets the host queue the call first;
              ``launches`` is the number of CUDA kernels one call runs, read
              with `torch.profiler` after a discarded warm-up call.
+  attention  each checkout's flash backward (`flash_attention_bwd`, kernel
+             2b, from the forward's f32 out and lse) and training forward
+             (`_forward(..., for_backward=True)`, kernel 2) at danube's
+             training shape (B 2, S 4,096, H 32, KV 8, hd 80, bf16, causal,
+             window 4,096), zamba2's shared block (B 2, S 512, H 32, hd 112,
+             bf16, causal), a G-12 shape (S 1,000, KV 4, hd 128, bf16) and
+             an f32 one (S 257, KV 2, hd 128, window 64), with the backward
+             of `scaled_dot_product_attention` at each as the yardstick
+             (timed the same way; a boolean mask where the window is
+             shorter than S); means of 20 calls, timed as above.
+             ``sha256`` hashes the forward's outputs at those shapes and
+             phase 3's, and kernel 6 and its gradient at seven of phase
+             3's eight SSD shapes (all but the zero-padded one), so two
+             checkouts show whether they give the same bits.
 """
 from __future__ import annotations
 
@@ -198,7 +213,130 @@ for Q, P, kk in [(1, 8, 800), (16, 8, 800), (64, 8, 800), (16, 8, 2048),
 print("RESULT " + json.dumps({"cases": out}))
 '''
 
-CHILDREN = {"train": _TRAIN, "retrieval": _RETRIEVAL}
+_ATTENTION = r'''
+import hashlib
+import json
+import torch
+import torch.nn.functional as F
+from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.ssd_scan.ops import ssd_intra_bwd, ssd_intra_fwd
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+flush = torch.empty(64 * 2**20, device="cuda")
+bf16, f32 = torch.bfloat16, torch.float32
+
+
+def timed(fn, iters=20):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(10_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
+
+
+def inputs(B, S, H, KV, hd, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn(B, S, H, hd, device="cuda", generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def sdpa_bwd(q, k, v, do, causal, window):
+    S = q.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    kw = dict(enable_gqa=k.shape[2] != q.shape[2])
+    if window and window < S:
+        i = torch.arange(S, device="cuda")
+        m = i[:, None] - i[None, :] < window
+        if causal:
+            m &= i[:, None] >= i[None, :]
+        kw["attn_mask"] = m
+    else:
+        kw["is_causal"] = causal
+    lo = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def digest(h, ts):
+    for t in ts:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+
+
+out, fwd_hash = [], hashlib.sha256()
+for label, B, S, H, KV, hd, dt, causal, window in [
+        ("danube", 2, 4096, 32, 8, 80, bf16, True, 4096),
+        ("zamba2 block", 2, 512, 32, 32, 112, bf16, True, 0),
+        ("G=12", 1, 1000, 48, 4, 128, bf16, True, 0),
+        ("f32", 1, 257, 2, 2, 128, f32, True, 64)]:
+    q, k, v, do = inputs(B, S, H, KV, hd, dt, S + hd)
+    o, lse, o32 = fops._forward(q, k, v, causal, window, True)
+    digest(fwd_hash, (o, lse, o32))
+    bwd = lambda: fops.flash_attention_bwd(q, k, v, do, causal=causal,
+                                           window=window, out=o32, lse=lse)
+    bwd_hash = hashlib.sha256()
+    digest(bwd_hash, bwd())
+    out.append(dict(case=f"{label}: B={B} S={S} H={H} KV={KV} hd={hd} "
+                    f"{str(dt)[6:]} causal={causal} window={window}",
+                    bwd_ms=timed(bwd),
+                    fwd_ms=timed(lambda: fops._forward(q, k, v, causal,
+                                                       window, True)),
+                    sdpa_bwd_ms=timed(sdpa_bwd(q, k, v, do, causal, window)),
+                    bwd_sha256=bwd_hash.hexdigest()))
+    del q, k, v, do, o, lse, o32
+    torch.cuda.empty_cache()
+# the forward at phase 3's flash shapes (chip_smoke.py), kernel 6 and its
+# gradient at phase 3's SSD shapes
+for B, S, H, KV, hd, dt, causal, window in [
+        (1024, 64, 12, 12, 64, f32, True, 0),
+        (4, 1024, 32, 8, 128, bf16, True, 256),
+        (2, 256, 32, 8, 80, f32, True, 64), (8, 100, 12, 4, 64, f32, True, 0),
+        (2, 200, 8, 8, 128, f32, False, 0),
+        (256, 40, 16, 4, 128, bf16, True, 16),
+        (2, 512, 32, 32, 112, bf16, True, 0),
+        (1, 150, 32, 32, 112, f32, True, 0)]:
+    q, k, v, _ = inputs(B, S, H, KV, hd, dt, B * S + hd)
+    digest(fwd_hash, fops._forward(q, k, v, causal, window, False)[:1])
+ssd_hash = hashlib.sha256()
+for Bs, H, nc, Q, P, G, N in [(4, 32, 8, 256, 64, 1, 128),
+                              (2, 32, 2, 256, 64, 2, 128),
+                              (2, 32, 1, 12, 64, 1, 128),
+                              (2, 12, 2, 256, 64, 3, 128),
+                              (2, 6, 2, 256, 64, 1, 128),
+                              (2, 8, 2, 200, 64, 2, 128),
+                              (2, 8, 2, 256, 24, 2, 20)]:
+    g = torch.Generator(device="cuda").manual_seed(Bs * H * Q + N)
+    f = lambda *sh: torch.randn(*sh, device="cuda", generator=g)
+    ins = [f(Bs, H, nc, Q, P), F.softplus(f(Bs, H, nc, Q, 1)),
+           -torch.exp(f(H) * 0.3), f(Bs, G, nc, Q, N) * 0.3,
+           f(Bs, G, nc, Q, N) * 0.3]
+    y = ssd_intra_fwd(*ins)
+    digest(ssd_hash, y)
+    digest(ssd_hash, ssd_intra_bwd(*ins, y[2], f(Bs, H, nc, Q, P),
+                                   f(Bs, H, nc, P, N), f(Bs, H, nc, Q, 1)))
+print("RESULT " + json.dumps(dict(
+    cases=out, sha256=dict(flash_forward=fwd_hash.hexdigest(),
+                           ssd_intra_and_gradient=ssd_hash.hexdigest()))))
+'''
+
+CHILDREN = {"train": _TRAIN, "retrieval": _RETRIEVAL,
+            "attention": _ATTENTION}
 
 
 def run(root: Path, child: str, child_args=()) -> dict:

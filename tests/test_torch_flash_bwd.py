@@ -7,7 +7,13 @@ non-causal attention, GQA with G = 1, 5 and 12, head dims 64, 80, 112 and
 
 Tolerances: f32 1e-4 (abs and rel): the two frameworks sum the products
 in other orders (~1e-6).  bf16: both compute in f32 and round to bf16
-last, so two results may sit a bf16 step apart: 1e-2 abs plus 2^-7 rel."""
+last, so two results may sit a bf16 step apart: 1e-2 abs plus 2^-7 rel.
+
+The kernel's bf16 rounding is emulated here too (`_emulate_kernel`): P
+and dS enter their products as two bf16 terms, every sum is f32, D comes
+from the f32 output; that emulation is held against the f32 gradient
+under the card's bf16 limit, and one rounding of P and dS is shown to
+miss it."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,3 +110,102 @@ def test_cuda_only_arguments_are_checked():
     z = torch.zeros((1, 4, 2, 96), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flash_attention(z, z, z)
+
+
+def _emulate_kernel(q, k, v, do, causal, window, split=True):
+    """The bf16 kernel's arithmetic in plain torch: S and dP from the bf16
+    inputs summed in f32, P = exp(S - lse) in f32, D = rowsum(dO o O) from
+    the f32 O, dS = P (dP - D) in f32; P and dS rounded to bf16 where they
+    enter dV = P^T dO, dK = c dS^T Q and dQ = c dS K, as hi + lo bf16 terms
+    (``split``) or once; f32 sums, outputs rounded to bf16."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qf = q.float().reshape(B, S, KV, H // KV, hd)
+    dof = do.float().reshape(B, S, KV, H // KV, hd)
+    kf, vf = k.float(), v.float()
+    c = 1.0 / np.sqrt(hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * c
+    i = torch.arange(S)
+    live = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        live &= i[:, None] >= i[None, :]
+    if window:
+        live &= i[:, None] - i[None, :] < window
+    s = s.masked_fill(~live, float("-inf"))
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, vf)
+    d = (o * dof.permute(0, 2, 3, 1, 4)).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bqkgd,bskd->bkgqs", dof, vf) - d)
+
+    def rounded(x):
+        hi = x.bfloat16().float()
+        return hi + (x - hi).bfloat16().float() if split else hi
+    p, ds = rounded(p), rounded(ds)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * c
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(q.shape) * c
+    return [t.bfloat16() for t in (dq, dk, dv)]
+
+
+def _bf16_limit_ratio(got, want):
+    """Largest |got - want| over the card's bf16 limit, 1e-2 or bf16's own
+    rounding 2^-8 |want| + 2e-5 where larger (chip_smoke.py's
+    `grad_err`); <= 1 passes."""
+    d = (got.float() - want).abs()
+    lim = torch.maximum(torch.full_like(want, 1e-2),
+                        want.abs() * 2.0 ** -8 + 2e-5)
+    return float((d / lim).max())
+
+
+def _bf16_inputs(B, S, KV, G, hd):
+    q, k, v, do = _data("bfloat16", B, S, KV, G, hd, seed=S + hd + G)
+    return [torch.from_numpy(t).bfloat16() for t in (q, k, v, do)]
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,causal,window", [
+    (1, 1024, 2, 4, 80, True, 0),
+    (1, 512, 1, 12, 128, True, 100),
+    (1, 333, 2, 4, 112, True, 100),
+    (2, 130, 2, 5, 112, True, 0),
+])
+def test_kernel_rounding_emulation_within_bf16_limit(B, S, KV, G, hd, causal,
+                                                     window):
+    """The bf16 kernel's rounding (P and dS as hi + lo bf16 terms, f32
+    sums, D from the f32 output) against the f32 gradient of the same
+    bf16 values: within the card's bf16 limit for dQ, dK and dV."""
+    q, k, v, do = _bf16_inputs(B, S, KV, G, hd)
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                     do.float(), causal=causal,
+                                     window=window)
+    got = _emulate_kernel(q, k, v, do, causal, window)
+    ratios = [_bf16_limit_ratio(a, w) for a, w in zip(got, want)]
+    assert max(ratios) <= 1.0, ratios
+
+
+def test_one_bf16_rounding_of_p_and_ds_misses_the_limit():
+    """Why the kernel splits P and dS in two bf16 terms: rounded once
+    (FlashAttention-2's bf16 products), the gradient at a phase-3 shape
+    of chip_smoke.py (S 130, G 5, hd 112) leaves the card's bf16 limit,
+    while the split stays inside it."""
+    q, k, v, do = _bf16_inputs(2, 130, 2, 5, 112)
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                     do.float(), causal=True, window=0)
+    once = _emulate_kernel(q, k, v, do, True, 0, split=False)
+    split = _emulate_kernel(q, k, v, do, True, 0)
+    assert max(_bf16_limit_ratio(a, w) for a, w in zip(once, want)) > 1.1
+    assert max(_bf16_limit_ratio(a, w) for a, w in zip(split, want)) <= 1.0
+
+
+@pytest.mark.parametrize("B,Sk,KV,G,sms,splits", [
+    (2, 4096, 8, 4, 132, 1),      # danube's training shape: 1,024 blocks
+    (1, 1000, 4, 12, 132, 5),     # 64 blocks: ceil(264 / 64)
+    (1, 300, 1, 12, 132, 12),     # 5 blocks: every head its own block
+    (2, 512, 32, 1, 132, 1),      # G 1 has nothing to split
+    (1, 130, 1, 5, 1, 1),         # 3 blocks already fill 1 SM twice
+    (1, 130, 1, 5, 2, 2),         # under 2 SMs twice: two blocks of heads
+])
+def test_kv_splits_fill_the_card(B, Sk, KV, G, sms, splits):
+    """The dK / dV pass shares a KV head's query heads out over blocks only
+    where its ceil(Sk / 64) KV B blocks are under two a streaming
+    multiprocessor, and never over more blocks than heads."""
+    assert ops.kv_splits(B, Sk, KV, G, sms) == splits

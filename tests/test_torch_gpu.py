@@ -1104,6 +1104,14 @@ def _bwd_err(got, want, dtype):
     (torch.bfloat16, 2, 130, 2, 5, 112, True, 0),
     (torch.bfloat16, 1, 300, 1, 12, 128, True, 100),
     (torch.bfloat16, 2, 96, 2, 1, 80, False, 0),
+    # the tensor-core design's edges: danube's training shape at B 1; hd
+    # 112 windowed, S not a multiple of 64; 8 query tiles x 3 heads through
+    # one dkdv block's two-stage ring, ragged last tile; the G-split path
+    # (G 12 over 5 blocks a KV head on 132 SMs, partials summed in order)
+    (torch.bfloat16, 1, 4096, 8, 4, 80, True, 4096),
+    (torch.bfloat16, 1, 333, 2, 4, 112, True, 100),
+    (torch.float32, 1, 450, 1, 3, 80, True, 0),
+    (torch.bfloat16, 1, 1000, 4, 12, 128, True, 0),
 ])
 def test_gpu_flash_backward_matches_plain(dtype, B, S, KV, G, hd, causal,
                                           window):

@@ -163,3 +163,13 @@ def test_train_ab_runs_both_checkouts_in_turns():
         assert len(r["step_wall_s"]) == 2
         assert r["median_step_wall_s_after_first"] == r["step_wall_s"][1]
         assert r["tokens_per_s"] == 2 * 32 / r["step_wall_s"][1]
+
+
+def test_ab_children_compile():
+    """Every child of `launch.ab` is a Python script that compiles (the
+    `retrieval` and `attention` children need the card, so only this is
+    checked here), and the CLI offers each by name."""
+    from repro_torch.launch import ab
+    assert set(ab.CHILDREN) == {"train", "retrieval", "attention"}
+    for name, src in ab.CHILDREN.items():
+        compile(src, f"<ab {name} child>", "exec")
