@@ -148,10 +148,38 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      plain version and SDPA's backward; and kernels 2 and 3 at hd 112.  The
      build line counts the tensor-core instructions of kernel 2b's dQ /
      dK-dV kernel (HMMA.16816 in bf16, HMMA.1688 in f32) at each head dim.
+ 10. the vision and audio front ends (slice 13, `phase_front_ends`; 120 s
+     budget), the counters zeroed before each part and read after it:
+     a. seamless-m4t-medium at its published widths and depth (12 encoder,
+        12 decoder layers) in f32, seeded weights and N(0, 1) frames
+        (1 x 1,500 x 1,024): `forward` over 256 tokens against
+        `fill_cross_cache` and 256 teacher-forced `decode_step`s (the
+        cross K / V cached, kernel 3 at position 1,499), the first 32 steps
+        of the recompute path (kernel 2 at Sq 1 from ``enc_out``) against
+        the cached path, both within phase 9's f32 limit; kernels 2 and 3
+        launched as the layers count; then a bf16 forward's wall and peak
+        memory.
+     b. seamless trains 10 steps of `make_train_step` in bf16 with remat,
+        batch 2 x (2,048 frames + 2,048 tokens), seeded N(0, 1) frames,
+        under `refuse_plain_on_cuda`: the loss finite and falling, kernel 2
+        720 launches and kernel 2b 360 (36 attention layers: encoder, self,
+        cross), step wall, tokens/s, peak memory, one profiled step; then
+        `launch.train.main --arch seamless-m4t-medium --steps 2 --ckpt`,
+        the checkpoint read back bitwise.
+     c. internvl2-76b at 8 of 80 layers served as 9b serves its models
+        (the f32 check, a bf16 engine), a bf16 forward over 256 N(0, 1)
+        patches (3,200 wide) and 256 tokens, and the patch-prefixed
+        forward at 2 layers in f32 against the same weights through the
+        plain attention on the card, within phase 9's f32 limit.
+     Phase 3 runs the cross shapes too: kernels 2 and 2b at seamless's
+     heads (H = KV = 16, hd 64), no mask, at B 2 / Sq 2,048 / Sk 1,500,
+     B 4 / Sq 1 / Sk 1,500 and B 1 / Sq 96 / Sk 40, in f32 and bf16, and
+     kernel 3 over 1,500 cache rows with every slot at position 1,499.
 The line before the last is the kernels' JSON summary, the last line the
 device record.  Its cases are the main path's: for kernels 4 and 5 the
 fitted phase-4 index (the synthetic one with --kernels); kernel 6's
-launches are read on phase 5a's training path, kernel 2b's on phase 9a's.
+launches are read on phase 5a's training path, kernel 2b's on phase 9a's
+(phase 10's launches are in its own lines).
 """
 from __future__ import annotations
 
@@ -204,6 +232,11 @@ KERNEL_SOURCES = {
 #: knn100 keeps k = 100 and re-ranks an ADC shortlist of 8 k = 800
 IVF_MAIN = dict(N=70_000, C=265, L=400, D=768, Q=16, P=8, k=100, kk=800,
                 m=64)
+#: seamless-m4t-medium's cross attention (phase 10) in phase 3, H = KV =
+#: 16, hd 64, no mask, as (B, Sq, Sk): 2,048 decoder tokens over a
+#: 1,500-row encoder output (phase 10a's frames), the recompute decode's
+#: one query row, and keys under one 64-row tile
+CROSS_SHAPES = [(2, 2048, 1500), (4, 1, 1500), (1, 96, 40)]
 #: the engine-wave deadline of the served services (phases 4b and 6): a
 #: wave of 16 texts takes seconds at full width, so only a hung engine
 #: reaches it
@@ -380,14 +413,17 @@ def live_pairs(Sq, Sk, causal, window):
 
 
 def flash_case(torch, timer, B, S, H, KV, hd, dtype, causal, window, tol,
-               gen):
+               gen, Sk=None):
+    """Kernel 2 against the plain version on the same values; S query rows
+    against ``Sk`` keys (S by default; a cross attention's encoder rows)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_reference)
+    Sk = S if Sk is None else Sk
     q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
-    k = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
-    v = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtype)
     out = flash_attention(q, k, v, causal=causal, window=window)
     ref = flash_attention_reference(q.float(), k.float(), v.float(),
                                     causal=causal, window=window)
@@ -408,11 +444,12 @@ def flash_case(torch, timer, B, S, H, KV, hd, dtype, causal, window, tol,
         lib = timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=KV != H))
     esz = q.element_size()
-    b_ms, b_by = bound(2 * (B * S * H * hd + B * S * KV * hd) * esz,
-                       4 * B * H * hd * live_pairs(S, S, causal, window),
+    b_ms, b_by = bound(2 * (B * S * H * hd + B * Sk * KV * hd) * esz,
+                       4 * B * H * hd * live_pairs(S, Sk, causal, window),
                        dtype)
-    return dict(case=f"B={B} S={S} H={H} KV={KV} hd={hd} {str(dtype)[6:]} "
-                     f"causal={causal} window={window}",
+    sk = f" Sk={Sk}" if Sk != S else ""
+    return dict(case=f"B={B} S={S}{sk} H={H} KV={KV} hd={hd} "
+                     f"{str(dtype)[6:]} causal={causal} window={window}",
                 max_abs_err=err, err_over_tol=ratio, ref_at_worst=ref_at,
                 tol=tol, ref_std=ref_std, ms=ms,
                 plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
@@ -433,7 +470,7 @@ def grad_err(torch, out, ref, dtype):
 
 
 def flash_bwd_case(torch, timer, B, S, KV, G, hd, dtype, causal, window,
-                   gen):
+                   gen, Sk=None):
     """Kernel 2b (dQ, dK, dV from the forward's f32 out and log-sum-exp)
     against autograd through the plain version in f32 on the same values
     (`grad_err`), called twice (bitwise-equal: no atomics).  Timed alone
@@ -441,15 +478,17 @@ def flash_bwd_case(torch, timer, B, S, KV, G, hd, dtype, causal, window,
     `scaled_dot_product_attention` at the same shape (a boolean mask where
     the window is shorter than S).  Bound: the bytes of q, k, v, dO, the
     f32 o and lse read and dq, dk, dv written once, or 10 B H hd flops a
-    live pair (S, dP, dV, dK, dQ) at the dtype's peak."""
+    live pair (S, dP, dV, dK, dQ) at the dtype's peak.  ``Sk`` keys (S by
+    default) against S query rows."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_plain)
     H = KV * G
+    Sk = S if Sk is None else Sk
     q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
-    k = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
-    v = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen).to(dtype)
     do = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dtype)
     _, lse, out32 = fops._forward(q, k, v, causal, window, True)
     bwd = lambda: fops.flash_attention_bwd(q, k, v, do, causal=causal,
@@ -478,21 +517,23 @@ def flash_bwd_case(torch, timer, B, S, KV, G, hd, dtype, causal, window,
             m &= i[:, None] >= i[None, :]
         kw["attn_mask"] = m
     else:
+        # (causal only where Sk == S: no case masks a cross attention)
         kw["is_causal"] = causal
     lo = F.scaled_dot_product_attention(qt, kt, vt, **kw)
     dot = do.transpose(1, 2)
     lib = timer(lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,
                                             retain_graph=True))
     esz = q.element_size()
-    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * esz \
+    nbytes = (2 * B * S * H * hd + 2 * B * Sk * KV * hd) * esz \
         + (B * S * H * hd + B * H * S) * 4 \
-        + (B * S * H * hd + 2 * B * S * KV * hd) * esz
-    b_ms, b_by = bound(nbytes, 10 * B * H * hd * live_pairs(S, S, causal,
+        + (B * S * H * hd + 2 * B * Sk * KV * hd) * esz
+    b_ms, b_by = bound(nbytes, 10 * B * H * hd * live_pairs(S, Sk, causal,
                                                             window), dtype)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return dict(case=f"B={B} S={S} H={H} KV={KV} G={G} hd={hd} "
+    sk = f" Sk={Sk}" if Sk != S else ""
+    return dict(case=f"B={B} S={S}{sk} H={H} KV={KV} G={G} hd={hd} "
                      f"{str(dtype)[6:]} causal={causal} window={window}",
-                kv_splits=fops.kv_splits(B, S, KV, G, sms),
+                kv_splits=fops.kv_splits(B, Sk, KV, G, sms),
                 max_abs_err=max(e[0] for e in errs), err_over_tol=ratio,
                 err_by_output=dict(zip(("dq", "dk", "dv"),
                                        [e[1] for e in errs])),
@@ -737,6 +778,14 @@ def phase_kernels(torch, seed):
         emit("kernel", name="flash_attention", **r)
         if i == 0:
             main["flash_attention"] = r
+    # cross attention (phase 10): seamless-m4t-medium's heads, no mask,
+    # Sq != Sk, in f32 and bf16
+    for B, Sq, Sk in CROSS_SHAPES:
+        for dt, tol in ((f32, 2e-5), (bf16, 1e-2)):
+            r = flash_case(torch, timer, B, Sq, 16, 16, 64, dt, False, 0,
+                           tol, gen=gen("flash_cross", B, Sq, Sk, str(dt)),
+                           Sk=Sk)
+            emit("kernel", name="flash_attention", cross=True, **r)
     # decode: qwen3-4b's decode shape, danube's hd=80 ring past S, then the
     # span edges of the 64-row spans (0, one span - 1, one span, S - 1) and
     # slots with no valid key
@@ -755,6 +804,12 @@ def phase_kernels(torch, seed):
         emit("kernel", name="decode_attention", **r)
         if i == 0:
             main["decode_attention"] = r
+    # the cached cross decode (phase 10a): every slot at position Se - 1
+    # over seamless's 1,500 encoder rows
+    for dt, tol in ((bf16, 1e-2), (f32, 2e-5)):
+        r = decode_case(torch, timer, [1499] * 4, 1500, 16, 1, 64, dt, False,
+                        tol, gen=gen("decode_cross", str(dt)))
+        emit("kernel", name="decode_attention", cross=True, **r)
     main.update(phase_ivf_kernels(torch, timer, gen))
     phase_delta_kernels(torch, timer, gen)
     main.update(phase_ssd_kernels(torch, timer, gen))
@@ -787,6 +842,13 @@ def phase_kernels(torch, seed):
         emit("kernel", name="flash_attention_bwd", **r)
         if i == 0:
             main["flash_attention_bwd"] = r
+    # the gradient of the cross attention (phase 10b trains through it)
+    for B, Sq, Sk in CROSS_SHAPES:
+        for dt in (f32, bf16):
+            r = flash_bwd_case(torch, timer, B, Sq, 16, 1, 64, dt, False, 0,
+                               gen=gen("flash_bwd_cross", B, Sq, Sk,
+                                       str(dt)), Sk=Sk)
+            emit("kernel", name="flash_attention_bwd", cross=True, **r)
     return main
 
 
@@ -3219,6 +3281,345 @@ def phase_families(torch, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the vision and audio front ends (slice 13)
+# ---------------------------------------------------------------------------
+
+PHASE10_BUDGET_S = 120.0
+#: 10a: seamless-m4t-medium at its published widths and depth, one clip
+#: of 1,500 encoder rows, 256 decoder tokens, the first 32 decode steps
+#: also on the recompute path
+SEAMLESS10 = dict(arch="seamless-m4t-medium", frames=1500, tokens=256,
+                  recompute_steps=32)
+#: 10b: the reference's training split of --seq 4,096 (frames and tokens
+#: seq // 2 = 2,048 each), batch 2, 10 steps, bf16, remat
+TRAIN10 = dict(arch="seamless-m4t-medium", steps=10, batch=2, seq=4096)
+#: 10c: internvl2-76b at 8 of its 80 layers (its f32 check takes ~36 GB:
+#: 1.05 B-row embedding and head), 256 patches and 256 tokens; the kernel
+#: against the plain attention at 2 layers
+VLM10 = dict(arch="internvl2-76b", depth=8, check_depth=2, tokens=256)
+
+
+def rel_l2(torch, a, b):
+    """Relative L2 distance of each row of ``a`` from ``b`` (the last axis:
+    one position's logits)."""
+    return (torch.linalg.vector_norm(a - b, dim=-1)
+            / torch.linalg.vector_norm(b, dim=-1))
+
+
+def timed_forward(torch, fn, reps=3):
+    """(result, median host wall of ``reps`` synchronized calls after a
+    warm one)."""
+    out = fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, sorted(walls)[reps // 2]
+
+
+def seamless_decode_check(torch, wrappers):
+    """10a: seamless-m4t-medium at its published widths and full depth (12
+    encoder and 12 decoder layers) in f32, seeded weights and N(0, 1)
+    frames (1 x 1,500 x 1,024) on the card, the counters zeroed before and
+    read after: `forward` over 256 tokens against `fill_cross_cache` and
+    256 teacher-forced `decode_step`s over the cached cross K / V (kernel
+    3 with every slot at position 1,499), and the first 32 steps of the
+    recompute path (``cross_kv_cache=False``: kernel 2 at Sq 1 from
+    ``enc_out``) against the cached path's, each within
+    ``DECODE9_TOL["float32"]`` (the relative L2 of a position's logits).
+    Kernel 2 runs 36 times in the forward (12 encoder, 12 self, 12 cross
+    layers), 12 in `encode` and 12 a recompute step; kernel 3 24 times a
+    cached step and 12 a recompute step.  Then the same forward in bf16:
+    its wall (median of 3 after a warm call) and peak memory."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    n = SEAMLESS10
+    cfg = get_config(n["arch"]).replace(dtype="float32")
+    S, Se, R = n["tokens"], n["frames"], n["recompute_steps"]
+    L, E = cfg.total_blocks(), cfg.encoder_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    lm = M.init_params(cfg, seed=13, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    frames = torch.randn(1, Se, cfg.frontend_dim, device="cuda",
+                         generator=g)
+    toks = torch.randint(1, cfg.vocab_size, (1, S), device="cuda",
+                         generator=g)
+    with torch.no_grad():
+        full = M.forward(lm, cfg, {"tokens": toks, "frames": frames})[0][0]
+        enc = M.encode(lm, cfg, frames)
+    caches = M.fill_cross_cache(lm, cfg, M.init_caches(
+        cfg, 1, S, device="cuda", enc_len=Se), enc)
+    steps = []
+    for t in range(S):
+        logits, caches = M.decode_step(lm, cfg, caches, toks[:, t:t + 1],
+                                       torch.full((1,), t, device="cuda"))
+        steps.append(logits[0])
+    steps = torch.stack(steps)
+    rcfg = cfg.replace(cross_kv_cache=False)
+    rcaches = M.init_caches(rcfg, 1, S, device="cuda", enc_len=Se)
+    recomputed = []
+    for t in range(R):
+        logits, rcaches = M.decode_step(lm, rcfg, rcaches, toks[:, t:t + 1],
+                                        torch.full((1,), t, device="cuda"),
+                                        enc_out=enc)
+        recomputed.append(logits[0])
+    dec_rel = rel_l2(torch, steps, full).cpu().numpy()
+    re_rel = rel_l2(torch, torch.stack(recomputed), steps[:R]).cpu().numpy()
+    agree = int((steps.argmax(-1) == full.argmax(-1)).sum())
+    check_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    peak_f32 = torch.cuda.max_memory_allocated()
+    del lm, caches, rcaches, full, enc, steps, recomputed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bcfg = get_config(n["arch"])
+    lm = M.init_params(bcfg, seed=13, device="cuda")
+    for w in wrappers.values():
+        w.launches = 0
+
+    def fwd():
+        with torch.no_grad():
+            return M.forward(lm, bcfg, {"tokens": toks, "frames": frames})[0]
+    out, bf16_wall = timed_forward(torch, fwd)
+    bf16_launches = wrappers["flash_attention"].launches
+    finite = bool(torch.isfinite(out).all())
+    tol = DECODE9_TOL["float32"]
+    rec = dict(arch=n["arch"], encoder_layers=E, decoder_layers=L,
+               frames=Se, tokens=S, check_dtype="float32",
+               decode_rel_l2_max=float(dec_rel.max()),
+               decode_rel_l2_median=float(np.median(dec_rel)),
+               argmax_equal=agree, of=S, recompute_steps=R,
+               recompute_rel_l2_max=float(re_rel.max()), decode_tol=tol,
+               launches=launches, check_s=check_s,
+               max_memory_allocated_f32=peak_f32,
+               bf16_forward_wall_s=bf16_wall,
+               bf16_forward_launches=bf16_launches,
+               bf16_max_memory_allocated=torch.cuda.max_memory_allocated(),
+               bf16_logits_finite=finite)
+    emit("front_end_seamless", **rec)
+    del lm, out
+    torch.cuda.empty_cache()
+    assert rec["decode_rel_l2_max"] <= tol, rec
+    assert rec["recompute_rel_l2_max"] <= tol, rec
+    assert finite, rec
+    assert launches.get("flash_attention") == 2 * (E + L) + R * L, launches
+    assert launches.get("decode_attention") == 2 * L * S + L * R, launches
+    assert bf16_launches == 4 * (E + 2 * L), bf16_launches
+
+
+def seamless_train(torch, wrappers):
+    """10b: seamless-m4t-medium at its published widths and depth trains
+    10 steps of `make_train_step` in bf16 with per-layer remat, batch 2 x
+    (2,048 frames + 2,048 tokens): the reference's training split of
+    ``--seq`` 4,096 on the zipf stream, with seeded N(0, 1) frames (the
+    CLI's zero frames give a zero encoder output and zero gradients to
+    every encoder and cross-attention weight),
+    under `refuse_plain_on_cuda`, the counters zeroed just before and
+    read just after.  The loss must stay finite and fall; kernel 2 runs
+    twice a step in each of the 36 attention layers (12 encoder, 12 self,
+    12 cross; the forward and the remat's recompute), 720 in all, and
+    kernel 2b once, 360.  Then one more step under `torch.profiler`, and
+    `launch.train.main --arch seamless-m4t-medium --steps 2 --ckpt` (the
+    CLI's batch: zero frames), its checkpoint read back bitwise through
+    `checkpoint.load_lm`."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import DataConfig, SyntheticLMStream
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import make_train_step
+    n = TRAIN10
+    cfg = get_config(n["arch"])
+    half, B = n["seq"] // 2, n["batch"]
+    n_attn = cfg.encoder_layers + 2 * cfg.total_blocks()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = M.init_params(cfg, seed=14, device="cuda")
+    opt_state = O.init(dict(lm.named_parameters()))
+    step_fn = make_train_step(cfg, O.OptConfig(
+        lr=1e-3, warmup_steps=max(n["steps"] // 10, 1),
+        total_steps=n["steps"]))
+    stream = SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=n["seq"], global_batch=B,
+        seed=0))
+    g = torch.Generator(device="cuda").manual_seed(14)
+
+    def batch_of(step):
+        b = {k: torch.from_numpy(np.ascontiguousarray(v[:, :half])).cuda()
+             for k, v in stream.batch(step).items()}
+        b["frames"] = torch.randn(B, half, cfg.frontend_dim, device="cuda",
+                                  generator=g)
+        return b
+    undo = refuse_plain_on_cuda(torch)
+    for w in wrappers.values():
+        w.launches = 0
+    hist = []
+    t0 = time.perf_counter()
+    try:
+        for step in range(n["steps"]):
+            batch = batch_of(step)
+            t1 = time.perf_counter()
+            met = step_fn(lm, opt_state, batch)
+            torch.cuda.synchronize()
+            hist.append(dict(loss=float(met["loss"]),
+                             grad_norm=float(met["grad_norm"]),
+                             wall_s=time.perf_counter() - t1))
+    finally:
+        undo()
+    run_wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    walls = [h["wall_s"] for h in hist]
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    prof = device_profile(torch, lambda: step_fn(lm, opt_state, batch),
+                          top=10, groups={"flash_fwd": "flash_fwd",
+                                          "flash_bwd": "flash_bwd"})
+    del lm, opt_state, batch, step_fn
+    torch.cuda.empty_cache()
+    ckpt = ROOT / "build" / "phase10" / "seamless.npz"
+    state = {}
+    t1 = time.perf_counter()
+    cli = train.main(["--arch", n["arch"], "--steps", "2", "--log-every",
+                      "1", "--ckpt", str(ckpt)], state=state)
+    cli_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    back = CKPT.load_lm(str(ckpt), state["cfg"], device="cuda")
+    equal = all(torch.equal(a, b) for a, b in zip(
+        state["lm"].state_dict().values(), back.state_dict().values()))
+    read_s = time.perf_counter() - t1
+    ck_bytes = ckpt.stat().st_size
+    ckpt.unlink()
+    del back, state
+    torch.cuda.empty_cache()
+    tokens = B * half
+    rec = dict(arch=n["arch"], dtype=cfg.dtype, remat=cfg.remat,
+               attention_layers=n_attn, batch=B, frames=half, tokens=half,
+               loss=losses, grad_norm=[h["grad_norm"] for h in hist],
+               step_wall_s=walls, median_step_wall_s_after_first=steady,
+               tokens_per_s=tokens / steady,
+               frames_and_tokens_per_s=2 * tokens / steady,
+               run_wall_s=run_wall, max_memory_allocated=peak,
+               launches={k: launches[k] for k in ("flash_attention",
+                                                   "flash_attention_bwd")},
+               other_launches={k: v for k, v in launches.items() if v and k
+                               not in ("flash_attention",
+                                       "flash_attention_bwd")},
+               profiled_step=prof, cli_losses=[h["loss"] for h in cli],
+               cli_s=cli_s, checkpoint_bytes=ck_bytes,
+               checkpoint_read_s=read_s, checkpoint_bitwise_equal=equal)
+    emit("front_end_train", **rec)
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    assert launches["flash_attention"] == 2 * n_attn * n["steps"], launches
+    assert launches["flash_attention_bwd"] == n_attn * n["steps"], launches
+    assert all(np.isfinite([h["loss"] for h in cli])), cli
+    assert equal, "the checkpoint read back differs from the weights"
+
+
+def vlm_front_end(torch, wrappers):
+    """10c: internvl2-76b at its published widths, 8 of 80 layers
+    (`depth_cut`), served as `serve_family` serves a SERVE9 model (the
+    text-only forward against 256 teacher-forced decode steps in f32, then
+    bf16 weights serving 4 prompts x 8 tokens: the reference's engine takes
+    no patches); then, the counters zeroed, a bf16 forward over 256 seeded
+    N(0, 1) patches (3,200 wide) ahead of 256 tokens (wall, median of 3
+    after a warm call; peak memory; kernel 2 once a layer and call); and
+    the same patch-prefixed forward at 2 of 80 layers in f32 held against
+    the same weights through the plain attention on the card, each of the
+    512 positions' logits within ``DECODE9_TOL["float32"]``: the one
+    deliberate use of the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_reference)
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    n = VLM10
+    serve_family(torch, wrappers, n["arch"], n["depth"], "float32")
+    cfg = depth_cut(get_config(n["arch"]), n["depth"])
+    P, S = cfg.num_patches, n["tokens"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    lm = M.init_params(cfg, seed=15, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (1, S),
+                                     device="cuda", generator=g),
+             "patches": torch.randn(1, P, cfg.frontend_dim, device="cuda",
+                                    generator=g)}
+
+    def fwd(lm_, cfg_):
+        with torch.no_grad():
+            return M.forward(lm_, cfg_, batch)[0][0]
+    out, wall = timed_forward(torch, lambda: fwd(lm, cfg))
+    rec = dict(arch=n["arch"], depth_cut=n["depth"], patches=P, tokens=S,
+               frontend_dim=cfg.frontend_dim,
+               bf16_forward_wall_s=wall,
+               bf16_forward_launches=wrappers["flash_attention"].launches,
+               bf16_max_memory_allocated=torch.cuda.max_memory_allocated(),
+               bf16_logits_shape=list(out.shape),
+               bf16_logits_finite=bool(torch.isfinite(out).all()))
+    del lm, out
+    torch.cuda.empty_cache()
+    ccfg = depth_cut(get_config(n["arch"]), n["check_depth"]).replace(
+        dtype="float32")
+    lm = M.init_params(ccfg, seed=15, device="cuda")
+    got = fwd(lm, ccfg)
+    kernel = A.flash_attention
+    A.flash_attention = lambda q, k, v, *, causal, window: \
+        flash_attention_reference(q, k, v, causal=causal, window=window)
+    try:
+        want = fwd(lm, ccfg)
+    finally:
+        A.flash_attention = kernel
+    rel = rel_l2(torch, got, want).cpu().numpy()
+    tol = DECODE9_TOL["float32"]
+    rec.update(plain_check_depth=n["check_depth"], plain_check_positions=
+               len(rel), plain_rel_l2_max=float(rel.max()),
+               plain_rel_l2_patch_max=float(rel[:P].max()),
+               plain_check_tol=tol)
+    emit("front_end_vlm", **rec)
+    del lm, got, want
+    torch.cuda.empty_cache()
+    assert rec["bf16_logits_finite"], rec
+    assert rec["bf16_logits_shape"] == [P + S, cfg.vocab_size], rec
+    assert rec["bf16_forward_launches"] == 4 * cfg.total_blocks(), rec
+    assert rec["plain_rel_l2_max"] <= tol, rec
+
+
+def phase_front_ends(torch, smi):
+    """10: the vision and audio front ends on the card (slice 13), within
+    `PHASE10_BUDGET_S`: a. seamless-m4t-medium's forward against its
+    cached and recomputed cross decode (`seamless_decode_check`); b.
+    seamless trains (`seamless_train`); c. internvl2-76b served and its
+    patch prefix (`vlm_front_end`)."""
+    wrappers = kernel_wrappers()
+    t_phase = time.perf_counter()
+    walls = {}
+    for part, fn in (("a", seamless_decode_check), ("b", seamless_train),
+                     ("c", vlm_front_end)):
+        t0 = time.perf_counter()
+        fn(torch, wrappers)
+        walls[part] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    emit("front_ends", nvidia_smi=smi, part_wall_s=walls,
+         depth_cuts={SEAMLESS10["arch"]: None, VLM10["arch"]: VLM10["depth"]},
+         phase_wall_s=wall, budget_s=PHASE10_BUDGET_S)
+    assert wall < PHASE10_BUDGET_S, f"phase 10 took {wall:.1f} s"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -3287,6 +3688,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
         phase_evaluation(torch, smi)
         ninth = phase_families(torch, smi)
+        phase_front_ends(torch, smi)
         path_of = {"ivf_topk": second, "ivfpq_adc": second,
                    "ssd_intra": third, "ssd_intra_bwd": third,
                    "flash_attention_bwd": ninth}

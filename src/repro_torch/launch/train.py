@@ -9,9 +9,14 @@ weights, the zipf token stream, AdamW with f32 master weights.
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
       --steps 10 --batch 2 --seq 4096 --ckpt out.npz
 
-``--arch`` takes the eight text architectures of `repro_torch.configs`
-(dense, MoE, MLA + MoE, Mamba-2 and the hybrid).  On the card (the
-default ``--device cuda``) every attention layer's forward and backward
+``--arch`` takes the ten architectures of `repro_torch.configs` (dense,
+MoE, MLA + MoE, Mamba-2, the hybrid, and the two with a front end).  As
+in the reference, a vision model's batch gets zero ``patches`` and an
+encoder-decoder's zero ``frames`` of ``--seq // 2`` rows with its tokens
+cut to ``--seq // 2`` (zero frames give a zero encoder output, so every
+weight of the encoder, the cross attention and ``frontend_proj`` gets a
+zero gradient: train on real frames through `make_train_step`).  On the card (the default ``--device cuda``)
+every attention layer's forward and backward (encoder, decoder, cross)
 run as the flash attention kernels and every SSM layer's intra-chunk pass
 and its gradient as the SSD kernels; ``--device cpu`` runs their plain
 versions.  ``--ckpt`` writes the parameters in the reference's layout
@@ -77,6 +82,14 @@ def main(argv=None, state=None):
         t_step = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in stream.batch(step).items()}
+        if cfg.frontend == "vision":
+            batch["patches"] = torch.zeros(
+                (args.batch, cfg.num_patches, cfg.frontend_dim), device=dev)
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.zeros(
+                (args.batch, args.seq // 2, cfg.frontend_dim), device=dev)
+            batch["tokens"] = batch["tokens"][:, : args.seq // 2]
+            batch["labels"] = batch["labels"][:, : args.seq // 2]
         met = step_fn(lm, opt_state, batch)
         sync()
         wall = time.perf_counter() - t_step

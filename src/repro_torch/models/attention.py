@@ -3,12 +3,17 @@ with RoPE, optional qk-norm and bias and a sliding window, and DeepSeek-V2's
 multi-head latent attention (MLA).
 
 `gqa_full` runs the forward attention kernel (`kernels.flash_attention`)
-where the reference calls `attend_ref`; `gqa_decode` writes the new K/V row
-of every slot into the cache and runs the decode attention kernel
-(`kernels.decode_attention`) with the slots' position vector, where the
-reference computes the attention inline.  The cache is updated in place
-(the reference returns new arrays), which saves a copy of the whole cache
-per layer and step.
+where the reference calls `attend_ref`: self-attention (causal, windowed,
+or full for the encoder) and, with ``kv_x``, cross attention from the
+decoder's queries to the encoder's output (non-causal, Sq != Sk, no
+RoPE).  `gqa_decode` writes the new K/V row of every slot into the cache
+and runs the decode attention kernel (`kernels.decode_attention`) with
+the slots' position vector, where the reference computes the attention
+inline.  The cache is updated in place (the reference returns new
+arrays), which saves a copy of the whole cache per layer and step.
+`gqa_cross_decode` runs the same decode kernel over the cached cross K/V
+of `cross_kv`, every slot at position Se - 1: the reference's softmax
+over the whole encoder output.
 
 MLA is jnp in the reference, so torch ops carry it here: its qk dim
 (nope + rope, 192 at full width) differs from its v dim (128), which the
@@ -51,10 +56,13 @@ class GQA(nn.Module):
             dense_init_(w, generator)
 
 
-def _project_qkv(p: GQA, cfg, x, positions):
+def _project_qkv(p: GQA, cfg, x, positions, kv_x=None):
+    """q from ``x``, k and v from ``kv_x`` (cross attention) or ``x``; with
+    ``kv_x`` neither q nor k is rotated, as in the reference."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    src = x if kv_x is None else kv_x
+    q, k, v = x @ p.wq, src @ p.wk, src @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(B, -1, H, hd)
@@ -63,16 +71,21 @@ def _project_qkv(p: GQA, cfg, x, positions):
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q)
         k = rmsnorm(p.k_norm, k)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_x is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def gqa_full(p: GQA, cfg, x, positions, *, causal=True, window=None):
-    """Full-sequence self-attention.  x: (B, S, D); positions: (B, S)."""
+def gqa_full(p: GQA, cfg, x, positions, *, causal=True, window=None,
+             kv_x=None):
+    """Full-sequence attention.  x: (B, S, D); positions: (B, S).  With
+    ``kv_x`` (B, Se, D) it is cross attention: keys and values from
+    ``kv_x``, no mask (``causal`` is ignored), no RoPE."""
     w = cfg.sliding_window if window is None else window
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    out = flash_attention(q, k, v.contiguous(), causal=causal, window=w)
+    q, k, v = _project_qkv(p, cfg, x, positions, kv_x=kv_x)
+    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=causal and kv_x is None, window=w)
     B, S = x.shape[0], out.shape[1]
     return out.reshape(B, S, -1) @ p.wo
 
@@ -95,6 +108,38 @@ def gqa_decode(p: GQA, cfg, x, cache_k, cache_v, pos, *, window=0):
                            ring=window > 0)
     y = out.reshape(B, -1).to(x.dtype) @ p.wo
     return y[:, None, :], cache_k, cache_v
+
+
+def cross_kv(p: GQA, cfg, enc_out):
+    """The cross attention's K / V of the encoder output, (B, Se, KV, hd)
+    each, projected once a request (`model.fill_cross_cache`).  As in the
+    reference, no ``k_norm`` here, unlike `gqa_full` with ``kv_x``: no
+    config combines qk-norm with cross attention."""
+    B, Se, _ = enc_out.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    k, v = enc_out @ p.wk, enc_out @ p.wv
+    if cfg.qkv_bias:
+        k, v = k + p.bk, v + p.bv
+    return k.reshape(B, Se, KV, hd), v.reshape(B, Se, KV, hd)
+
+
+def gqa_cross_decode(p: GQA, cfg, x, ck, cv):
+    """Single-token cross attention against the cached encoder K / V.
+    x: (B, 1, D); ck / cv: (B, Se, KV, hd).  The decode kernel with every
+    slot at position Se - 1 attends to all Se rows."""
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = x @ p.wq
+    if cfg.qkv_bias:
+        q = q + p.bq
+    q = q.reshape(B, H, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p.q_norm, q)
+    last = torch.full((B,), ck.shape[1] - 1, dtype=torch.int32,
+                      device=x.device)
+    out = decode_attention(q.contiguous(), ck, cv, last, ring=False)
+    y = out.reshape(B, -1).to(x.dtype) @ p.wo
+    return y[:, None, :]
 
 
 # ---------------------------------------------------------------------------

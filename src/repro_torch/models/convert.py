@@ -4,9 +4,12 @@
 init_params` returns, with numpy arrays as leaves
 (``jax.tree.map(np.asarray, params)``), and unstacks the scanned group
 axis of ``stack/groups`` and ``stack/tail`` into one module per layer (the
-shared block of ``stack/shared`` becomes ``LM.shared``), so the same
-weights compute the same function in both packages.  Covers every text
-architecture and the query encoder (which uses ``embed`` and the stack).
+shared block of ``stack/shared`` becomes ``LM.shared``), and that of
+``encoder/groups`` (stacked over ``encoder_layers``) into ``LM.encoder``,
+so the same weights compute the same function in both packages.  Covers
+every architecture (the decoder layers' ``cross`` / ``norm_cross``,
+``frontend_proj`` and ``enc_norm`` included) and the query encoder (which
+uses ``embed`` and the stack).
 Every leaf keeps its dtype: a JAX leaf whose dtype differs from the port's
 parameter (an f32 ``A_log`` or MoE ``router`` in a bf16 model stays f32 on
 both sides) is refused.  ``params_to_jax(lm, cfg)`` is the inverse: the
@@ -27,7 +30,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .model import LM
+from .model import LM, enc_cfg
 from .transformer import layer_specs
 
 
@@ -50,23 +53,35 @@ def _layer_sources(cfg):
     return out
 
 
+def _stacks(cfg):
+    """(tree key, module list of the `LM`, its config) of each layer stack:
+    the decoder's ``stack`` and an encoder-decoder's ``encoder``."""
+    out = [("stack", "blocks", cfg)]
+    if cfg.is_encoder_decoder:
+        out.append(("encoder", "encoder", enc_cfg(cfg)))
+    return out
+
+
+_TOP = ("embed", "final_norm", "lm_head", "frontend_proj", "enc_norm")
+
+
 def params_from_jax(tree, cfg, device="cuda", cast=False) -> LM:
     """The reference's tree -> an `LM` on ``device``.  ``cast`` (the
     checkpoint reader's) casts each leaf (numpy or torch) to the port's
     parameter dtype instead of refusing another dtype."""
     state: Dict[str, np.ndarray] = {}
-    _flatten({k: tree[k] for k in ("embed", "final_norm", "lm_head")}, "",
-             state)
-    stack = tree["stack"]
-    sources = _layer_sources(cfg)
-    assert len(sources) == len(layer_specs(cfg))
-    for li, (part, i, g) in enumerate(sources):
-        layer: Dict[str, np.ndarray] = {}
-        _flatten(stack[part][i], "", layer)
-        for name, arr in layer.items():
-            state[f"blocks.{li}.{name}"] = arr[g]
-    if "shared" in stack:
-        _flatten(stack["shared"], "shared.", state)
+    _flatten({k: tree[k] for k in _TOP if k in tree}, "", state)
+    for key, mods, c in _stacks(cfg):
+        stack = tree[key]
+        sources = _layer_sources(c)
+        assert len(sources) == len(layer_specs(c))
+        for li, (part, i, g) in enumerate(sources):
+            layer: Dict[str, np.ndarray] = {}
+            _flatten(stack[part][i], "", layer)
+            for name, arr in layer.items():
+                state[f"{mods}.{li}.{name}"] = arr[g]
+    if "shared" in tree["stack"]:
+        _flatten(tree["stack"]["shared"], "shared.", state)
     lm = LM(cfg, device)
     own = lm.state_dict()
     if set(own) != set(state):
@@ -94,11 +109,13 @@ def params_from_jax(tree, cfg, device="cuda", cast=False) -> LM:
 def params_to_jax(lm, cfg):
     """The inverse of `params_from_jax`: the port's parameters (an `LM`, or
     a ``{name: tensor}`` mapping with its names, e.g. its gradients) as the
-    reference's tree: ``embed``, ``final_norm``, ``lm_head`` and ``stack``
+    reference's tree: ``embed``, ``final_norm``, ``lm_head``, ``stack``
     with ``groups`` / ``tail`` (one dict per pattern slot, every leaf
-    stacked along a leading group axis) and ``shared``.  Leaves are numpy
-    arrays, floating ones in f32 (exact for bf16; numpy has no bf16),
-    stacked and cast on the tensors' device before the copy to the host."""
+    stacked along a leading group axis) and ``shared``, and for a front
+    end ``frontend_proj`` and ``encoder`` (``groups``) / ``enc_norm``.
+    Leaves are numpy arrays, floating ones in f32 (exact for bf16; numpy
+    has no bf16), stacked and cast on the tensors' device before the copy
+    to the host."""
     named = dict(lm.state_dict() if isinstance(lm, torch.nn.Module) else lm)
 
     def arr(t):
@@ -116,26 +133,27 @@ def params_to_jax(lm, cfg):
         return out
 
     tree = nest((k, arr(v)) for k, v in named.items()
-                if not k.startswith(("blocks.", "shared.")))
-    per_slot: Dict[tuple, Dict[str, list]] = {}
-    for li, (part, i, g) in enumerate(_layer_sources(cfg)):
-        slot = per_slot.setdefault((part, i), {})
-        prefix = f"blocks.{li}."
-        for k, v in named.items():
-            if k.startswith(prefix):
-                slot.setdefault(k[len(prefix):], []).append(v.detach())
-    stack: dict = {}
-    for part, pattern in (("groups", cfg.pattern),
-                          ("tail", cfg.tail_pattern)):
-        if pattern:
-            stack[part] = [nest((k, arr(torch.stack(v))) for k, v in
-                                per_slot.get((part, i), {}).items())
-                           for i in range(len(pattern))]
+                if not k.startswith(("blocks.", "shared.", "encoder.")))
+    for key, mods, c in _stacks(cfg):
+        per_slot: Dict[tuple, Dict[str, list]] = {}
+        for li, (part, i, g) in enumerate(_layer_sources(c)):
+            slot = per_slot.setdefault((part, i), {})
+            prefix = f"{mods}.{li}."
+            for k, v in named.items():
+                if k.startswith(prefix):
+                    slot.setdefault(k[len(prefix):], []).append(v.detach())
+        stack: dict = {}
+        for part, pattern in (("groups", c.pattern),
+                              ("tail", c.tail_pattern)):
+            if pattern:
+                stack[part] = [nest((k, arr(torch.stack(v))) for k, v in
+                                    per_slot.get((part, i), {}).items())
+                               for i in range(len(pattern))]
+        tree[key] = stack
     shared = [(k[len("shared."):], arr(v)) for k, v in named.items()
               if k.startswith("shared.")]
     if shared:
-        stack["shared"] = nest(shared)
-    tree["stack"] = stack
+        tree["stack"]["shared"] = nest(shared)
     return tree
 
 

@@ -1,5 +1,5 @@
-"""Top-level language model, text decoder (mirrors `repro.models.model`):
-embedding, layer stack (dense, MoE, MLA + MoE, Mamba-2 and the hybrid's
+"""Top-level language model (mirrors `repro.models.model`): embedding,
+front end, layer stack (dense, MoE, MLA + MoE, Mamba-2 and the hybrid's
 shared attention block), final norm, LM head.
 
     lm = init_params(get_config("qwen3-4b"), seed=0, device="cuda")
@@ -7,6 +7,21 @@ shared attention block), final norm, LM head.
     logits, caches = decode_step(lm, cfg, caches, token, pos)
     logits, aux = forward(lm, cfg, {"tokens": tokens})
     total, metrics = loss_fn(lm, cfg, {"tokens": tokens, "labels": labels})
+
+The front ends take the reference's stubbed inputs.  Vision
+(internvl2-76b): ``batch["patches"]`` (B, P, frontend_dim), the image
+encoder's output, projected by ``frontend_proj`` and prepended to the
+text; the loss ignores the patch slots.  Audio (seamless-m4t-medium, an
+encoder-decoder): ``batch["frames"]`` (B, Se, frontend_dim) projected and
+run through a bidirectional encoder (`encode`), whose output every
+decoder layer cross-attends to.  Decoding takes the encoder output once
+into per-layer cross K / V caches (`init_caches(enc_len=)` and
+`fill_cross_cache`), or as ``enc_out`` to `decode_step`, which then
+projects it anew each step:
+
+    enc = encode(lm, cfg, frames)
+    caches = fill_cross_cache(lm, cfg, init_caches(cfg, 1, 256,
+                              enc_len=enc.shape[1]), enc)
 """
 from __future__ import annotations
 
@@ -14,7 +29,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.configs.base import ATTN_DENSE
 from . import transformer as tfm
+from .attention import cross_kv
 from .layers import RMSNorm, dense_init_, dtype_of, param, rmsnorm
 
 
@@ -28,9 +45,23 @@ class LM(nn.Module):
         self.embed = param((cfg.vocab_size, cfg.d_model), dt, device)
         self.final_norm = RMSNorm(cfg.d_model, dt, device)
         self.lm_head = param((cfg.d_model, cfg.vocab_size), dt, device)
-        self.blocks = tfm.stack_init(cfg, device)
+        self.blocks = tfm.stack_init(cfg, device,
+                                     cross=cfg.is_encoder_decoder)
         if tfm.has_shared(cfg):
             self.shared = tfm.SharedBlock(cfg, device)
+        if cfg.frontend in ("vision", "audio"):
+            self.frontend_proj = param((cfg.frontend_dim, cfg.d_model), dt,
+                                       device)
+        if cfg.is_encoder_decoder:
+            self.encoder = tfm.stack_init(enc_cfg(cfg), device)
+            self.enc_norm = RMSNorm(cfg.d_model, dt, device)
+
+
+def enc_cfg(cfg):
+    """The encoder's config: ``cfg.encoder_layers`` dense attention layers
+    with no window (the reference's ``_enc_cfg``)."""
+    return cfg.replace(pattern=(ATTN_DENSE,), n_groups=cfg.encoder_layers,
+                       tail_pattern=(), n_tail_groups=0, sliding_window=0)
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> LM:
@@ -45,21 +76,54 @@ def init_params(cfg, seed: int = 0, device="cuda") -> LM:
         blk.init_(g)
     if hasattr(lm, "shared"):
         lm.shared.init_(g)
+    if hasattr(lm, "frontend_proj"):
+        dense_init_(lm.frontend_proj, g)
+    for blk in getattr(lm, "encoder", ()):
+        blk.init_(g)
     return lm
+
+
+def _positions(x):
+    B, S = x.shape[:2]
+    return torch.arange(S, device=x.device)[None].expand(B, S)
+
+
+def encode(lm: LM, cfg, frames):
+    """The audio encoder: frames (B, Se, frontend_dim) -> (B, Se, D),
+    ``frontend_proj``, then the encoder's layers with bidirectional
+    attention (remat'd per layer as the decoder's), then ``enc_norm``."""
+    x = frames @ lm.frontend_proj
+    x, _ = tfm.stack_full(lm.encoder, enc_cfg(cfg), x, _positions(x),
+                          causal=False)
+    return rmsnorm(lm.enc_norm, x)
+
+
+def embed_inputs(lm: LM, cfg, batch):
+    """(x, positions, enc_out): the token embeddings, with the projected
+    patches prepended for a vision model; positions over the whole
+    sequence; the encoder's output for an encoder-decoder (else None).
+    Patches and frames are cast to the model's dtype first."""
+    x = lm.embed[batch["tokens"]]
+    enc_out = None
+    if cfg.frontend == "vision" and "patches" in batch:
+        pe = batch["patches"].to(x.dtype) @ lm.frontend_proj
+        x = torch.cat([pe, x], dim=1)
+    if cfg.is_encoder_decoder:
+        enc_out = encode(lm, cfg, batch["frames"].to(x.dtype))
+    return x, _positions(x), enc_out
 
 
 def forward(lm: LM, cfg, batch, long_mode=False):
     """Full-sequence forward (training / prefill).  batch["tokens"]:
-    (B, S) int.  Returns (logits (B, S, vocab) f32, aux): aux sums the MoE
-    layers' balance losses (0 without MoE).  ``long_mode`` gives the
-    hybrid's shared block its sliding window."""
-    tokens = batch["tokens"]
-    x = lm.embed[tokens]
-    B, S = tokens.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    (B, S) int, with ``"patches"`` (vision) or ``"frames"`` (audio, which
+    needs them).  Returns (logits (B, P + S, vocab) f32, aux): P patch
+    positions first for a vision batch; aux sums the MoE layers' balance
+    losses (0 without MoE).  ``long_mode`` gives the hybrid's shared block
+    its sliding window."""
+    x, positions, enc_out = embed_inputs(lm, cfg, batch)
     x, aux = tfm.stack_full(lm.blocks, cfg, x, positions,
                             shared=getattr(lm, "shared", None),
-                            long_mode=long_mode)
+                            long_mode=long_mode, enc_out=enc_out)
     x = rmsnorm(lm.final_norm, x)
     logits = (x @ lm.lm_head).float()
     return logits, aux
@@ -67,10 +131,14 @@ def forward(lm: LM, cfg, batch, long_mode=False):
 
 def loss_fn(lm: LM, cfg, batch, aux_weight=0.01):
     """Mean next-token cross-entropy over labels >= 0 (negative labels are
-    ignored), plus ``aux_weight`` times the aux loss.  Returns
-    (total, metrics) with the reference's metric names."""
+    ignored; a vision batch's patch positions take label -1), plus
+    ``aux_weight`` times the aux loss.  Returns (total, metrics) with the
+    reference's metric names."""
     logits, aux = forward(lm, cfg, batch)
     labels = batch["labels"].long()
+    if cfg.frontend == "vision" and "patches" in batch:
+        pad = labels.new_full(batch["patches"].shape[:2], -1)
+        labels = torch.cat([pad, labels], dim=1)
     valid = labels >= 0
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
@@ -86,19 +154,39 @@ def prefill(lm: LM, cfg, batch):
     return forward(lm, cfg, batch)[0]
 
 
-def init_caches(cfg, batch, cache_len, device="cuda", long_mode=False):
+def init_caches(cfg, batch, cache_len, device="cuda", long_mode=False,
+                enc_len=0):
+    """Decode caches; ``enc_len`` adds an encoder-decoder's cross K / V
+    caches of that many encoder rows (none with ``cfg.cross_kv_cache``
+    off: decode then takes ``enc_out`` each step)."""
+    use_enc = enc_len if (cfg.is_encoder_decoder and cfg.cross_kv_cache) \
+        else 0
     return tfm.caches_init(cfg, batch, cache_len, device,
-                           long_mode=long_mode)
+                           long_mode=long_mode, enc_len=use_enc)
 
 
 @torch.no_grad()
-def decode_step(lm: LM, cfg, caches, token, pos, feed=None):
+def fill_cross_cache(lm: LM, cfg, caches, enc_out):
+    """Project the encoder output (B, Se, D) into every decoder layer's
+    cross K / V cache, once a request (the per-step projection otherwise).
+    Returns ``caches``, updated in place."""
+    for blk, cache in zip(lm.blocks, caches):
+        if hasattr(blk, "cross") and "ck" in cache:
+            cache["ck"], cache["cv"] = cross_kv(blk.cross, cfg, enc_out)
+    return caches
+
+
+@torch.no_grad()
+def decode_step(lm: LM, cfg, caches, token, pos, feed=None, enc_out=None):
     """token: (B, 1) int; pos: (B,) int positions of this token; ``feed``
     (B,) bool, when given, the slots whose recurrent (SSM) state this step
-    advances.  Returns (logits (B, vocab) f32, caches updated in place)."""
+    advances; ``enc_out`` (B, Se, D), the encoder output that cross
+    attention projects anew where the caches hold no cross K / V.
+    Returns (logits (B, vocab) f32, caches updated in place)."""
     x = lm.embed[token]
     x, caches = tfm.stack_decode(lm.blocks, cfg, caches, x, pos, feed=feed,
-                                 shared=getattr(lm, "shared", None))
+                                 shared=getattr(lm, "shared", None),
+                                 enc_out=enc_out)
     x = rmsnorm(lm.final_norm, x)
     logits = (x @ lm.lm_head).float()
     return logits[:, 0], caches

@@ -10,8 +10,13 @@ group by group, pattern slot by pattern slot, then the tail groups:
   on the `LM` and is applied at every such slot, so its gradient sums over
   the slots.
 
-The vision and audio front ends (cross attention, the encoder) are not
-ported: `layer_specs` refuses their configs."""
+An encoder-decoder's decoder layers (``cross=True``) also hold a cross
+attention, `Block.cross` and `Block.norm_cross`, applied after the self
+attention to the encoder's output: through the forward kernel in
+`stack_full`, and in `stack_decode` through the decode kernel over the
+cached cross K / V (``ck`` / ``cv`` of `caches_init(enc_len=)`) or, with
+no cache, through the forward kernel at Sq 1 from ``enc_out``.  The
+encoder is the same stack run with ``causal=False``."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -24,21 +29,27 @@ from repro_torch.configs.base import (ATTN_DENSE, ATTN_MOE, MLA_MOE,
                                       SHARED_ATTN, SSM)
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .attention import GQA, MLA, gqa_decode, gqa_full, mla_decode, mla_full
+from .attention import (GQA, MLA, gqa_cross_decode, gqa_decode, gqa_full,
+                        mla_decode, mla_full)
 from .layers import MLP, RMSNorm, dtype_of, mlp, rmsnorm
 
 PORTED_SPECS = (ATTN_DENSE, ATTN_MOE, MLA_MOE, SSM, SHARED_ATTN)
 
 
 class Block(nn.Module):
-    """One pre-norm attention (GQA or MLA) layer with a SwiGLU or MoE FFN."""
+    """One pre-norm attention (GQA or MLA) layer with a SwiGLU or MoE FFN;
+    with ``cross`` (an encoder-decoder's decoder layer) also a pre-norm
+    cross attention between them."""
 
-    def __init__(self, cfg, spec, device):
+    def __init__(self, cfg, spec, device, cross=False):
         super().__init__()
         kind, ffn = spec
         dt = dtype_of(cfg)
         self.norm1 = RMSNorm(cfg.d_model, dt, device)
         self.attn = MLA(cfg, device) if kind == "mla" else GQA(cfg, device)
+        if cross:
+            self.norm_cross = RMSNorm(cfg.d_model, dt, device)
+            self.cross = GQA(cfg, device)
         self.norm2 = RMSNorm(cfg.d_model, dt, device)
         if ffn == "moe":
             self.moe = moe_mod.MoE(cfg, device)
@@ -47,6 +58,8 @@ class Block(nn.Module):
 
     def init_(self, generator):
         self.attn.init_(generator)
+        if hasattr(self, "cross"):
+            self.cross.init_(generator)
         (self.moe if hasattr(self, "moe") else self.mlp).init_(generator)
 
 
@@ -88,17 +101,18 @@ class SharedSlot(nn.Module):
 
 def layer_specs(cfg):
     """Layer specs in execution order (``pattern`` x ``n_groups``, then the
-    tail); configs with a vision or audio front end are refused."""
-    if cfg.frontend != "text" or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} front end and cross attention "
-            f"are not ported; the port runs text decoders")
+    tail).  A spec outside `PORTED_SPECS` is refused, and so is an
+    encoder-decoder with a decoder layer other than ``("attn", ...)``
+    (cross attention lives on GQA layers only)."""
     specs = [tuple(s) for s in list(cfg.pattern) * cfg.n_groups
              + list(cfg.tail_pattern) * cfg.n_tail_groups]
     bad = sorted({s for s in specs if s not in PORTED_SPECS})
     if bad:
         raise NotImplementedError(f"{cfg.name}: layer specs {bad} are not "
                                   f"ported; the port runs {PORTED_SPECS}")
+    if cfg.is_encoder_decoder and any(k != "attn" for k, _ in specs):
+        raise NotImplementedError(f"{cfg.name}: cross attention on layers "
+                                  f"other than GQA attention is not ported")
     return specs
 
 
@@ -106,13 +120,13 @@ def has_shared(cfg) -> bool:
     return any(k == "shared_attn" for k, _ in cfg.pattern + cfg.tail_pattern)
 
 
-def stack_init(cfg, device) -> nn.ModuleList:
+def stack_init(cfg, device, cross=False) -> nn.ModuleList:
     def one(spec):
         if spec == SSM:
             return SSMBlock(cfg, device)
         if spec == SHARED_ATTN:
             return SharedSlot()
-        return Block(cfg, spec, device)
+        return Block(cfg, spec, device, cross=cross)
     return nn.ModuleList(one(spec) for spec in layer_specs(cfg))
 
 
@@ -125,7 +139,8 @@ def _ffn(blk, cfg, x):
     return x + mlp(blk.mlp, h), None
 
 
-def _apply_full(blk, cfg, x, positions, shared, long_mode):
+def _apply_full(blk, cfg, x, positions, shared, long_mode, enc_out=None,
+                causal=True):
     """One layer over a full sequence; returns (x, aux or None)."""
     if isinstance(blk, SSMBlock):
         return x + ssm_mod.ssm_full(blk.ssm, cfg, rmsnorm(blk.norm1, x)), None
@@ -138,36 +153,46 @@ def _apply_full(blk, cfg, x, positions, shared, long_mode):
     if isinstance(blk.attn, MLA):
         x = x + mla_full(blk.attn, cfg, h, positions)
     else:
-        x = x + gqa_full(blk.attn, cfg, h, positions, causal=True,
+        x = x + gqa_full(blk.attn, cfg, h, positions, causal=causal,
                          window=cfg.sliding_window)
+    if enc_out is not None and hasattr(blk, "cross"):
+        x = x + gqa_full(blk.cross, cfg, rmsnorm(blk.norm_cross, x),
+                         positions, window=0, kv_x=enc_out)
     return _ffn(blk, cfg, x)
 
 
-def stack_full(blocks, cfg, x, positions, shared=None, long_mode=False):
+def stack_full(blocks, cfg, x, positions, shared=None, long_mode=False,
+               enc_out=None, causal=True):
     """Apply the whole stack to a full sequence (training, forward, the
     encoder).  Returns (x, aux): aux sums the MoE layers' balance losses
     (an f32 zero without MoE).  With ``cfg.remat`` and gradients on, each
     layer is recomputed in the backward pass (`torch.utils.checkpoint`),
     as the reference checkpoints each scanned group.  ``long_mode`` gives
-    the shared block its sliding window ``cfg.shared_attn_window``."""
+    the shared block its sliding window ``cfg.shared_attn_window``;
+    ``enc_out`` (B, Se, D) feeds the decoder layers' cross attention;
+    ``causal=False`` is the encoder's bidirectional self-attention."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in blocks:
         if remat:
             x, a = checkpoint(_apply_full, blk, cfg, x, positions, shared,
-                              long_mode, use_reentrant=False)
+                              long_mode, enc_out, causal,
+                              use_reentrant=False)
         else:
-            x, a = _apply_full(blk, cfg, x, positions, shared, long_mode)
+            x, a = _apply_full(blk, cfg, x, positions, shared, long_mode,
+                               enc_out, causal)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
-def caches_init(cfg, batch, cache_len, device,
-                long_mode=False) -> List[Dict[str, torch.Tensor]]:
+def caches_init(cfg, batch, cache_len, device, long_mode=False,
+                enc_len=0) -> List[Dict[str, torch.Tensor]]:
     """One cache per layer: for attention {"k", "v"} of (batch, S, KV, hd),
     a ring of S = min(cache_len, window) slots with a sliding window (the
-    shared block's window only in ``long_mode``); for MLA the latent rows
+    shared block's window only in ``long_mode``), and with ``enc_len`` an
+    attention layer's cross K / V {"ck", "cv"} of (batch, enc_len, KV, hd)
+    (`model.fill_cross_cache` fills them); for MLA the latent rows
     {"c": (batch, cache_len, kv_lora_rank), "kr": (batch, cache_len,
     qk_rope_dim)}; for an SSM layer the conv's trailing inputs and the SSD
     state."""
@@ -189,8 +214,13 @@ def caches_init(cfg, batch, cache_len, device,
              else cfg.shared_attn_window if long_mode else 0)
         S = min(cache_len, w) if w else cache_len
         shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
-        caches.append({"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)})
+        cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+                 "v": torch.zeros(shape, dtype=dt, device=device)}
+        if enc_len and kind == "attn":
+            shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+            cache["ck"] = torch.zeros(shape, dtype=dt, device=device)
+            cache["cv"] = torch.zeros(shape, dtype=dt, device=device)
+        caches.append(cache)
     return caches
 
 
@@ -201,13 +231,16 @@ def _attn_decode(attn, cfg, x, cache, pos, w):
     return h
 
 
-def stack_decode(blocks, cfg, caches, x, pos, feed=None, shared=None):
+def stack_decode(blocks, cfg, caches, x, pos, feed=None, shared=None,
+                 enc_out=None):
     """One decode token through the stack; ``caches`` updated in place.
     ``feed`` (B,) bool, when given, names the slots this step feeds: an SSM
     layer keeps the old state of every other slot, so a recurrent state
     only ever holds its own request's tokens.  Attention caches take every
     slot's row (a stray row is overwritten when its slot writes that
-    position)."""
+    position).  A layer with cross attention attends to its cached cross
+    K / V where the cache holds them, else to ``enc_out`` (projected anew
+    each step), else not at all, as the reference's decode."""
     for blk, cache in zip(blocks, caches):
         if isinstance(blk, SSMBlock):
             h, new = ssm_mod.ssm_decode(blk.ssm, cfg, rmsnorm(blk.norm1, x),
@@ -233,5 +266,13 @@ def stack_decode(blocks, cfg, caches, x, pos, feed=None, shared=None):
         else:
             x = x + _attn_decode(blk.attn, cfg, h, cache, pos,
                                  cfg.sliding_window)
+        if hasattr(blk, "cross") and ("ck" in cache or enc_out is not None):
+            xin = rmsnorm(blk.norm_cross, x)
+            if "ck" in cache:
+                x = x + gqa_cross_decode(blk.cross, cfg, xin, cache["ck"],
+                                         cache["cv"])
+            else:
+                x = x + gqa_full(blk.cross, cfg, xin, None, window=0,
+                                 kv_x=enc_out)
         x = _ffn(blk, cfg, x)[0]
     return x, caches

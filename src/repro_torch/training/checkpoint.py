@@ -11,7 +11,9 @@ leaf's dtype.
 
 A model's parameters go in the reference's layout: `save_lm` writes the
 tree of `convert.params_to_jax` (``stack/groups/<slot>/...`` stacked along
-the group axis, ``stack/tail``, ``stack/shared``), which
+the group axis, ``stack/tail``, ``stack/shared``; ``frontend_proj``,
+``encoder/groups/0/...`` stacked over the encoder's layers and
+``enc_norm`` for a front end), which
 `repro.training.checkpoint.restore` loads against a `repro.models.model.
 init_params` template; `load_lm` reads such a file, the port's or the
 reference's, into an `LM`.  The reference writes bf16 leaves through

@@ -1180,10 +1180,18 @@ def _reduced_step(name, device, seed=0):
     rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 65))).to(
         device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    # N(0, 1) patches or frames (80 rows) for a front end
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.from_numpy(rng.normal(size=(
+            2, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)).to(
+            device)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy(rng.normal(size=(
+            2, 80, cfg.frontend_dim)).astype(np.float32)).to(device)
     step = make_train_step(cfg, O.OptConfig(lr=1e-3, warmup_steps=1,
                                             total_steps=4))
-    met = step(lm, O.init(dict(lm.named_parameters())),
-               {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    met = step(lm, O.init(dict(lm.named_parameters())), batch)
     return met, {n: p.detach() for n, p in lm.named_parameters()}
 
 
@@ -1240,3 +1248,145 @@ def test_gpu_attention_training_never_takes_the_plain_version(monkeypatch):
     assert torch.isfinite(met["loss"])
     assert fops.flash_attention.launches - n0[0] >= 2
     assert fops.flash_attention_bwd.launches - n0[1] == 2
+
+
+# ---------------------------------------------------------------------------
+# the front ends: cross attention (Sq != Sk, no mask) through kernels 2, 2b
+# and 3, and the reduced vision and encoder-decoder models on the card
+# ---------------------------------------------------------------------------
+
+def _cross_bwd_err(got, want, dtype):
+    """`_bwd_err` with chip_smoke.py's f32 limit, 2e-5 + 1e-5 |want|: a
+    cross key's gradient sums over every query (2,048 at seamless's
+    training shape), so it grows past the sums of the causal cases."""
+    if dtype == torch.bfloat16:
+        return _bwd_err(got, want, dtype)
+    d = (got.float() - want).abs()
+    return float((d / (2e-5 + 1e-5 * want.abs())).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk", [(2, 2048, 1500), (4, 1, 1500),
+                                     (1, 96, 40)])
+def test_gpu_cross_attention_kernels_match_plain(dtype, B, Sq, Sk):
+    """seamless-m4t-medium's cross attention (H = KV = 16, hd 64, no mask):
+    the training shape (2,048 decoder tokens over 1,500 encoder rows), the
+    recompute decode (Sq 1) and Sk under one 64-row tile.  Kernel 2
+    against the plain forward (f32 2e-5, bf16 5e-2); kernel 2b through the
+    autograd Function against the plain backward (`_cross_bwd_err`)."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain)
+    g = torch.Generator(device="cuda").manual_seed(B + Sq + Sk)
+    q = torch.randn(B, Sq, 16, 64, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(B, Sk, 16, 64, device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, Sq, 16, 64, device="cuda", generator=g).to(dtype)
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    n0 = (fops.flash_attention.launches, fops.flash_attention_bwd.launches)
+    out = fops.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(
+        out.float(), flash_attention_reference(q, k, v, causal=False).float(),
+        rtol=tol, atol=tol)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fops.flash_attention(*leaves, causal=False).backward(do)
+    assert (fops.flash_attention.launches,
+            fops.flash_attention_bwd.launches) == (n0[0] + 2, n0[1] + 1)
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                     do.float(), causal=False)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == dtype
+        assert _cross_bwd_err(leaf.grad, w, dtype) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 5e-2)])
+def test_gpu_cross_decode_kernel_matches_plain(dtype, tol):
+    """The cached cross decode: kernel 3 over 1,500 encoder rows with
+    every slot at position 1,499 (the whole cache), H = KV = 16, hd 64."""
+    _need_cuda()
+    q, ck, cv = (torch.from_numpy(x).cuda().to(dtype)
+                 for x in _decode_data(4, 1500, 16, 16, 64, 1500))
+    pos = torch.full((4,), 1499, dtype=torch.int32, device="cuda")
+    n0 = decode_attention.launches
+    out = decode_attention(q, ck, cv, pos)
+    assert decode_attention.launches == n0 + 1
+    torch.testing.assert_close(
+        out.float(), decode_attention_reference(q, ck, cv, pos).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["internvl2-76b", "seamless-m4t-medium"])
+def test_gpu_front_end_train_step_matches_cpu(name, monkeypatch):
+    """A reduced train step with N(0, 1) patches or frames on the card
+    (the encoder, the cross attention and the patch prefix through kernels
+    2 and 2b, never their plain versions) against the same step on the
+    CPU, with `test_gpu_new_family_train_step_matches_cpu`'s limits."""
+    _need_cuda()
+    import repro_torch.kernels.flash_attention.ops as fops
+    cm, cp = _reduced_step(name, "cpu")
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(fops, "flash_attention_reference", refuse)
+    monkeypatch.setattr(fops, "flash_attention_bwd_plain", refuse)
+    n0 = fops.flash_attention_bwd.launches
+    gm, gp = _reduced_step(name, "cuda")
+    # two decoder layers, and for seamless their cross attention and the
+    # encoder's layer
+    n_attn = 5 if name == "seamless-m4t-medium" else 2
+    assert fops.flash_attention_bwd.launches - n0 == n_attn
+    for key in ("loss", "aux_loss", "grad_norm"):
+        torch.testing.assert_close(gm[key].cpu(), cm[key], rtol=1e-4,
+                                   atol=1e-4)
+    for n, p in cp.items():
+        torch.testing.assert_close(gp[n].cpu(), p, rtol=0, atol=2e-3,
+                                   msg=n)
+
+
+@pytest.mark.gpu
+def test_gpu_cross_decode_paths_match_cpu():
+    """reduced seamless-m4t-medium decoding 12 tokens of 2 slots over 50
+    encoder rows on the card: the cached cross K / V (kernel 3 at position
+    Se - 1, two decoder layers a step) and the per-step recompute (kernel 2
+    at Sq 1) against the CPU's plain decode, 1e-4."""
+    _need_cuda()
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(1, 512, (2, 12)))
+    frames = torch.from_numpy(rng.normal(size=(2, 50, 128)).astype(
+        np.float32))
+
+    def decode(cfg, device):
+        lm = M.init_params(cfg, seed=3, device="cpu").to(device)
+        enc = M.encode(lm, cfg, frames.to(device))
+        caches = M.init_caches(cfg, 2, 16, device, enc_len=50)
+        if cfg.cross_kv_cache:
+            M.fill_cross_cache(lm, cfg, caches, enc)
+        out = []
+        for t in range(12):
+            logits, caches = M.decode_step(
+                lm, cfg, caches, toks[:, t:t + 1].to(device),
+                torch.full((2,), t, device=device),
+                enc_out=None if cfg.cross_kv_cache else enc)
+            out.append(logits.cpu())
+        return torch.stack(out, 1)
+    for cached in (True, False):
+        cfg = reduced(get_config("seamless-m4t-medium")).replace(
+            cross_kv_cache=cached)
+        n0 = (decode_attention.launches, fops.flash_attention.launches)
+        with torch.no_grad():
+            got = decode(cfg, "cuda")
+        d3 = decode_attention.launches - n0[0]
+        d2 = fops.flash_attention.launches - n0[1]
+        # self decode 2 a step; cached cross 2 more a step, or the encoder's
+        # layer plus 2 recomputes a step through kernel 2
+        assert (d3, d2) == ((48, 1) if cached else (24, 1 + 24))
+        torch.testing.assert_close(got, decode(cfg, "cpu"), rtol=1e-4,
+                                   atol=1e-4)

@@ -261,9 +261,12 @@ def test_mamba_decode_matches_forward():
 
 @pytest.mark.parametrize("name", ["internvl2-76b", "seamless-m4t-medium"])
 def test_unported_layer_specs_raise(name):
-    """The vision and audio front ends (and cross attention) stay unported:
-    their configs, built with the port's dataclass from the reference's
-    values, are refused; a layer spec outside the ported set is too."""
+    """The vision and audio front ends are ported: their configs, built
+    with the port's dataclass from the reference's values, give their
+    dense attention specs (the decoder's of an encoder-decoder, whose
+    layers hold cross attention) and a model with the front end's leaves;
+    a layer spec outside the ported set is still refused, and so is cross
+    attention on a layer other than GQA attention."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.models.transformer import layer_specs
     cfg = reduced(get_config("mamba2-370m"))
@@ -271,7 +274,14 @@ def test_unported_layer_specs_raise(name):
     with pytest.raises(NotImplementedError, match="not ported"):
         layer_specs(cfg.replace(pattern=(("attn", "none"),)))
     front = ModelConfig(**vars(jax_reduced(jax_get_config(name))))
+    assert layer_specs(front) == [("attn", "dense")] * 2
+    lm = M.LM(front, device="meta")
+    assert lm.frontend_proj.shape == (front.frontend_dim, front.d_model)
+    assert hasattr(lm, "encoder") == front.is_encoder_decoder
+    assert all(hasattr(b, "cross") == front.is_encoder_decoder
+               for b in lm.blocks)
     with pytest.raises(NotImplementedError, match="not ported"):
-        layer_specs(front)
+        layer_specs(front.replace(pattern=(("attn", "none"),)))
     with pytest.raises(NotImplementedError, match="not ported"):
-        M.LM(front, device="meta")
+        layer_specs(front.replace(pattern=(("ssm", "none"),),
+                                  encoder_layers=1))

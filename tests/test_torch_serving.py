@@ -61,6 +61,8 @@ def test_port_imports_without_jax():
             "import repro_torch.configs.qwen1_5_32b\n"
             "import repro_torch.configs.starcoder2_15b\n"
             "import repro_torch.configs.zamba2_7b\n"
+            "import repro_torch.configs.internvl2_76b\n"
+            "import repro_torch.configs.seamless_m4t_medium\n"
             "from repro_torch.kernels.flash_attention.ops import "
             "flash_attention_bwd\n"
             "from repro_torch.kernels.flash_attention.ref import "
@@ -68,7 +70,7 @@ def test_port_imports_without_jax():
             "from repro_torch.training.checkpoint import save_lm, load_lm\n"
             "from repro_torch.models.convert import params_to_jax\n"
             "from repro_torch.configs import ARCHS\n"
-            "assert len(ARCHS) == 8\n"
+            "assert len(ARCHS) == 10\n"
             "from repro_torch.core.routers import REGISTRY, PAPER_ORDER\n"
             "assert len(PAPER_ORDER) == 12 and 'linucb' in REGISTRY\n"
             "from repro_torch.kernels.knn_ivf.ops import DynamicIVFIndex\n"
