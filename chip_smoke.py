@@ -175,6 +175,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      heads (H = KV = 16, hd 64), no mask, at B 2 / Sq 2,048 / Sk 1,500,
      B 4 / Sq 1 / Sk 1,500 and B 1 / Sq 96 / Sk 40, in f32 and bf16, and
      kernel 3 over 1,500 cache rows with every slot at position 1,499.
+ 11. the tooling (slice 14, `phase_tooling`; 60 s budget), after phase 10
+     on phase 4's encoder and routers (kept when the engines are freed):
+     a. the port's lint (`repro_torch.analysis.lint`) over src/repro_torch:
+        0 findings, an empty baseline;
+     b. `route_fused` of the 16 texts on `knn10`, `knn100-ivf` and
+        `knn100-ivfpq` under `SyncCounter` with no other thread alive: the
+        syncs by `path:line`, every one on an allow-host line; then five
+        more waves of each under `CacheCounter`: no cache grows;
+     c. `autotune_router` on the two IVF routers at Q 16 (the served
+        texts) and 64 (the same request template, 64 texts): on
+        `knn100-ivf` kernel 4 alone at block_q 8 / 16 / 32 / 64 by CUDA
+        events (every candidate's neighbours bitwise equal), on
+        `knn100-ivfpq` the one search (kernel 5 has no tile; its shape
+        picks its path), each candidate's p50 and roofline terms; Q 16's
+        tiles in a `DispatchPolicy` saved with the artifact, loaded back
+        and routed: equal decisions, the chosen tile launched, kernel 5's
+        fused launch kept;
+     d. `autotune_lane_pad` (8, 128) on 20,000 rows of the support.
+     Phase 3 runs kernel 4 at query tiles 8, 16, 32 and 64 on its cases (Q
+     1, 16, 17, 64, 16 queries on one probe set, k 2,049, the delta tiers;
+     phase 4b on the fitted index): each tile bitwise equal to 16, its ms
+     and bound, and ptxas's registers and spills per instantiation.
 The line before the last is the kernels' JSON summary, the last line the
 device record.  Its cases are the main path's: for kernels 4 and 5 the
 fitted phase-4 index (the synthetic one with --kernels); kernel 6's
@@ -197,12 +219,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12                     # H100 SXM, NVIDIA data sheet
-#: dense peaks, NVIDIA's H100 SXM data sheet.  f32 is the rate of
-#: f32-accurate products on the tensor cores: three TF32 passes a product
-#: (big x small + small x big + big x big, ssd_common.cuh) at 494.7 TFLOP/s
-#: TF32, 2.5x the 67 TFLOP/s of the FMA units
-PEAK_FLOPS = {"float32": 494.7e12 / 3, "bfloat16": 989e12}
 KERNEL_SOURCES = {
     "knn_topk": ("src/repro_torch/kernels/knn_topk/kernel.cu",
                  "src/repro/kernels/knn_topk/kernel.py:79"),
@@ -256,7 +272,11 @@ def case_gen(torch, seed, *key):
 
 
 def bound(nbytes, flops, dtype):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    """The least ms the card could take: bytes over its HBM rate or
+    operations over the dtype's peak (`repro_torch.launch.mesh`, the one
+    copy of the card's constants), whichever is larger."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS
+    t_bytes = nbytes / HBM_BW * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype).replace("torch.", "")] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -906,8 +926,85 @@ def unit_queries(torch, Q, D, gen):
     return q / q.norm(dim=1, keepdim=True)
 
 
+def ptxas_by_function(log):
+    """{entry function: {registers, spill_stores, spill_loads, smem}} from
+    an `nvcc -Xptxas -v` log (the build writes it beside the library)."""
+    import re
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn:
+            out[fn].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        if m and fn:
+            out[fn].update(registers=int(m.group(1)),
+                           smem=int(m.group(2)))
+    return out
+
+
+def kernel4_tiles_ptxas():
+    """Registers, spills and shared memory of kernel 4 at each query tile:
+    ptxas's report of each `ivf_tile_kernel<VEC, QT>` and the dynamic
+    shared memory the library asks for (`ivf_topk_dynamic_smem`)."""
+    import ctypes
+    import re
+    from repro_torch.kernels import _build
+    lib = _build.load("ivf_topk")
+    lib.ivf_topk_dynamic_smem.restype = ctypes.c_int
+    log = _build.library_path("ivf_topk").with_suffix(".log").read_text()
+    tiles = {}
+    for fn, rep in ptxas_by_function(log).items():
+        m = re.search(r"ivf_tile_kernelILi(\d+)ELi(\d+)E", fn)
+        if m:
+            tiles[f"VEC={m.group(1)} QT={m.group(2)}"] = rep
+    assert len(tiles) == 8, tiles
+    return dict(dynamic_smem=lib.ivf_topk_dynamic_smem(), by_instance=tiles)
+
+
+def qt_sweep(torch, timer, args, delta=None, iters=10):
+    """Kernel 4 at every instantiated query tile on one case's inputs:
+    each tile's scores and ids bitwise equal to QT 16's (the parent's
+    kernel), the tile launched the one asked for (with none asked for,
+    `block_q_for` the batch), its ms and bound, and the (tile, list)
+    reads its design makes; with the sha256 of QT 16's outputs."""
+    import hashlib
+    import numpy as np
+    from repro_torch.kernels.knn_ivf.ops import (IVF_BLOCK_QS, block_q_for,
+                                                 ivf_scan)
+    base = ivf_scan(*args, delta=delta, block_q=16)
+    assert ivf_scan.last_block_q == 16
+    h = hashlib.sha256()
+    for t in base:
+        h.update(t.cpu().numpy().tobytes())
+    # with no tile asked for, the batch picks it
+    got = ivf_scan(*args, delta=delta)
+    assert ivf_scan.last_block_q == block_q_for(len(args[0])), \
+        ivf_scan.last_block_q
+    assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+    C = args[2].shape[0]
+    pr = args[1].cpu().numpy()
+    out = {}
+    for qt in IVF_BLOCK_QS:
+        got = ivf_scan(*args, delta=delta, block_q=qt)
+        assert ivf_scan.last_block_q == qt, (qt, ivf_scan.last_block_q)
+        assert torch.equal(got[0], base[0]) and torch.equal(
+            got[1], base[1]), f"QT {qt} differs from QT 16"
+        reads = sum(len(np.unique(t[(t >= 0) & (t < C)]))
+                    for t in (pr[i:i + qt] for i in range(0, len(pr), qt)))
+        out[qt] = dict(ms=timer(lambda: ivf_scan(*args, delta=delta,
+                                                 block_q=qt), iters=iters),
+                       list_reads=reads, bitwise_equal_qt16=True)
+    return out, h.hexdigest()
+
+
 def ivf_case(torch, timer, index, Q, P, k, tol, gen, label, rows=None,
-             q=None, probe=None, profile=False):
+             q=None, probe=None, profile=False, tiles=False):
     """Kernel 4 against its plain version.  ``probe`` replaces the coarse
     probe (shared probe sets, a list probed twice, padded queries: rows of
     -1, which must come out empty and are left out of the plain version,
@@ -957,6 +1054,10 @@ def ivf_case(torch, timer, index, Q, P, k, tol, gen, label, rows=None,
              empty_slots=empty, ms=ms, plain_ms=plain, library_ms=None,
              bound_ms=b_ms, bound_by=b_by, repeat_bitwise_equal=True,
              cuda_launches=cuda_launches)
+    if tiles:
+        r["block_q"], r["sha256_qt16"] = qt_sweep(torch, timer, args)
+        for v in r["block_q"].values():
+            v.update(bound_ms=b_ms, bound_by=b_by)
     if profile:
         p = r["launch_profile"] = device_profile(
             torch, lambda: ivf_scan(*args), top=6,
@@ -1038,10 +1139,11 @@ def phase_ivf_kernels(torch, timer, gen):
     counts[:g["N"] % g["C"]] += 1
     main = {}
     ivf, _ = synthetic_index(np, False, g["C"], g["L"], g["D"], counts)
+    emit("kernel4_tiles_ptxas", **kernel4_tiles_ptxas())
     for i, (Q, label) in enumerate([(16, "main"), (1, "Q=1"), (64, "Q=64"),
                                     (17, "Q=17")]):
         r = ivf_case(torch, timer, ivf, Q, g["P"], g["k"], 1e-5,
-                     gen("ivf", label), label, profile=i == 0)
+                     gen("ivf", label), label, profile=i == 0, tiles=True)
         emit("kernel", name="ivf_topk", **r)
         if i == 0:
             main["ivf_topk"] = r
@@ -1051,7 +1153,7 @@ def phase_ivf_kernels(torch, timer, gen):
     shared = ivf_probe(q[:1], ivf.centroids, g["P"]).expand(16, -1)
     emit("kernel", name="ivf_topk", **ivf_case(
         torch, timer, ivf, 16, g["P"], g["k"], 1e-5, None, "shared probes",
-        q=q, probe=shared.contiguous()))
+        q=q, probe=shared.contiguous(), tiles=True))
     small_counts = np.full(24, 40)
     small, rows = synthetic_index(np, False, 24, 48, 128, small_counts,
                                   seed=1)
@@ -1069,7 +1171,7 @@ def phase_ivf_kernels(torch, timer, gen):
     for k in (2048, 2049, 1):
         emit("kernel", name="ivf_topk", **ivf_case(
             torch, timer, ivf, 16, g["P"], k, 1e-5, gen("ivf", f"k={k}"),
-            f"k={k}"))
+            f"k={k}", tiles=k == 2049))
     del ivf
     # D = 30 (4-byte copies), a list probed twice by one query (its rows
     # twice in the result) and a padded query (a probe row of -1)
@@ -1264,6 +1366,12 @@ def phase_delta_kernels(torch, timer, gen):
                              (out[1] >= d.n_base).sum()),
                          repeat_bitwise_equal=True, cuda_launches=launches,
                          ms=timer(call, iters=5, warmup=1), plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+                if name == "ivf_topk":
+                    sweep, sha = qt_sweep(torch, timer, args, delta=d,
+                                          iters=5)
+                    emit("kernel_delta_tiles", name=name, tier=tier, Q=Q,
+                         k=k, block_q=sweep, sha256_qt16=sha,
                          bound_ms=b_ms, bound_by=b_by)
         del dyns
     emit("kernel_delta_done", wall_s=time.perf_counter() - t0)
@@ -1758,7 +1866,7 @@ def phase_ivf_path(torch, ctx):
     del X
     real = {"ivf_topk": ivf_case(
         torch, timer, ivf_router._ivf, 16, ivf_router.nprobe, 100, 1e-5,
-        None, "phase-4 index", q=q),
+        None, "phase-4 index", q=q, tiles=True),
             "ivfpq_adc": adc_case(
         torch, timer, idx, 16, svc.router.nprobe, 800, None,
         "phase-4 index", q=q)}
@@ -3620,6 +3728,180 @@ def phase_front_ends(torch, smi):
     assert wall < PHASE10_BUDGET_S, f"phase 10 took {wall:.1f} s"
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the tooling on the card (slice 14)
+# ---------------------------------------------------------------------------
+
+PHASE11_BUDGET_S = 60.0
+
+
+def tooling_context(ctx):
+    """What phase 11 keeps of phase 4's context when the engines are freed:
+    the encoder, the texts and lambdas, the support's train rows and the
+    three routers (`knn10`, phase 4b's `knn100-ivf`, which phase 7 streamed
+    into, and the artifact-booted `knn100-ivfpq`)."""
+    return dict(encoder=ctx["encoder"], texts=ctx["texts"],
+                lams=ctx["lams"], support=ctx["ds"].part("train")[0],
+                names=list(ctx["knn10_svc"].model_names),
+                routers={"knn10": ctx["knn10_svc"].router,
+                         "knn100-ivf": ctx["ivf_svc"].router,
+                         "knn100-ivfpq": ctx["ivfpq_svc"].router})
+
+
+def quiet_threads(wait_s=5.0):
+    """The threads other than this one still alive after waiting up to
+    ``wait_s`` for them: `set_sync_debug_mode` is process-wide, so phase
+    11's counts hold only with none."""
+    import threading
+    deadline = time.perf_counter() + wait_s
+    for t in threading.enumerate():
+        if t is not threading.current_thread():
+            t.join(max(0.0, deadline - time.perf_counter()))
+    return [t.name for t in threading.enumerate()
+            if t is not threading.current_thread() and t.is_alive()]
+
+
+def phase_tooling(torch, tctx):
+    """11: the port's tooling on the card, within `PHASE11_BUDGET_S`.
+    a. `repro_torch.analysis.lint` over src/repro_torch: 0 findings, an
+       empty baseline.  b. `route_fused` of the 16 texts on `knn10`,
+       `knn100-ivf` and `knn100-ivfpq` under `SyncCounter` (no other
+       thread alive): the syncs by `path:line`, every one on an allow-host
+       line; then five more waves of each under `CacheCounter`: no cache
+       grows.  c. `autotune_router` on the two IVF routers at Q 16 (the
+       served texts) and 64 (their request template over 64 texts): kernel
+       4 alone at block_q 8 / 16 / 32 / 64 (every candidate's neighbours
+       bitwise equal, asserted by the sweep), kernel 5's one search timed
+       once; each candidate's p50 and roofline terms; Q 16's choice put
+       into a `DispatchPolicy`, saved with the artifact, loaded back and
+       routed again: equal decisions, the chosen tile launched, kernel 5
+       on its fused launch.  d.
+       `autotune_lane_pad` (8, 128) on 20,000 rows of the support."""
+    import numpy as np
+    from repro_torch.analysis.core import load_baseline
+    from repro_torch.analysis.lint import (DEFAULT_BASELINE, build_project,
+                                           lint_tree)
+    from repro_torch.analysis.sanitizers import (CacheCounter, SyncCounter,
+                                                 allowed_by_pragma,
+                                                 port_caches)
+    from repro_torch.core.routers.artifacts import load_router, save_router
+    from repro_torch.core.routers.dispatch import DispatchPolicy
+    from repro_torch.kernels.knn_ivf import autotune as at
+    from repro_torch.kernels.knn_ivf import ops as ivf_ops
+    from repro_torch.launch.serve import TOPICS
+    from repro_torch.serving.router_service import RouterService
+
+    t_phase = time.perf_counter()
+    walls = {}
+    # a. the lint
+    t0 = time.perf_counter()
+    project = build_project(ROOT / "src" / "repro_torch")
+    active, baselined = lint_tree(project,
+                                  config={"baseline": str(DEFAULT_BASELINE)})
+    walls["a_lint_s"] = time.perf_counter() - t0
+    emit("tooling_lint", files=len(project.modules),
+         findings=[f.render() for f in active], baselined=len(baselined),
+         baseline_keys=len(load_baseline(DEFAULT_BASELINE)),
+         wall_s=walls["a_lint_s"])
+    assert not active and not baselined, [f.render() for f in active]
+    assert load_baseline(DEFAULT_BASELINE) == set()
+
+    # b. the syncs of each route, then five waves under the cache counter
+    t0 = time.perf_counter()
+    encoder, texts, lams = tctx["encoder"], tctx["texts"], tctx["lams"]
+    emb = encoder.embed_texts(texts)
+    svcs = {n: RouterService(r, {m: None for m in tctx["names"]},
+                             encoder=encoder)
+            for n, r in tctx["routers"].items()}
+    alive = quiet_threads()
+    assert not alive, f"threads alive under the sync counter: {alive}"
+    first, syncs = {}, {}
+    for name, svc in svcs.items():
+        first[name] = svc.route_fused(emb, lams)     # caches warm
+        torch.cuda.synchronize()
+        with SyncCounter() as sc:
+            out = svc.route_fused(emb, lams)
+        bad = allowed_by_pragma(sc.records)
+        syncs[name] = sc.by_site()
+        assert sc.records, f"{name}: no sync recorded (the end-of-batch " \
+            f"copy must show)"
+        assert not bad, (name, [r.site for r in bad])
+        for a, b in zip(out, first[name]):
+            np.testing.assert_array_equal(a, b)
+    cc = CacheCounter(port_caches(tctx["routers"]))
+    sizes = cc.snapshot()
+    for _ in range(5):
+        for svc in svcs.values():
+            svc.route_fused(emb, lams)
+    growth = cc.growth()
+    walls["b_syncs_caches_s"] = time.perf_counter() - t0
+    emit("tooling_syncs", texts=16, syncs_by_site=syncs,
+         syncs_per_route={n: sum(v.values()) for n, v in syncs.items()},
+         all_on_allow_host_lines=True, cache_sizes=sizes,
+         cache_growth_over_5_waves=growth, wall_s=walls["b_syncs_caches_s"])
+    assert growth == {}, growth
+
+    # c. the autotuner on the two IVF routers, then the tuned round trip
+    t0 = time.perf_counter()
+    texts64 = [f"{TOPICS[i % len(TOPICS)]} request number {i}"
+               for i in range(64)]
+    emb64 = encoder.embed_texts(texts64)
+    tuned = {}
+    for name in ("knn100-ivf", "knn100-ivfpq"):
+        r = tctx["routers"][name]
+        for Q, e in ((16, emb), (64, emb64)):
+            res = at.autotune_router(r, e, repeats=5,
+                                     block_qs=ivf_ops.IVF_BLOCK_QS,
+                                     probe_chunks=(0, 2))
+            emit("tooling_autotune", router=name, Q=Q, chosen={
+                k: v for k, v in res.items() if k != "sweep"},
+                sweep=res["sweep"], neighbours_bitwise_equal=True)
+            tuned.setdefault(name, res)
+    rt = {}
+    for name, res in tuned.items():
+        r = tctx["routers"][name]
+        tiles = {k: v for k, v in res.items() if k != "sweep"}
+        saved = r.dispatch_policy
+        r.dispatch_policy = DispatchPolicy(cells={}, tiles={r.index: tiles})
+        try:
+            path = save_router(r, ROOT / "build" / "chip_smoke" /
+                               f"tuned-{name}")
+        finally:
+            r.dispatch_policy = saved
+        r2 = load_router(path, device="cuda")
+        assert r2.dispatch_policy.tiles_for(r2.index) == tiles
+        out = RouterService(r2, {m: None for m in tctx["names"]},
+                            encoder=encoder).route_fused(emb, lams)
+        for a, b in zip(out, first[name]):
+            np.testing.assert_array_equal(a, b)
+        if r2.index == "ivf":
+            assert ivf_ops.ivf_scan.last_block_q == tiles["block_q"], \
+                (ivf_ops.ivf_scan.last_block_q, tiles)
+            launched = {"block_q": ivf_ops.ivf_scan.last_block_q}
+        else:       # kernel 5's shape keeps its fused launch (kk 800)
+            assert ivf_ops.ivfpq_adc.last_cuda_launches == 1, tiles
+            launched = {"kernel5_cuda_launches":
+                        ivf_ops.ivfpq_adc.last_cuda_launches}
+        rt[name] = dict(tiles=tiles, launched=launched,
+                        decisions_equal=True)
+        del r2
+    walls["c_autotune_s"] = time.perf_counter() - t0
+    emit("tooling_roundtrip", routers=rt, wall_s=walls["c_autotune_s"])
+
+    # d. the builder's list padding on a subsample
+    t0 = time.perf_counter()
+    lp = at.autotune_lane_pad(tctx["support"], emb, 100, pq=False,
+                              candidates=(8, 128), sample=20_000,
+                              device="cuda", repeats=5)
+    walls["d_lane_pad_s"] = time.perf_counter() - t0
+    emit("tooling_lane_pad", rows=20_000, result=lp,
+         wall_s=walls["d_lane_pad_s"])
+    wall = time.perf_counter() - t_phase
+    emit("tooling", phase_wall_s=wall, budget_s=PHASE11_BUDGET_S,
+         parts_s=walls)
+    assert wall < PHASE11_BUDGET_S, f"phase 11 took {wall:.1f} s"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -3644,9 +3926,14 @@ def main(argv=None):
                          text=True, check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import CARD, POWER_LIMIT
+    # every bound_ms divides by CARD's peaks: say whether they are this
+    # card's (a lower power limit makes the bounds optimistic)
     emit("device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         tf32="off for matmul and cudnn")
+         tf32="off for matmul and cudnn",
+         bound_peaks_of=f"{CARD}, {POWER_LIMIT}",
+         bound_peaks_are_this_cards=smi == f"{CARD}, {POWER_LIMIT}")
 
     report = _build.build_all()
     emit("build", seconds=report.pop("total_s"), ptxas=report)
@@ -3682,13 +3969,16 @@ def main(argv=None):
         phase_gateway(torch, ctx, smi)
         phase_streaming(torch, ctx, smi)
         # phases 8 and 9 use none of phase 4's engines and services (~16
-        # GB): free them before 9's models, which take up to 59 GB
+        # GB): free them before 9's models, which take up to 59 GB; phase
+        # 11 keeps the encoder and the routers
+        tctx = tooling_context(ctx)
         ctx.clear()
         gc.collect()
         torch.cuda.empty_cache()
         phase_evaluation(torch, smi)
         ninth = phase_families(torch, smi)
         phase_front_ends(torch, smi)
+        phase_tooling(torch, tctx)
         path_of = {"ivf_topk": second, "ivfpq_adc": second,
                    "ssd_intra": third, "ssd_intra_bwd": third,
                    "flash_attention_bwd": ninth}

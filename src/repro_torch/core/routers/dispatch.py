@@ -29,13 +29,18 @@ Policy backend names are *serving strategies*, not raw kernel names:
 The mapping to `KNNRouter` execution backends is `EXEC_BACKEND`.  In the
 port every execution backend of one index runs the same kernels on a CUDA
 router (their plain versions on a CPU router), so a policy's backend
-choice changes no result and no kernel; its wave constants and
-``lane_pad`` do take effect.
+choice changes no result and no kernel; its wave constants, ``lane_pad``
+and the ``"ivf"`` tiles' ``block_q`` (kernel 4's query tile, checked when
+the policy is made, so an artifact with a tile the kernel lacks is refused
+at load) do take effect.  ``probe_chunk`` is carried, not used: kernel 5's
+shape picks its path.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.kernels.knn_ivf.ops import check_block_q
 
 #: the serving strategies a policy cell may choose between
 POLICY_BACKENDS = ("fused", "host_gather", "staged")
@@ -78,6 +83,9 @@ class DispatchPolicy:
     wave_target_batch: int = 0
     tiles: Dict[str, Dict[str, int]] = dataclasses.field(default_factory=dict)
     fitted_from: Dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        check_block_q(self.tiles.get("ivf", {}).get("block_q"))
 
     # ---- lookup ----
     def backend_for(self, index: str, n_queries: int,

@@ -27,8 +27,12 @@ accepted so that spec strings and artifact manifests load; here a CUDA
 router always runs the kernels and a CPU router their plain versions.  A
 fitted `DispatchPolicy` (``router.dispatch_policy``) is carried as the
 reference carries it: `resolve_backend` returns the reference's pick, its
-``lane_pad`` shapes the index built at ``fit``, and its wave constants
-reach `MicroBatcher.from_policy`.  ``degraded(level)`` serves one wave at
+tuned tiles (`kernels.knn_ivf.autotune`) reach the kernels — ``block_q``
+is kernel 4's query tile (without one the batch picks it,
+`ops.block_q_for`), ``lane_pad`` shapes the index built at ``fit``;
+``probe_chunk`` is carried only, kernel 5's shape picks its path — and
+its wave constants reach `MicroBatcher.from_policy`.  The tiles change
+times, never bits.  ``degraded(level)`` serves one wave at
 a degradation-ladder level (smaller ``nprobe``, no exact re-rank, no
 delta tier).
 
@@ -195,9 +199,10 @@ class KNNRouter(Router):
     def _policy_tiles(self) -> dict:
         """Autotuned kernel constants for this index kind from the fitted
         dispatch policy ({} when no policy / nothing tuned).  ``lane_pad``
-        shapes the index built at ``fit``; ``block_q`` and ``probe_chunk``
-        are the reference kernels' tiles and leave the CUDA kernels' own
-        tiles as they are."""
+        shapes the index built at ``fit``; ``block_q`` is kernel 4's query
+        tile (8, 16, 32 or 64, checked when the policy is made), passed by
+        `_search`; ``probe_chunk`` is carried for the reference and names
+        nothing here."""
         pol = getattr(self, "dispatch_policy", None)
         return pol.tiles_for(self.index) if pol is not None else {}
 
@@ -416,13 +421,15 @@ class KNNRouter(Router):
         device -> (sims, idx) device tensors, (Q, k) with k clamped as the
         reference clamps it.  ``backend`` (default `exec_backend`) matters
         only to a streaming index; a degraded wave (``_skip_delta``)
-        searches its base only."""
+        searches its base only; the policy's ``block_q`` is kernel 4's
+        query tile."""
         be = backend or self.exec_backend
         ivf = getattr(self, "_ivf", None)
         if self._skip_delta and isinstance(ivf, DynamicIVFIndex):
             ivf = ivf.fused_state().base
         if self.index == "ivf":
-            return ivf_topk(q, ivf, self.k, nprobe=self.nprobe, backend=be)
+            return ivf_topk(q, ivf, self.k, nprobe=self.nprobe, backend=be,
+                            block_q=self._policy_tiles().get("block_q"))
         if self.index == "ivfpq":
             return ivfpq_topk(q, ivf, self.k, nprobe=self.nprobe,
                               rerank=self.rerank, backend=be)
@@ -432,6 +439,7 @@ class KNNRouter(Router):
     def _queries(self, X):
         # repro: allow-host: input embeddings arrive as host data
         X = np.atleast_2d(np.asarray(X, np.float32))
+        # repro: allow-host: the batch's one copy of its queries to the card
         return torch.from_numpy(normalize_rows(X)).to(self.device)
 
     def _neighbors(self, X, backend: str | None = None):

@@ -154,6 +154,8 @@ class _GraphedStep:
     backward and optimizer step in one launch.  A step is the same kernels
     either way; the graph takes the host out of the loop."""
     WARMUP = 3
+    #: graphs captured in this process (`analysis.sanitizers.port_caches`)
+    captures = 0
 
     def __init__(self, step, data, batch_size, device):
         self.step, self.data = step, data
@@ -171,6 +173,7 @@ class _GraphedStep:
             torch.cuda.current_stream().wait_stream(side)
             return out
         if self.graph is None:
+            _GraphedStep.captures += 1
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 self.out = self.step({k: v[self.idx]

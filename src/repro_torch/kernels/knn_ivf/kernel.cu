@@ -19,7 +19,10 @@
 // scalar-prefetches them, and carries a running top-k along the slot axis.
 // Here:
 //   grid    one scan block a (row chunk of 64, probe slot, query), chunk
-//           fastest, then the selector blocks.  Queries form tiles of 16.
+//           fastest, then the selector blocks.  Queries form tiles of QT,
+//           a template parameter instantiated at 8, 16 (the default), 32
+//           and 64: the reference's `block_q` candidates, which the
+//           autotuner (`autotune.py`) picks from by time.
 //           Each scan block reads its tile's probe ids; it owns its list
 //           when no earlier (query, slot) of the tile probes it, and scores
 //           its row chunk for every query of the tile that probes the list
@@ -30,15 +33,20 @@
 //           query's second slot on one list scores it again for itself.
 //   scan    the chunk's rows stream through a ring of shared-memory stages
 //           of 256 bytes of each of 64 rows (and the stage's f32 slices of
-//           the probing queries), filled by 16-byte `cp.async` (4-byte where
+//           up to 16 of the probing queries; a list that more than 16 of a
+//           tile's queries probe is scanned in further passes of 16, its
+//           rows read again through L2, so each QT keeps QT 16's registers
+//           and shared memory), filled by 16-byte `cp.async` (4-byte where
 //           D is not a multiple of 4) that zero-fill past L and D; the next
 //           stages are in flight while the FMAs run on the current one.  Each
 //           warp takes 32 bytes of every row of a stage; a lane keeps 2 rows
 //           (lane, lane + 32) x NQ queries of partial sums (NQ the probing
 //           queries rounded up to 1, 2, 4, 8 or 16), so the FMAs follow the
-//           queries that probe the list.  Three blocks an SM; on an H100,
-//           two blocks an SM with a deeper ring, 32-row chunks, and
-//           persistent blocks taking chunks from a counter were slower.  The eight warps' partial sums are added through
+//           queries that probe the list.  Three blocks an SM at QT 8 and
+//           16 (there, on an H100, two blocks an SM with a deeper ring,
+//           32-row chunks, and persistent blocks taking chunks from a
+//           counter were slower); two at QT 32 and 64 (`ivf_tile_kernel`).
+//           The eight warps' partial sums are added through
 //           shared memory in a fixed order (warps 0-3 written, 4-7 added, the
 //           four sums added in order), so a row's score has the same bits
 //           whichever block computes it; then `* inv` and `make_key`.
@@ -94,7 +102,7 @@ unsigned long long g_launches = 0;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int QT = 16;               // queries a tile
+constexpr int NQ_MAX = 16;           // queries a pass over a chunk scores
 constexpr int TN = 64;               // list rows a block
 constexpr int RPT = TN / 32;         // rows a lane: lane, lane + 32, ...
 constexpr int ROW_BYTES = 256;       // bytes of each row a ring stage
@@ -103,10 +111,10 @@ constexpr int WARP_VALS = TD / WARPS;  // a warp's values of a row a stage
 constexpr int PITCH = ROW_BYTES + 16;  // the 16-byte reads of 8 neighbouring
                                        // rows hit 32 different banks
 constexpr int STAGES = 3;
-constexpr int STAGE = TN * PITCH + QT * TD * 4;
+constexpr int STAGE = TN * PITCH + NQ_MAX * TD * 4;
 constexpr int RING = STAGES * STAGE;
-constexpr int RED_PITCH = QT + 1;
-// the warps' partial sums, added in two rounds of 4 warps: (4, TN, QT + 1)
+constexpr int RED_PITCH = NQ_MAX + 1;
+// the warps' partial sums, added in two rounds of 4 warps: (4, TN, NQ_MAX + 1)
 // in the ring's place once the ring is drained
 constexpr int RED = 4 * TN * RED_PITCH * 4;
 // dynamic shared memory of a block: the ring, and room for the selection
@@ -268,6 +276,26 @@ struct Delta {
   }
 };
 
+// One pass over a chunk for the nq (<= NQ_MAX) queries sq[] at slots ss[]:
+// the partial sums of NQ, the served count rounded up to 1, 2, 4, 8 or 16
+template <int VEC>
+__device__ __forceinline__ void scan_pass(const float* __restrict__ q, ListRef lr,
+                          u64* __restrict__ keys, int l0, int D, long long n,
+                          long long koff, int stride, const int* sq,
+                          const int* ss, int nq, unsigned char* smem) {
+  if (nq == 1)
+    scan_chunk<VEC, 1>(q, lr, keys, l0, D, n, koff, stride, sq, ss, nq, smem);
+  else if (nq == 2)
+    scan_chunk<VEC, 2>(q, lr, keys, l0, D, n, koff, stride, sq, ss, nq, smem);
+  else if (nq <= 4)
+    scan_chunk<VEC, 4>(q, lr, keys, l0, D, n, koff, stride, sq, ss, nq, smem);
+  else if (nq <= 8)
+    scan_chunk<VEC, 8>(q, lr, keys, l0, D, n, koff, stride, sq, ss, nq, smem);
+  else
+    scan_chunk<VEC, 16>(q, lr, keys, l0, D, n, koff, stride, sq, ss, nq,
+                        smem);
+}
+
 // Waits of a selector for a ticket before it calls the run failed: the
 // scan blocks never wait, so a ticket that stays short means a fault, and
 // the launch traps rather than hanging the card
@@ -276,9 +304,9 @@ constexpr long long SPIN_LIMIT = 1ll << 24;   // x 256 ns: about 4 s
 // A scan block: item it of (row chunk, probe slot, query), chunk fastest,
 // over the base lists, then (it >= base_items) the same over the delta
 // sub-lists with ceil(dmax / TN) chunks a slot.  Its role in the query
-// tile, its scan, and (select != 0) one ticket for each query it wrote
-// keys for.
-template <int VEC>
+// tile of QT queries, its scan (passes of up to NQ_MAX queries), and
+// (select != 0) one ticket for each query it wrote keys for.
+template <int VEC, int QT>
 __device__ void scan_item(long long it, long long base_items, int nchunks,
                           const float* __restrict__ q,
                           const int* __restrict__ q_probe,
@@ -358,21 +386,16 @@ __device__ void scan_item(long long it, long long base_items, int nchunks,
       lr = ListRef{sup + (long long)cid * L * D, nullptr,
                    ids + (long long)cid * L, inv + (long long)cid * L, 0, L};
     }
-    if (nq == 1) {
-      scan_chunk<VEC, 1>(q, lr, keys, l0, D, n, koff, stride, sq, ss, nq,
-                         smem);
-    } else if (nq == 2) {
-      scan_chunk<VEC, 2>(q, lr, keys, l0, D, n, koff, stride, sq, ss, nq,
-                         smem);
-    } else if (nq <= 4) {
-      scan_chunk<VEC, 4>(q, lr, keys, l0, D, n, koff, stride, sq, ss, nq,
-                         smem);
-    } else if (nq <= 8) {
-      scan_chunk<VEC, 8>(q, lr, keys, l0, D, n, koff, stride, sq, ss, nq,
-                         smem);
+    if constexpr (QT <= NQ_MAX) {
+      // one pass scores every query the tile serves
+      scan_pass<VEC>(q, lr, keys, l0, D, n, koff, stride, sq, ss, nq, smem);
     } else {
-      scan_chunk<VEC, 16>(q, lr, keys, l0, D, n, koff, stride, sq, ss, nq,
-                          smem);
+      for (int g0 = 0; g0 < nq; g0 += NQ_MAX) {
+        // the next pass's first copies overwrite the sums this one reads
+        if (g0) __syncthreads();
+        scan_pass<VEC>(q, lr, keys, l0, D, n, koff, stride, sq + g0,
+                       ss + g0, min(NQ_MAX, nq - g0), smem);
+      }
     }
   }
   if (!select) return;
@@ -453,8 +476,11 @@ __device__ void select_queries(int s, int nsel, const u64* __restrict__ keys,
 
 // Blocks [0, items) scan (the base items, then the delta items); with
 // select != 0 (k <= FK_MAX) blocks [items, items + nsel) select.
-template <int VEC>
-__global__ void __launch_bounds__(THREADS, 3)
+// Tiles above 16 queries keep a pass's state live across passes: 80
+// registers (three blocks an SM) spilled it; 128 (two blocks an SM) were
+// as fast or faster on an H100 in every case of `launch/ab.py retrieval`
+template <int VEC, int QT>
+__global__ void __launch_bounds__(THREADS, QT > NQ_MAX ? 2 : 3)
 ivf_tile_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
                 const float* __restrict__ sup, const int* __restrict__ ids,
                 const float* __restrict__ inv, Delta dl,
@@ -465,19 +491,20 @@ ivf_tile_kernel(const float* __restrict__ q, const int* __restrict__ q_probe,
   extern __shared__ __align__(16) unsigned char smem[];
   const int nchunks = (L + TN - 1) / TN;
   if ((long long)blockIdx.x < items)
-    scan_item<VEC>(blockIdx.x, base_items, nchunks, q, q_probe, sup, ids, inv,
-                   dl, keys, ticket, Q, C, L, D, P, select, smem);
+    scan_item<VEC, QT>(blockIdx.x, base_items, nchunks, q, q_probe, sup, ids,
+                       inv, dl, keys, ticket, Q, C, L, D, P, select, smem);
   else
     select_queries((int)(blockIdx.x - items), nsel, keys, ticket, q_probe,
                    dl, out_s, out_i, Q, C, P, nchunks, L, k, smem);
 }
 
-template <int VEC>
+template <int VEC, int QT>
 cudaError_t launch(const float* q, const int* q_probe, const float* sup,
                    const int* ids, const float* inv, Delta dl, u64* keys,
                    int* ticket, float* out_s, int* out_i, int Q, int P, int C,
                    int L, int D, int k, cudaStream_t st) {
-  auto fn = ivf_tile_kernel<VEC>;
+  static_assert(QT <= THREADS, "a tile's tickets are added by one thread each");
+  auto fn = ivf_tile_kernel<VEC, QT>;
   // the attribute is per device, so it is set on every launch
   cudaError_t e =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -520,23 +547,27 @@ extern "C" {
 // CUDA kernels launched by this library since it was loaded
 unsigned long long ivf_topk_device_launches() { return g_launches; }
 
+// dynamic shared memory of a block, bytes (the same at every query tile)
+int ivf_topk_dynamic_smem() { return SMEM; }
+
 // q (Q, D) f32; q_probe (Q, P) i32; sup (C, L, D) f32; ids / inv (C, L);
 // the delta tier (dmax > 0): drows (nd, D) f32 and dinv (nd,) in append
 // order, doff (C + 1,) and dperm (nd,) i32 grouping them by centroid, ids
 // n_base + row; keys (Q, P * (L + dmax)) u64 scratch; ticket (Q,) int32
 // holding zeros (left zero by the call; unused above k = 2,048); out
-// (Q, k).
+// (Q, k); qt the query tile (8, 16, 32 or 64; any other value is refused).
 int ivf_topk_launch(const void* q, const void* q_probe, const void* sup,
                     const void* ids, const void* inv, const void* drows,
                     const void* dinv, const void* doff, const void* dperm,
                     void* keys, void* ticket, void* out_s, void* out_i, int Q,
                     int P, int C, int L, int D, int k, int n_base, int dmax,
-                    void* stream) {
+                    int qt, void* stream) {
   const long long chunks = (L + TN - 1) / TN + (dmax + TN - 1) / TN;
   if (k < 1 || Q < 1 || P < 1 || L < 1 || D < 1 || dmax < 0 ||
       (dmax > 0 && (!drows || !dinv || !doff || !dperm)) ||
       (long long)P * (L + dmax) > INT_MAX ||
-      chunks * P * Q + Q > INT_MAX)
+      chunks * P * Q + Q > INT_MAX ||
+      (qt != 8 && qt != 16 && qt != 32 && qt != 64))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const bool v16 = D % 4 == 0 && reinterpret_cast<uintptr_t>(sup) % 16 == 0 &&
@@ -555,7 +586,12 @@ int ivf_topk_launch(const void* q, const void* q_probe, const void* sup,
                    static_cast<int*>(ticket), static_cast<float*>(out_s),
                    static_cast<int*>(out_i), Q, P, C, L, D, k, st);
   };
-  return v16 ? args(launch<16>) : args(launch<4>);
+  switch (qt) {
+    case 8: return v16 ? args(launch<16, 8>) : args(launch<4, 8>);
+    case 16: return v16 ? args(launch<16, 16>) : args(launch<4, 16>);
+    case 32: return v16 ? args(launch<16, 32>) : args(launch<4, 32>);
+    default: return v16 ? args(launch<16, 64>) : args(launch<4, 64>);
+  }
 }
 
 }  // extern "C"

@@ -838,8 +838,29 @@ def _check_delta(name, delta, queries, C, codes: bool):
                          f"expected")
 
 
+def check_block_q(block_q) -> Optional[int]:
+    """``block_q`` as kernel 4's query tile (None stays None: the batch's
+    rule, `block_q_for`); a value with no instantiation in `kernel.cu`
+    raises rather than falling back."""
+    if block_q is None:
+        return None
+    if isinstance(block_q, bool) or int(block_q) != block_q \
+            or int(block_q) not in IVF_BLOCK_QS:
+        raise ValueError(f"block_q must be one of {IVF_BLOCK_QS} (kernel 4's "
+                         f"instantiated query tiles), got {block_q!r}")
+    return int(block_q)
+
+
+def block_q_for(Q: int) -> int:
+    """Kernel 4's query tile for a batch of ``Q`` queries when none is
+    asked for: 64 from Q 64 (fewer reads of the lists its queries share:
+    0.77x of QT 16's time at Q 64, and faster on both delta tiers there),
+    16 below (best or within noise of the best at Q 1-17)."""
+    return 64 if Q >= 64 else DEFAULT_BLOCK_Q
+
+
 def ivf_scan(queries, q_probe, sup_cm, ids_cm, inv_cm, k: int,
-             delta: Optional[DeltaLists] = None):
+             delta: Optional[DeltaLists] = None, block_q: int | None = None):
     """Kernel 4 (`kernel.cu`, the ``ivf_topk`` kernel): queries (Q, D) f32
     L2-normalized; q_probe (Q, P) int32 probed list ids; sup_cm (C, L, D)
     f32; ids_cm (C, L) int32; inv_cm (C, L) f32.  Returns (scores (Q, k)
@@ -847,9 +868,11 @@ def ivf_scan(queries, q_probe, sup_cm, ids_cm, inv_cm, k: int,
     the probed lists fills (k may exceed P * L).  ``delta`` (a streaming
     index's tier) adds each probed slot's delta sub-list to its candidates,
     in the same launch.  On the GPU, k <= 2,048 is one CUDA launch: each
-    probed list (and sub-list) is read once per tile of 16 queries, and
-    selector blocks of the same launch select each query once its ticket
-    counts all its keys."""
+    probed list (and sub-list) is read once per tile of ``block_q``
+    queries (8, 16, 32 or 64; None: `block_q_for` Q), and selector blocks
+    of the same launch select each query once its ticket counts all its
+    keys.  Every tile gives the same bits; the plain version ignores it."""
+    qt = check_block_q(block_q)
     if sup_cm.ndim != 3 or sup_cm.shape[2] != queries.shape[-1] \
             or ids_cm.shape != sup_cm.shape[:2] \
             or inv_cm.shape != sup_cm.shape[:2]:
@@ -877,8 +900,10 @@ def ivf_scan(queries, q_probe, sup_cm, ids_cm, inv_cm, k: int,
     out_s, out_i, keys = _outputs(Q, k, P * (L + dmax), queries.device)
     if Q == 0:
         return out_s, out_i
+    if qt is None:
+        qt = block_q_for(Q)
     fn = _fn("ivf_topk", "ivf_topk_launch",
-             [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+             [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     count = _fn("ivf_topk", "ivf_topk_device_launches", [])
     count.restype = ctypes.c_ulonglong
     ticket = _ticket(queries.device, Q)
@@ -889,11 +914,12 @@ def ivf_scan(queries, q_probe, sup_cm, ids_cm, inv_cm, k: int,
     err = fn(queries.data_ptr(), q_probe.data_ptr(), sup_cm.data_ptr(),
              ids_cm.data_ptr(), inv_cm.data_ptr(), *dptr, keys.data_ptr(),
              ticket.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Q, P, C,
-             L, D, k, delta.n_base if dmax else 0, dmax,
+             L, D, k, delta.n_base if dmax else 0, dmax, qt,
              _build.stream_ptr(queries.device))
     _build.check(err, "ivf_scan")
     ivf_scan.launches += 1
     ivf_scan.last_cuda_launches = count() - before
+    ivf_scan.last_block_q = qt
     return out_s, out_i
 
 
@@ -903,8 +929,14 @@ ivf_scan.launches = 0
 #: count: 1 for k <= 2,048; above it the scan and ceil(k / 1,024) rounds of
 #: the per-query selection)
 ivf_scan.last_cuda_launches = 0
+#: the query tile of the last CUDA call (None before one)
+ivf_scan.last_block_q = None
 #: k of kernel 4's one-launch path (kernel.cu: FK_MAX)
 IVF_ONE_LAUNCH_KMAX = 2048
+#: kernel 4's query tiles instantiated in kernel.cu (the reference's
+#: ``block_q`` candidates) and the tile below Q 64 (`block_q_for`)
+IVF_BLOCK_QS = (8, 16, 32, 64)
+DEFAULT_BLOCK_Q = 16
 _INT_MAX = 2**31 - 1
 
 #: kernel 4's ticket counters, by (device, stream): one per query, allocated
@@ -1129,7 +1161,7 @@ def check_backend(backend):
 
 
 def ivf_topk(queries, index, k: int, nprobe: int = DEFAULT_NPROBE, *,
-             backend: str | None = None):
+             backend: str | None = None, block_q: int | None = None):
     """queries (Q, D) L2-normalized.  Returns (scores (Q, k), indices
     (Q, k)) — indices into the original support row order, -inf / -1 beyond
     the valid candidates; ``k`` is clamped as in the reference.
@@ -1139,7 +1171,8 @@ def ivf_topk(queries, index, k: int, nprobe: int = DEFAULT_NPROBE, *,
     `DynamicIVFIndex` it picks the semantics, as in the reference:
     ``"fused"`` scans the probed delta sub-lists in kernel 4's launch; the
     staged backends run kernel 4 over the base and merge an exact scan of
-    the whole tier (`_merge_delta`)."""
+    the whole tier (`_merge_delta`).  ``block_q`` is kernel 4's query tile
+    (`ivf_scan`)."""
     check_backend(backend)
     nprobe = max(1, min(nprobe, index.n_clusters))
     if isinstance(index, DynamicIVFIndex):
@@ -1148,16 +1181,17 @@ def ivf_topk(queries, index, k: int, nprobe: int = DEFAULT_NPROBE, *,
         base = snap.base
         q = _queries(queries, base)
         if backend != "fused":
-            sc, ix = ivf_topk(q, base, k, nprobe)
+            sc, ix = ivf_topk(q, base, k, nprobe, block_q=block_q)
             return _merge_delta(q, sc, ix, k, snap)
         k = min(k, snap.n_rows, nprobe * (base.list_size + snap.lc))
         probe = ivf_probe(q, base.centroids, nprobe)
         return ivf_scan(q, probe, base.sup_cm, base.ids_cm, base.inv_cm, k,
-                        snap.delta)
+                        snap.delta, block_q=block_q)
     k = min(k, index.n_rows, nprobe * index.list_size)
     q = _queries(queries, index)
     probe = ivf_probe(q, index.centroids, nprobe)
-    return ivf_scan(q, probe, index.sup_cm, index.ids_cm, index.inv_cm, k)
+    return ivf_scan(q, probe, index.sup_cm, index.ids_cm, index.inv_cm, k,
+                    block_q=block_q)
 
 
 def ivfpq_topk(queries, index, k: int, nprobe: int = DEFAULT_NPROBE,

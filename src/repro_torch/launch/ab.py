@@ -28,7 +28,11 @@ The children:
              64 rows valid) at nprobe 2; an IVF-PQ index of 265 lists of 400
              rows, m 64, nbits 8, nprobe 8, kk 800 at Q 1 / 16 / 64, kk
              2,048 and 3,000 at Q 16, and nprobe = C at Q 1), inputs made on
-             the card from fixed seeds.  A time is the mean of 20 calls
+             the card from fixed seeds.  Each IVF case also gives the
+             sha256 of kernel 4's outputs, and where the checkout has
+             them (`ops.IVF_BLOCK_QS`) the time and sha256 at each query
+             tile, so two checkouts show whether they give the same bits.
+             A time is the mean of 20 calls
              bracketed by
              CUDA events, each after a 256 MB write that flushes the L2 and
              a device spin that lets the host queue the call first;
@@ -74,6 +78,8 @@ print("RESULT " + json.dumps(dict(
 """
 
 _RETRIEVAL = r'''
+import hashlib
+import inspect
 import json
 import numpy as np
 import torch
@@ -116,6 +122,14 @@ def timed(fn, iters=20):
     n = sum(e.count for e in traced[0] if str(e.device_type).endswith("CUDA")
             and not e.key.startswith("ProfilerStep"))
     return total / iters, n
+
+
+def digest(outs):
+    """sha256 of a call's outputs, in order."""
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def unit(g, Q, D):
@@ -179,9 +193,20 @@ for name, idx, Q, P, k, shared in [
     probe = ivf_probe(q[:1] if shared else q, cent, P).expand(Q, P)
     probe = probe.contiguous()
     ms, n = timed(lambda: iv.ivf_scan(q, probe, sup, ids, inv, k))
-    out.append(dict(kernel="ivf_topk", case=f"{name}: Q={Q} P={P} k={k} "
-                    f"C={sup.shape[0]} L={sup.shape[1]} D={sup.shape[2]}",
-                    ms=ms, launches=n))
+    r = dict(kernel="ivf_topk", case=f"{name}: Q={Q} P={P} k={k} "
+             f"C={sup.shape[0]} L={sup.shape[1]} D={sup.shape[2]}",
+             ms=ms, launches=n,
+             sha256=digest(iv.ivf_scan(q, probe, sup, ids, inv, k)))
+    # the query tiles a checkout instantiates (none before they were
+    # tunable): the time and the bits at each
+    if "block_q" in inspect.signature(iv.ivf_scan).parameters:
+        r["block_q"] = {}
+        for bq in iv.IVF_BLOCK_QS:
+            call = lambda: iv.ivf_scan(q, probe, sup, ids, inv, k,  # noqa: E731
+                                       block_q=bq)
+            ms, n = timed(call)
+            r["block_q"][bq] = dict(ms=ms, launches=n, sha256=digest(call()))
+    out.append(r)
 del big, small, short
 
 rng = np.random.default_rng(0)

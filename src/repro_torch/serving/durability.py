@@ -306,6 +306,7 @@ class CheckpointStore:
             if (name.startswith(_CKPT_PREFIX) and ".tmp-" not in name
                     and p.is_dir()):
                 try:
+                    # repro: allow-host: parses a directory name, no device value
                     out.append((int(name[len(_CKPT_PREFIX):]) - 1, p))
                 except ValueError:  # repro: allow-swallow: foreign dir, not a checkpoint
                     continue

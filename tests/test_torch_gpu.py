@@ -1390,3 +1390,141 @@ def test_gpu_cross_decode_paths_match_cpu():
         assert (d3, d2) == ((48, 1) if cached else (24, 1 + 24))
         torch.testing.assert_close(got, decode(cfg, "cpu"), rtol=1e-4,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the tooling on the card: kernel 4's query tiles, the sync counter
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["Q=1", "Q=16", "Q=17", "Q=64",
+                                  "shared probes", "short lists", "k=2049"])
+def test_gpu_ivf_query_tiles_are_bitwise_equal(kind):
+    """Kernel 4 at each instantiated query tile (8, 16, 32, 64) gives the
+    bits of tile 16, the tile launched is the one asked for, and with none
+    asked for the batch's (`block_q_for`)."""
+    _need_cuda()
+    (_, sup, ids, inv), q, probe, k = _ivf_tile_case(kind)
+    args = (q, probe, sup, ids, inv, k)
+    base = ivf_ops.ivf_scan(*args, block_q=16)
+    out = ivf_ops.ivf_scan(*args)
+    assert ivf_ops.ivf_scan.last_block_q == ivf_ops.block_q_for(len(q))
+    assert torch.equal(out[0], base[0]) and torch.equal(out[1], base[1])
+    for bq in ivf_ops.IVF_BLOCK_QS:
+        out = ivf_ops.ivf_scan(*args, block_q=bq)
+        assert ivf_ops.ivf_scan.last_block_q == bq
+        assert torch.equal(out[0], base[0]) and torch.equal(out[1], base[1])
+    with pytest.raises(ValueError, match="block_q"):
+        ivf_ops.ivf_scan(*args, block_q=12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["few", "per_list", "skewed"])
+def test_gpu_ivf_query_tiles_over_delta_sublists(tier):
+    _need_cuda()
+    q, probe, base, snap = _delta_case(False, tier, Q=33)
+    args = (q, probe, base.sup_cm, base.ids_cm, base.inv_cm, 100)
+    ref = ivf_ops.ivf_scan(*args, delta=snap.delta)
+    for bq in ivf_ops.IVF_BLOCK_QS:
+        out = ivf_ops.ivf_scan(*args, delta=snap.delta, block_q=bq)
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+def _tooling_router(spec):
+    from repro_torch.core.dataset import RoutingDataset
+    from repro_torch.core.routers import make_router
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(3000, 64)).astype(np.float32)
+    S = rng.uniform(0.2, 1, (3000, 3)).astype(np.float32)
+    C = rng.uniform(0.001, 0.01, (3000, 3)).astype(np.float32)
+    ds = RoutingDataset("d", X, S, C, ["a", "b", "c"])
+    Q = rng.normal(size=(16, 64)).astype(np.float32)
+    return make_router(spec, device="cuda").fit(ds), Q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["knn10", "knn20-ivf", "knn20-ivfpq@m=8"])
+def test_gpu_sync_counter_on_a_route(spec):
+    """`route_fused` under `SyncCounter`: the syncs a route makes sit on
+    lines the R1 gate lets through on an allow-host pragma (the end-of-
+    batch copy among them), and five more waves grow no cache."""
+    _need_cuda()
+    from repro_torch.analysis.sanitizers import (CacheCounter, SyncCounter,
+                                                 allowed_by_pragma,
+                                                 port_caches)
+    from repro_torch.serving.router_service import RouterService
+    r, Q = _tooling_router(spec)
+    svc = RouterService(r, {m: None for m in ("a", "b", "c")})
+    lam = np.linspace(0, 5, 16).astype(np.float32)
+    first = svc.route_fused(Q, lam)
+    torch.cuda.synchronize()
+    with SyncCounter() as sc:
+        out = svc.route_fused(Q, lam)
+    assert sc.records, "a route copies its result to the host"
+    assert allowed_by_pragma(sc.records) == [], sc.by_site()
+    assert any("knn.py" in s for s in sc.by_site()), sc.by_site()
+    np.testing.assert_array_equal(out[0], first[0])
+    cc = CacheCounter(port_caches({spec: r}))
+    cc.snapshot()
+    for _ in range(5):
+        svc.route_fused(Q, lam)
+    assert cc.growth() == {}
+
+
+@pytest.mark.gpu
+def test_gpu_policy_tiles_reach_the_kernels():
+    """A policy's block_q is the tile kernel 4 launches; a probe_chunk
+    leaves kernel 5 on the path its shape picks; routes are unchanged."""
+    _need_cuda()
+    from repro_torch.core.routers.dispatch import DispatchPolicy
+    lam = np.full(16, 0.5, np.float32)
+    r, Q = _tooling_router("knn20-ivf")
+    base = r.serve_fused(Q, lam)
+    r.dispatch_policy = DispatchPolicy(cells={}, tiles={"ivf": {"block_q": 64}})
+    got = r.serve_fused(Q, lam)
+    assert ivf_ops.ivf_scan.last_block_q == 64
+    for a, b in zip(base, got):
+        np.testing.assert_array_equal(a, b)
+    r, Q = _tooling_router("knn20-ivfpq@m=8")
+    base = r.serve_fused(Q, lam)
+    assert ivf_ops.ivfpq_adc.last_cuda_launches == 1
+    r.dispatch_policy = DispatchPolicy(cells={},
+                                       tiles={"ivfpq": {"probe_chunk": 2}})
+    got = r.serve_fused(Q, lam)
+    assert ivf_ops.ivfpq_adc.last_cuda_launches == 1
+    for a, b in zip(base, got):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_gpu_autotune_router_times_kernel_4_and_round_trips(tmp_path):
+    """`autotune_router` on the card: on IVF each tile's device time of
+    kernel 4 alone (the neighbours bitwise equal, asserted by the sweep),
+    on IVF-PQ one search standing for every candidate; the tuned tiles
+    saved with the artifact load back, route equal and launch the chosen
+    tile, kernel 5 on its fused launch."""
+    _need_cuda()
+    from repro_torch.core.routers.artifacts import load_router, save_router
+    from repro_torch.core.routers.dispatch import DispatchPolicy
+    from repro_torch.kernels.knn_ivf import autotune as at
+    lam = np.full(16, 0.5, np.float32)
+    for spec in ("knn20-ivf", "knn20-ivfpq@m=8"):
+        r, Q = _tooling_router(spec)
+        base = r.serve_fused(Q, lam)
+        t = at.autotune_router(r, Q, repeats=3)
+        assert t["block_q"] in ivf_ops.IVF_BLOCK_QS
+        assert set(t["sweep"]["block_q"]) == set(ivf_ops.IVF_BLOCK_QS)
+        times = {c["p50_s"] for c in t["sweep"]["block_q"].values()}
+        assert all(0 < x < 0.1 for x in times)
+        if r.index == "ivfpq":
+            assert len(times) == 1 and t["probe_chunk"] == 0
+        tiles = {k: v for k, v in t.items() if k != "sweep"}
+        r.dispatch_policy = DispatchPolicy(cells={}, tiles={r.index: tiles})
+        r2 = load_router(save_router(r, tmp_path / spec), device="cuda")
+        got = r2.serve_fused(Q, lam)
+        if r.index == "ivf":
+            assert ivf_ops.ivf_scan.last_block_q == tiles["block_q"]
+        else:
+            assert ivf_ops.ivfpq_adc.last_cuda_launches == 1
+        for a, b in zip(base, got):
+            np.testing.assert_array_equal(a, b)

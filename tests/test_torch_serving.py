@@ -74,6 +74,17 @@ def test_port_imports_without_jax():
             "from repro_torch.core.routers import REGISTRY, PAPER_ORDER\n"
             "assert len(PAPER_ORDER) == 12 and 'linucb' in REGISTRY\n"
             "from repro_torch.kernels.knn_ivf.ops import DynamicIVFIndex\n"
+            "import repro_torch.analysis, repro_torch.analysis.lint\n"
+            "import repro_torch.analysis.core, repro_torch.analysis.callgraph\n"
+            "import repro_torch.analysis.sanitizers\n"
+            "import repro_torch.analysis.rules.host_sync\n"
+            "import repro_torch.analysis.rules.lock_discipline\n"
+            "import repro_torch.analysis.rules.schema_pin\n"
+            "import repro_torch.analysis.rules.graph_capture\n"
+            "import repro_torch.analysis.rules.swallow\n"
+            "import repro_torch.analysis.rules.durable_write\n"
+            "import repro_torch.kernels.knn_ivf.autotune\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.ab\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\n"
