@@ -197,6 +197,34 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      1, 16, 17, 64, 16 queries on one probe set, k 2,049, the delta tiers;
      phase 4b on the fitted index): each tile bitwise equal to 16, its ms
      and bound, and ptxas's registers and spills per instantiation.
+ 12. the sharded paths (slice 15, `phase_sharded`; 90 s budget), after
+     phase 11 on its context:
+     a. world 1 over NCCL in this process (a `FileStore` in build/):
+        `KNNRouter(mesh=)` for `knn10`, `knn100-ivf` (phase 7's streaming
+        index, delta tier included) and the artifact-booted `knn100-ivfpq`
+        routing phase 4's 16 texts: choices equal to the unsharded
+        routers', utilities within 1e-5; `route_fused(qmesh=)` at 16 and
+        13 texts bitwise equal to the unsharded route; kernels 1, 4 and 5
+        launched on the shard; the syncs of one sharded `knn10` route;
+        route walls sharded and unsharded;
+     b. four ranks spawned on the one card over gloo (each rank's shard
+        read from files written into build/phase12/): which collectives
+        gloo takes on CUDA tensors (both, on the chip's torch 2.11: the
+        port hands gloo its CUDA buffers as they are); exact search over
+        1,000,000 seeded unit rows x 768 (250,000 a rank) at Q 16, k 100
+        and k_local 8 (recall@100 against the unsharded kernel), IVF and
+        IVF-PQ over phase 4's indexes at nprobe 8 (each rank its lists
+        plus the dummy), every merged top-k equal to the unsharded
+        kernel's outside ties; `serve_fused(qmesh=)` of `knn10` at 16 and
+        13 texts bitwise equal to the unsharded route; each rank's kernel
+        ms on its shard, the collectives' wall;
+     c. on the same ranks as a 2 x 2 (data x model) mesh, deepseek-v2-
+        236b's MoE FFN at full width in bf16 (160 experts of 1,536, top-6,
+        2 shared; 80 experts a rank, seeded by expert id) over 4 x 512
+        tokens at capacity factor 8, expert-parallel by all-to-all, held
+        against the local path here within `MOE12_TOL` (relative L2), no
+        slot dropped.
+     Four ranks time-sharing one card are not a scaling figure.
 The line before the last is the kernels' JSON summary, the last line the
 device record.  Its cases are the main path's: for kernels 4 and 5 the
 fitted phase-4 index (the synthetic one with --kernels); kernel 6's
@@ -3902,6 +3930,530 @@ def phase_tooling(torch, tctx):
     assert wall < PHASE11_BUDGET_S, f"phase 11 took {wall:.1f} s"
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharded paths on the card (slice 15)
+# ---------------------------------------------------------------------------
+
+PHASE12_BUDGET_S = 90.0
+#: 12b: exact search over seeded unit rows (3.07 GB in f32, 250,000 rows a
+#: rank), phase 4's 16 texts as the queries; IVF and IVF-PQ over phase 4's
+#: indexes at nprobe 8 (kk 800)
+SHARD12 = dict(world=4, N=1_000_000, D=768, k=100, k_local=8, nprobe=8,
+               rerank=8, seed=12)
+#: 12c: deepseek-v2-236b's MoE FFN at its published widths in bf16 (d_model
+#: 5,120, 160 routed experts of 1,536, top-6, 2 shared): 7.5 GB, 80 routed
+#: experts a rank on the 2 x 2 (data x model) mesh, 4 x 512 tokens
+MOE12 = dict(arch="deepseek-v2-236b", batch=4, seq=512, capacity_factor=8.0,
+             seed=12)
+#: 12c's limit: the expert-parallel layer against the local path, both in
+#: bf16 (the expert products round to bf16 at other GEMM shapes, m C_l = 308
+#: rows an expert against C = 615), as the relative L2 of the whole output
+MOE12_TOL = 1e-2
+
+
+def rank_counters(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def timed_collectives(torch, comm):
+    """Wrap `comm.all_gather` / `all_to_all` so each call's host wall
+    (device synchronized on both sides, host staging included) adds to the
+    returned dict; the wrappers stay for the process."""
+    spent = {"all_gather": 0.0, "all_to_all": 0.0}
+
+    def wrap(name):
+        fn = getattr(comm, name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        setattr(comm, name, timed)
+    wrap("all_gather")
+    wrap("all_to_all")
+    return spent
+
+
+def event_ms(torch, fn, iters=3):
+    """Mean device ms of ``fn`` by CUDA events after a warm call (the
+    ranks share the card: their times include each other's work)."""
+    fn()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def gloo_cuda_probe(torch, dist):
+    """Which of the two collectives gloo takes on CUDA tensors directly:
+    "accepted" (and the result checked) or the error it raised."""
+    r, w = dist.get_rank(), dist.get_world_size()
+    out = {}
+    x = torch.full((8,), float(r), device="cuda")
+    for name in ("all_gather", "all_to_all"):
+        try:
+            if name == "all_gather":
+                y = torch.empty(8 * w, device="cuda")
+                gather = getattr(dist, "all_gather_single",
+                                 dist.all_gather_into_tensor)
+                gather(y, x)
+                ok = torch.equal(y.view(w, 8)[:, 0].cpu(),
+                                 torch.arange(w, dtype=torch.float32))
+            else:
+                y = torch.empty(8, device="cuda")
+                dist.all_to_all_single(y, x)
+                ok = torch.equal(y.view(w, -1)[:, 0].cpu(),
+                                 torch.arange(w, dtype=torch.float32))
+            torch.cuda.synchronize()
+            out[name] = "accepted" if ok else "accepted, wrong result"
+        except Exception as exc:     # noqa: BLE001 - recorded, not hidden
+            out[name] = f"refused: {type(exc).__name__}: {str(exc)[:200]}"
+    return out
+
+
+def phase12_rank(rank, world, d):
+    """One of 12b-c's ranks, spawned: gloo over a `FileStore` in ``d``,
+    all ranks on the one card (device 0), a 2 x 2 ("data", "model") mesh.
+    Writes ``rank<r>.npz`` (outputs) and ``rank<r>.json`` (counts and
+    times) into ``d``."""
+    import datetime
+    import os
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    d = Path(d)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(d / "store"), world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        out, rec = phase12_rank_body(torch, np, dist, d)
+        np.savez(d / f"rank{rank}.npz", **out)
+        (d / f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase12_rank_body(torch, np, dist, d):
+    from repro_torch.configs import get_config
+    from repro_torch.core import sharded_knn as SK
+    from repro_torch.core.routers.artifacts import load_router
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.knn_ivf import ops as ivf_ops
+    from repro_torch.kernels.knn_ivf.ref import ivf_probe
+    from repro_torch.launch.mesh import flat_shard_id, make_debug_mesh
+    from repro_torch.models import moe as moe_mod
+    n = SHARD12
+    rec = {"gloo_cuda": gloo_cuda_probe(torch, dist)}
+    mesh = make_debug_mesh(2, 2)
+    sid = flat_shard_id(mesh)
+    wrappers = kernel_wrappers()
+    spent = timed_collectives(torch, comm)
+    meta = json.loads((d / "meta.json").read_text())
+    emb = torch.from_numpy(np.load(d / "emb.npy")).cuda()
+    q = emb / emb.norm(dim=1, keepdim=True)
+    lams = np.load(d / "lams.npy")
+    rows = torch.from_numpy(np.load(d / f"support{sid}.npy")).cuda()
+    shard = SK.LocalShard(rows, n["N"])
+    idx = {}
+    for kind in ("ivf", "pq"):
+        a = dict(np.load(d / f"{kind}.npz"))
+        if kind == "ivf":
+            idx[kind] = ivf_ops.assemble_ivf(
+                a["centroids"], a["sup"], a["ids"], a["inv"],
+                int(meta["ivf_rows"]), device="cuda")
+        else:
+            idx[kind] = ivf_ops.assemble_ivfpq(
+                a["centroids"], a["anchors"], a["codes"], a["ids"],
+                a["inv"], a["codebooks"], a["sup_flat"],
+                int(meta["pq_rows"]), int(meta["pq_m"]),
+                int(meta["pq_nbits"]), device="cuda")
+    k, P = n["k"], n["nprobe"]
+    calls = {
+        "exact": lambda: SK.sharded_knn_topk(q, shard, k, mesh),
+        "exact_klocal8": lambda: SK.sharded_knn_topk(
+            q, shard, k, mesh, k_local=n["k_local"]),
+        "ivf": lambda: SK.sharded_ivf_topk(q, idx["ivf"], k, mesh,
+                                           nprobe=P),
+        "ivfpq": lambda: SK.sharded_ivfpq_topk(q, idx["pq"], k, mesh,
+                                               nprobe=P, rerank=n["rerank"]),
+    }
+    for fn in calls.values():      # warm: libraries, shards laid out
+        fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    rank_counters(wrappers)
+    for key in spent:
+        spent[key] = 0.0
+    out, walls = {}, {}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        sc, ix = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        out[name + "_s"], out[name + "_i"] = sc.cpu().numpy(), \
+            ix.cpu().numpy()
+    rec["launches"] = {k_: w.launches for k_, w in wrappers.items()
+                       if w.launches}
+    rec["collective_s"] = dict(spent)
+    rec["search_wall_s"] = walls
+    # each rank's kernel alone on its shard, at the shapes the search gave
+    # it, with the bound of the work this shard's data needs (phase 3's
+    # reckoning: owned probed lists only; the dummy list holds no row)
+    Q, D = q.shape
+    kk = min(n["k_local"], rows.shape[0])
+    ms, bounds = {}, {}
+    for name, kq in (("knn_topk", k), ("knn_topk_klocal8", kk)):
+        ms[name] = event_ms(torch, lambda: wrappers["knn_topk"](q, rows, kq))
+        bounds[name] = bound(Q * D * 4 + rows.numel() * 4 + Q * kq * 8,
+                             2 * Q * rows.shape[0] * D
+                             + 2 * rows.shape[0] * D, torch.float32)
+    for kind, wname in (("ivf", "ivf_topk"), ("pq", "ivfpq_adc")):
+        index = idx[kind]
+        lists = SK._list_shard(index, mesh)
+        probe = SK._local_probe(ivf_probe(q, index.centroids, P), mesh,
+                                lists.cp)
+        owned = int((probe < lists.cp).sum())
+        used = int(probe[probe < lists.cp].unique().numel())
+        L = lists.ids.shape[1]
+        if kind == "ivf":
+            fn = lambda: wrappers[wname](q, probe, lists.sup, lists.ids,  # noqa
+                                         lists.inv, k)
+            bounds[wname] = bound(
+                Q * D * 4 + Q * P * 4 + used * L * (D * 4 + 8) + Q * k * 8,
+                2 * owned * L * D, torch.float32)
+        else:
+            kq = k * n["rerank"]
+            fn = lambda: wrappers[wname](  # noqa: E731
+                q, probe, lists.codes, lists.ids, lists.inv, lists.anchors,
+                index.codebooks, kq, m=index.m, nbits=index.nbits)
+            m_, K, MB = index.m, 2 ** index.nbits, lists.codes.shape[1]
+            bounds[wname] = bound(
+                Q * D * 4 + Q * P * 4 + m_ * K * (D // m_) * 4
+                + used * (MB * L + L * 8 + D * 4) + Q * kq * 8,
+                2 * Q * K * D + owned * L * (m_ + 2) + 2 * owned * D,
+                torch.float32)
+        ms[wname] = event_ms(torch, fn)
+        rec[f"{kind}_lists"] = dict(owned=lists.cp, probes_owned=owned,
+                                    probes=int(probe.numel()),
+                                    lists_probed=used)
+    # kernel 4's tile and kernel 5's path at the shard's C (neither depends
+    # on C: the tile on Q, the path on P, L and kk)
+    rec["shard_block_q"] = wrappers["ivf_topk"].last_block_q
+    rec["shard_ivfpq_cuda_launches"] = wrappers["ivfpq_adc"].last_cuda_launches
+    rec["kernel_ms"] = ms
+    rec["bound_ms_by"] = bounds
+    # 12b: the batch-sharded route of knn10 over the replicated index
+    r10 = load_router(d / "knn10", device="cuda")
+    for qn in (16, 13):
+        for j, o in enumerate(r10.serve_fused(emb.cpu().numpy()[:qn],
+                                              lams[:qn], qmesh=mesh)):
+            out[f"qmesh{qn}_{j}"] = o
+    del idx, shard, rows, r10
+    torch.cuda.empty_cache()
+    # 12c: expert parallelism at full width on the same ranks
+    m = MOE12
+    cfg = get_config(m["arch"]).replace(capacity_factor=m["capacity_factor"],
+                                        moe_shard_map=True)
+    mi = list(mesh.mesh_dim_names).index("model")
+    mr, el = mesh.get_coordinate()[mi], cfg.n_experts // mesh.shape[mi]
+    t0 = time.perf_counter()
+    layer = moe_mod.MoE(cfg, "cuda", n_local=el)
+    layer.init_by_expert_(m["seed"], first=mr * el)
+    x = moe_input(torch, cfg)
+    torch.cuda.synchronize()
+    rec["ep_init_s"] = time.perf_counter() - t0
+    rec["ep_layer_bytes"] = sum(t.numel() * t.element_size()
+                                for t in layer.state_dict().values())
+    moe_mod.moe_ffn(layer, cfg, x, mesh=mesh)          # warm
+    dist.barrier()
+    for key in spent:
+        spent[key] = 0.0
+    moe_mod.moe_ffn.dropped = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux = moe_mod.moe_ffn(layer, cfg, x, mesh=mesh)
+    torch.cuda.synchronize()
+    rec["ep_wall_s"] = time.perf_counter() - t0
+    rec["ep_collective_s"] = dict(spent)
+    rec["ep_dropped"] = int(moe_mod.moe_ffn.dropped)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if sid == 0:
+        out["moe_y"] = y.float().cpu().numpy()
+        out["moe_aux"] = np.float32(float(aux))
+    return out, rec
+
+
+def moe_input(torch, cfg):
+    """12c's (B, S, D) tokens, seeded, the same on every rank and in the
+    parent (drawn on the card in f32, cast to the model's dtype)."""
+    m = MOE12
+    g = torch.Generator(device="cuda").manual_seed(m["seed"])
+    return torch.randn(m["batch"], m["seq"], cfg.d_model, device="cuda",
+                       generator=g).to(getattr(torch, cfg.dtype))
+
+
+def sharded_world1(torch, np, tctx, smi):
+    """12a: world 1 over NCCL in this process: `KNNRouter(mesh=)` for
+    `knn10`, `knn100-ivf` (phase 7's streaming index) and the artifact-
+    booted `knn100-ivfpq` against the unsharded routers on phase 4's 16
+    texts; `route_fused(qmesh=)` at 16 and 13 texts bitwise equal to the
+    unsharded route; kernels 1, 4 and 5 launched; the syncs of one sharded
+    route; route walls sharded and unsharded."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.analysis.sanitizers import SyncCounter
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serving.router_service import RouterService
+    wrappers = kernel_wrappers()
+    store = Path(tempfile.mkdtemp(dir=ROOT / "build")) / "store"
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    rec = {"backend": dist.get_backend()}
+    try:
+        mesh = make_debug_mesh(1, 1)
+        encoder, texts = tctx["encoder"], tctx["texts"]
+        lams = np.asarray(tctx["lams"], np.float32)
+        emb = encoder.embed_texts(texts)
+        names = {m: None for m in tctx["names"]}
+        routers = {}
+        for name, r in tctx["routers"].items():
+            rm = copy.copy(r)
+            rm._dev, rm.mesh = {}, mesh
+            svc, svc_m = (RouterService(x, names, encoder=encoder)
+                          for x in (r, rm))
+            base = svc.route_fused(emb, lams)
+            svc_m.route_fused(emb, lams)            # warm: the shard laid out
+            torch.cuda.synchronize()
+            rank_counters(wrappers)
+            got = svc_m.route_fused(emb, lams)
+            launches = {k: w.launches for k, w in wrappers.items()
+                        if w.launches}
+            np.testing.assert_array_equal(got[0], base[0])
+            for a, b in zip(got[1:4], base[1:4]):
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+            qm = {}
+            for qn in (16, 13):
+                want = svc.route_fused(emb[:qn], lams[:qn])
+                have = svc.route_fused(emb[:qn], lams[:qn], qmesh=mesh)
+                qm[qn] = all(np.array_equal(a, b) and a.dtype == b.dtype
+                             for a, b in zip(have, want))
+                assert qm[qn], (name, qn)
+            routers[name] = dict(
+                launches=launches, choices_equal=True,
+                bitwise_equal=all(np.array_equal(a, b)
+                                  for a, b in zip(got, base)),
+                qmesh_bitwise={str(k): v for k, v in qm.items()},
+                sharded_route=route_walls(
+                    torch, lambda: svc_m.route_fused(emb, lams)),
+                unsharded_route=route_walls(
+                    torch, lambda: svc.route_fused(emb, lams)))
+        want = {"knn10": "knn_topk", "knn100-ivf": "ivf_topk",
+                "knn100-ivfpq": "ivfpq_adc"}
+        for name, wname in want.items():
+            assert routers[name]["launches"].get(wname, 0) > 0, routers[name]
+        alive = quiet_threads()
+        assert not alive, f"threads alive under the sync counter: {alive}"
+        rm = copy.copy(tctx["routers"]["knn10"])
+        rm._dev, rm.mesh = {}, mesh
+        svc_m = RouterService(rm, names, encoder=encoder)
+        svc_m.route_fused(emb, lams)
+        torch.cuda.synchronize()
+        with SyncCounter() as sc:
+            svc_m.route_fused(emb, lams)
+        rec.update(routers=routers, knn10_sharded_syncs=sc.by_site())
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    emit("sharded_world1", nvidia_smi=smi, **rec)
+    return rec
+
+
+def write_phase12_inputs(torch, np, tctx, d):
+    """The files 12b's ranks read: each rank's 250,000 rows of the seeded
+    unit support, phase 4's 16 texts embedded and their lambdas, the two
+    indexes' host arrays and the `knn10` artifact.  Returns the full
+    support on the card (for the unsharded kernel) and the indexes."""
+    from repro_torch.core.routers.artifacts import save_router
+    from repro_torch.kernels.knn_ivf.ops import DynamicIVFIndex
+    n = SHARD12
+    g = torch.Generator(device="cuda").manual_seed(n["seed"])
+    X = torch.randn(n["N"], n["D"], device="cuda", generator=g)
+    X /= X.norm(dim=1, keepdim=True)
+    per = n["N"] // n["world"]
+    for r in range(n["world"]):
+        np.save(d / f"support{r}.npy", X[r * per:(r + 1) * per].cpu().numpy())
+    emb = tctx["encoder"].embed_texts(tctx["texts"])
+    np.save(d / "emb.npy", emb)
+    np.save(d / "lams.npy", np.asarray(tctx["lams"], np.float32))
+    idx = {}
+    for kind, name in (("ivf", "knn100-ivf"), ("pq", "knn100-ivfpq")):
+        ix = tctx["routers"][name]._ivf
+        idx[kind] = ix.fused_state().base \
+            if isinstance(ix, DynamicIVFIndex) else ix
+    ivf, pq = idx["ivf"], idx["pq"]
+    np.savez(d / "ivf.npz", centroids=ivf.centroids_h, sup=ivf.sup_h,
+             ids=ivf.ids_h, inv=ivf.inv_h)
+    np.savez(d / "pq.npz", centroids=pq.centroids_h, anchors=pq.anchors_h,
+             codes=pq.codes_h, ids=pq.ids_h, inv=pq.inv_h,
+             codebooks=pq.codebooks_h, sup_flat=pq.sup_flat_h)
+    (d / "meta.json").write_text(json.dumps(dict(
+        ivf_rows=ivf.n_rows, pq_rows=pq.n_rows, pq_m=pq.m,
+        pq_nbits=pq.nbits)))
+    save_router(tctx["routers"]["knn10"], d / "knn10")
+    return X, emb, idx
+
+
+def phase_sharded(torch, tctx, smi):
+    """12: the sharded paths (slice 15), within `PHASE12_BUDGET_S`.  a.
+    world 1 over NCCL (`sharded_world1`); b. four ranks sharing the card
+    over gloo (`phase12_rank`): exact search over 1,000,000 rows at k 100
+    and k_local 8, IVF and IVF-PQ over phase 4's indexes, each merged top-k
+    against the unsharded kernel here, and `serve_fused(qmesh=)` of
+    `knn10` bitwise against the unsharded route; c. on the same ranks as a
+    2 x 2 mesh, deepseek-v2-236b's MoE FFN expert-parallel, held here
+    against the local path within `MOE12_TOL`."""
+    import shutil
+    import numpy as np
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.knn_ivf.ops import ivf_topk, ivfpq_topk
+    from repro_torch.kernels.knn_topk.ops import knn_topk
+    from repro_torch.models import moe as moe_mod
+    t_phase = time.perf_counter()
+    walls = {}
+    t0 = time.perf_counter()
+    a = sharded_world1(torch, np, tctx, smi)
+    walls["a_world1_s"] = time.perf_counter() - t0
+
+    n = SHARD12
+    d = ROOT / "build" / "phase12"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    t0 = time.perf_counter()
+    X, emb, idx = write_phase12_inputs(torch, np, tctx, d)
+    walls["b_inputs_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp.spawn(phase12_rank, args=(n["world"], str(d)), nprocs=n["world"],
+             join=True)
+    walls["bc_ranks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = [dict(np.load(d / f"rank{r}.npz")) for r in range(n["world"])]
+    recs = [json.loads((d / f"rank{r}.json").read_text())
+            for r in range(n["world"])]
+    for o in outs[1:]:              # a replicated result on every rank
+        for key in ("exact_s", "exact_i", "ivf_i", "ivfpq_i", "qmesh16_0"):
+            np.testing.assert_array_equal(o[key], outs[0][key])
+    r0 = outs[0]
+    q = torch.from_numpy(emb).cuda()
+    q = q / q.norm(dim=1, keepdim=True)
+    k, P = n["k"], n["nprobe"]
+    checks = {}
+    ref = knn_topk(q, X, k)
+    checks["exact"] = tied_error(torch, (torch.from_numpy(r0["exact_s"]),
+                                         torch.from_numpy(r0["exact_i"])),
+                                 ref, 0, 1e-5)
+    rs = ref[1].cpu().numpy()
+    recall = float(np.mean([len(set(a_) & set(b_)) / k for a_, b_ in zip(
+        r0["exact_klocal8_i"], rs)]))
+    ref_ivf = ivf_topk(q, idx["ivf"], k, nprobe=P)
+    checks["ivf"] = tied_error(torch, (torch.from_numpy(r0["ivf_s"]),
+                                       torch.from_numpy(r0["ivf_i"])),
+                               ref_ivf, 0, 1e-5)
+    ref_pq = ivfpq_topk(q, idx["pq"], k, nprobe=P, rerank=n["rerank"])
+    checks["ivfpq"] = tied_error(torch, (torch.from_numpy(r0["ivfpq_s"]),
+                                         torch.from_numpy(r0["ivfpq_i"])),
+                                 ref_pq, 0, 1e-5)
+    r10 = tctx["routers"]["knn10"]
+    lams = np.asarray(tctx["lams"], np.float32)
+    qmesh_equal = {}
+    for qn in (16, 13):
+        want = r10.serve_fused(emb[:qn], lams[:qn])
+        qmesh_equal[qn] = all(np.array_equal(r0[f"qmesh{qn}_{j}"], w_)
+                              for j, w_ in enumerate(want))
+        assert qmesh_equal[qn], f"12b: qmesh route at {qn} texts differs"
+    del X, ref, ref_ivf, ref_pq
+    torch.cuda.empty_cache()
+    # 12c: the local path here, on the same seeded experts and tokens
+    m = MOE12
+    cfg = get_config(m["arch"]).replace(capacity_factor=m["capacity_factor"])
+    layer = moe_mod.MoE(cfg, "cuda")
+    layer.init_by_expert_(m["seed"])
+    x = moe_input(torch, cfg)
+    moe_mod.moe_ffn.dropped = 0
+    y_loc, aux_loc = moe_mod.moe_ffn(layer, cfg, x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    moe_mod.moe_ffn(layer, cfg, x)
+    torch.cuda.synchronize()
+    local_wall = time.perf_counter() - t1
+    y_ep = torch.from_numpy(r0["moe_y"]).cuda().reshape(y_loc.shape)
+    yl = y_loc.float()
+    rel = float((y_ep - yl).norm() / yl.norm())
+    row_rel = ((y_ep - yl).norm(dim=-1) / yl.norm(dim=-1)).flatten()
+    ep = dict(arch=m["arch"], d_model=cfg.d_model, experts=cfg.n_experts,
+              expert_d_ff=cfg.moe_d_ff, top_k=cfg.experts_top_k,
+              shared=cfg.n_shared_experts, dtype=cfg.dtype,
+              tokens=[m["batch"], m["seq"]],
+              capacity_factor=m["capacity_factor"], mesh=[2, 2],
+              layer_bytes=sum(t.numel() * t.element_size()
+                              for t in layer.state_dict().values()),
+              rel_l2=rel, row_rel_l2_max=float(row_rel.max()),
+              rows_over_tol=int((row_rel > MOE12_TOL).sum()),
+              aux_ep=float(r0["moe_aux"]), aux_local=float(aux_loc),
+              tol=MOE12_TOL, local_wall_s=local_wall,
+              local_dropped=int(moe_mod.moe_ffn.dropped),
+              ep_wall_s=[rc["ep_wall_s"] for rc in recs],
+              ep_collective_s=[rc["ep_collective_s"] for rc in recs],
+              ep_dropped=[rc["ep_dropped"] for rc in recs],
+              ep_rank_layer_bytes=recs[0]["ep_layer_bytes"])
+    del layer, x, y_loc, y_ep, yl
+    torch.cuda.empty_cache()
+    walls["c_local_check_s"] = time.perf_counter() - t0
+    shutil.rmtree(d, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    b = dict(world=n["world"], rows=n["N"], rows_per_rank=n["N"] // n["world"],
+             D=n["D"], k=k, k_local=n["k_local"], nprobe=P,
+             gloo_cuda=recs[0]["gloo_cuda"],
+             exact_err_swapped_empty=checks["exact"],
+             ivf_err_swapped_empty=checks["ivf"],
+             ivfpq_err_swapped_empty=checks["ivfpq"],
+             recall_at_100_klocal8=recall,
+             qmesh_bitwise={str(k_): v for k_, v in qmesh_equal.items()},
+             lists=[{kk: rc[kk] for kk in ("ivf_lists", "pq_lists")}
+                    for rc in recs],
+             launches=[rc["launches"] for rc in recs],
+             kernel_ms=[rc["kernel_ms"] for rc in recs],
+             bound_ms_by=[rc["bound_ms_by"] for rc in recs],
+             shard_block_q=[rc["shard_block_q"] for rc in recs],
+             shard_ivfpq_cuda_launches=[rc["shard_ivfpq_cuda_launches"]
+                                        for rc in recs],
+             collective_s=[rc["collective_s"] for rc in recs],
+             search_wall_s=[rc["search_wall_s"] for rc in recs],
+             peak_bytes=[rc["peak_bytes"] for rc in recs])
+    emit("sharded_ranks", nvidia_smi=smi, note="four ranks time-share one "
+         "card: not a scaling figure", **b)
+    emit("sharded_ep", nvidia_smi=smi, **ep)
+    emit("sharded", phase_wall_s=wall, budget_s=PHASE12_BUDGET_S,
+         parts_s=walls)
+    for rc in recs:
+        for wname in ("knn_topk", "ivf_topk", "ivfpq_adc"):
+            assert rc["launches"].get(wname, 0) > 0, rc["launches"]
+    assert rel <= MOE12_TOL, ep
+    assert all(v == 0 for v in ep["ep_dropped"]), ep
+    assert wall < PHASE12_BUDGET_S, f"phase 12 took {wall:.1f} s"
+    return a, b, ep
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", action="store_true",
@@ -3979,6 +4531,7 @@ def main(argv=None):
         ninth = phase_families(torch, smi)
         phase_front_ends(torch, smi)
         phase_tooling(torch, tctx)
+        phase_sharded(torch, tctx, smi)
         path_of = {"ivf_topk": second, "ivfpq_adc": second,
                    "ssd_intra": third, "ssd_intra_bwd": third,
                    "flash_attention_bwd": ninth}

@@ -22,6 +22,19 @@ results to the host at the end; the staged calls (``predict_utility``,
 functions, so both give the same numbers.  Retrieval slots no support row
 fills (id -1) are excluded from averages and votes.
 
+Sharded (``mesh=``, a ``DeviceMesh`` of `launch.mesh`; every rank of it
+calls the router with the same batch): retrieval goes through
+`core.sharded_knn`, the support rows (or the index's lists) split over
+the mesh's ranks and each rank's kernel run on its own shard, merged by
+one all-gather; the decision tail runs on every rank over the merged
+neighbours.  ``serve_fused(qmesh=)`` shards the BATCH instead: the index
+is replicated (each rank's router holds it on its card, made once per
+index version by fit, load or compaction), rank r routes its block of
+the batch padded to a multiple of the ranks, and the five outputs are
+all-gathered and cut back to Q, bitwise equal to the unsharded route.
+``mesh`` is a handle of the process group, not configuration: it stays
+out of the manifest, as in the reference.
+
 The reference's execution-backend knobs (``use_pallas``, ``backend``) are
 accepted so that spec strings and artifact manifests load; here a CUDA
 router always runs the kernels and a CPU router their plain versions.  A
@@ -62,7 +75,9 @@ import contextlib
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.distributed import comm
 from repro_torch.kernels.knn_ivf.ops import (DEFAULT_DELTA_CAP,
                                              DEFAULT_NPROBE, DEFAULT_RERANK,
                                              DynamicIVFIndex,
@@ -70,6 +85,8 @@ from repro_torch.kernels.knn_ivf.ops import (DEFAULT_DELTA_CAP,
                                              build_ivfpq_index, ivf_topk,
                                              ivfpq_topk)
 from repro_torch.kernels.knn_topk.ops import knn_topk
+from repro_torch.launch.mesh import flat_shard_id, mesh_group
+from .. import sharded_knn
 from ..dataset import RoutingDataset
 from .base import Router, gold_labels, normalize_rows
 from .spec import register
@@ -145,7 +162,8 @@ class KNNRouter(Router):
 
     def __init__(self, k: int = 100, weights: str = "uniform",
                  use_pallas: bool = False, temperature: float = 20.0,
-                 index: str = "exact", n_clusters: int | None = None,
+                 mesh=None, index: str = "exact",
+                 n_clusters: int | None = None,
                  nprobe: int = DEFAULT_NPROBE, m: int | None = None,
                  nbits: int = 8, rerank: int = DEFAULT_RERANK,
                  online: bool = False, delta_cap: int = DEFAULT_DELTA_CAP,
@@ -161,6 +179,7 @@ class KNNRouter(Router):
         self.weights = weights
         self.use_pallas = use_pallas
         self.temperature = temperature
+        self.mesh = mesh
         self.index = index
         self.n_clusters = n_clusters
         self.nprobe = nprobe
@@ -422,11 +441,15 @@ class KNNRouter(Router):
         reference clamps it.  ``backend`` (default `exec_backend`) matters
         only to a streaming index; a degraded wave (``_skip_delta``)
         searches its base only; the policy's ``block_q`` is kernel 4's
-        query tile."""
+        query tile.  With a ``mesh`` the search is sharded over it
+        (`core.sharded_knn`; a streaming index merges its delta tier's
+        exact scan, as the staged backends do)."""
         be = backend or self.exec_backend
         ivf = getattr(self, "_ivf", None)
         if self._skip_delta and isinstance(ivf, DynamicIVFIndex):
             ivf = ivf.fused_state().base
+        if self.mesh is not None:
+            return self._sharded_search(q, ivf)
         if self.index == "ivf":
             return ivf_topk(q, ivf, self.k, nprobe=self.nprobe, backend=be,
                             block_q=self._policy_tiles().get("block_q"))
@@ -435,6 +458,33 @@ class KNNRouter(Router):
                               rerank=self.rerank, backend=be)
         X = self._dev_rows("X", self._X)
         return knn_topk(q, X, min(self.k, X.shape[0]))
+
+    def _sharded_search(self, q, ivf):
+        if self.index == "ivf":
+            return sharded_knn.sharded_ivf_topk(
+                q, ivf, self.k, self.mesh, nprobe=self.nprobe,
+                block_q=self._policy_tiles().get("block_q"))
+        if self.index == "ivfpq":
+            return sharded_knn.sharded_ivfpq_topk(
+                q, ivf, self.k, self.mesh, nprobe=self.nprobe,
+                rerank=self.rerank)
+        return sharded_knn.sharded_knn_topk(q, self._support_shard(),
+                                            min(self.k, len(self._X)),
+                                            self.mesh)
+
+    def _support_shard(self) -> "sharded_knn.LocalShard":
+        """This rank's rows of the exact support on its card, cut from the
+        host rows once for each support size and mesh (``partial_fit``
+        grows the support; the shard is laid out anew)."""
+        key = (len(self._X), self.mesh)
+        ent = self._dev.get("X_shard")
+        if ent is None or ent[0] != key:
+            sh = sharded_knn.shard_support(torch.from_numpy(self._X),
+                                           self.mesh)
+            ent = (key, sharded_knn.LocalShard(sh.rows.to(self.device),
+                                               sh.n_valid))
+            self._dev["X_shard"] = ent
+        return ent[1]
 
     def _queries(self, X):
         # repro: allow-host: input embeddings arrive as host data
@@ -522,17 +572,24 @@ class KNNRouter(Router):
         return self._dev["avail"]
 
     @torch.no_grad()
-    def serve_fused(self, X: np.ndarray, lam: np.ndarray, avail=None):
+    def serve_fused(self, X: np.ndarray, lam: np.ndarray, avail=None,
+                    qmesh=None):
         """One routed batch on the device: retrieval kernel, neighbour
         utility, confidence and per-request-lambda availability-masked
         selection, copied to the host once, at the end.  Returns numpy
         (choice, s_hat, c_hat, kth_sim, agreement).  Retrieval runs on the
-        backend `resolve_backend` picks for the batch."""
+        backend `resolve_backend` picks for the batch.  ``qmesh`` shards
+        the batch over its ranks (`_serve_sharded`), bitwise equal to the
+        unsharded route."""
         q = self._queries(X)
         # repro: allow-host: lambdas arrive as host request metadata
         lam_t = torch.from_numpy(np.asarray(lam, np.float32).reshape(-1)).to(
             self.device)
         av = self._avail_dev(avail)
+        if qmesh is not None:
+            out = self._serve_sharded(qmesh, q, lam_t, av)
+            # repro: allow-host: the single end-of-batch materialization
+            return tuple(o.cpu().numpy() for o in out)
         sims, idx = self._search(q, self.resolve_backend(len(q)))
         # read after the search: the support covers every id it returned
         S, C = self._support_dev()
@@ -540,6 +597,39 @@ class KNNRouter(Router):
                           temperature=float(self.temperature))
         # repro: allow-host: the single end-of-batch materialization
         return tuple(o.cpu().numpy() for o in out)
+
+    def _serve_sharded(self, qmesh, q, lam, avail):
+        """The fused route with the batch sharded over ``qmesh``: the batch
+        padded with zero queries to a multiple of the ranks, rank r routes
+        rows ``[r per, (r + 1) per)`` over its replicated index (on the
+        backend the whole batch resolves to), and one all-gather of the
+        five outputs side by side (their bits, the int64 choices as two
+        f32 words) gives every rank the batch, cut back to Q.  Every lane
+        of the route is independent of the others, so the result equals
+        the unsharded route bitwise."""
+        if self.mesh is not None:
+            raise ValueError("serve_fused: qmesh shards the batch over a "
+                             "replicated index; this router's mesh shards "
+                             "the index itself")
+        n, qn = qmesh.size(), q.shape[0]
+        per = -(-qn // n)
+        lo = flat_shard_id(qmesh) * per
+        q = F.pad(q, (0, 0, 0, n * per - qn))[lo:lo + per].contiguous()
+        lam = F.pad(lam, (0, n * per - qn))[lo:lo + per]
+        sims, idx = self._search(q, self.resolve_backend(qn))
+        S, C = self._support_dev()
+        choice, s_hat, c_hat, kth, agree = _serve_tail(
+            sims, idx, S, C, lam, avail, weights=self.weights,
+            temperature=float(self.temperature))
+        M = s_hat.shape[1]
+        buf = torch.cat([choice.contiguous().view(torch.float32)
+                         .reshape(per, 2), s_hat, c_hat, kth[:, None],
+                         agree[:, None]], 1)
+        got = comm.all_gather(buf, mesh_group(qmesh)).reshape(n * per, -1)
+        got = got[:qn]
+        return (got[:, :2].contiguous().view(torch.int64).reshape(qn),
+                got[:, 2:2 + M], got[:, 2 + M:2 + 2 * M],
+                got[:, 2 + 2 * M], got[:, 3 + 2 * M])
 
     # ---- artifact contract: don't store the support rows twice ----
     def state_dict(self):

@@ -199,12 +199,12 @@ def spec_of(router) -> str:
 
 def router_config(router) -> Dict[str, object]:
     """Constructor kwargs reconstructing this instance (JSON-serializable).
-    The ``device`` is a handle of this process, not configuration: it is
-    left out, as the reference leaves out its ``mesh``, so a manifest
-    written here loads in the reference."""
+    The ``device`` and the ``mesh`` are handles of this process, not
+    configuration: they are left out (the reference leaves out its
+    ``mesh`` too), so a manifest written here loads in the reference."""
     cfg = {}
     for p in sorted(FAMILIES[router.spec_family].ctor_params):
-        if p == "device" or not hasattr(router, p):
+        if p in ("device", "mesh") or not hasattr(router, p):
             continue
         cfg[p] = getattr(router, p)
     return cfg

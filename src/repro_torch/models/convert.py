@@ -168,3 +168,34 @@ def router_params_from_jax(flat: Dict[str, np.ndarray], device="cuda"):
             raise ValueError(f"{key}: a router parameter must be floating, "
                              f"got {np.asarray(arr).dtype}")
     return to_device(unflatten_tree(dict(flat)), device)
+
+
+def moe_shard(src, cfg, shard: int, n_shards: int, device="cuda"):
+    """Expert block ``shard`` of ``n_shards`` (E / n_shards experts, the
+    block an expert-parallel rank with that "model" coordinate holds) cut
+    out of a full MoE layer: the port's `MoE`, or the reference's ``moe``
+    params (``router``, ``w_gate``, ``w_up``, ``w_down`` and ``shared``,
+    numpy arrays).  The router and the shared experts are whole."""
+    from .moe import MoE
+    E = cfg.n_experts
+    if E % n_shards:
+        raise ValueError(f"moe_shard: {n_shards} shards do not divide "
+                         f"{E} experts")
+    el = E // n_shards
+    flat: Dict[str, object] = {}
+    _flatten(dict(src.state_dict()) if isinstance(src, torch.nn.Module)
+             else src, "", flat)
+    out = MoE(cfg, device, n_local=el)
+    with torch.no_grad():
+        for name, t in out.state_dict().items():
+            leaf = flat[name]
+            if name.split(".")[0] in ("w_gate", "w_up", "w_down"):
+                leaf = leaf[shard * el:(shard + 1) * el]
+            if not isinstance(leaf, torch.Tensor):
+                leaf = torch.from_numpy(np.array(leaf, np.float32))
+            if tuple(leaf.shape) != tuple(t.shape):
+                raise ValueError(f"moe_shard: {name} has shape "
+                                 f"{tuple(leaf.shape)}, expected "
+                                 f"{tuple(t.shape)}")
+            t.copy_(leaf.to(t.device))
+    return out

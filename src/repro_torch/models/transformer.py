@@ -27,6 +27,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_DENSE, ATTN_MOE, MLA_MOE,
                                       SHARED_ATTN, SSM)
+from repro_torch.distributed.sharding import active_mesh
+
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .attention import (GQA, MLA, gqa_cross_decode, gqa_decode, gqa_full,
@@ -134,7 +136,7 @@ def _ffn(blk, cfg, x):
     """The FFN half of a `Block`: (x + ffn(norm2 x), aux)."""
     h = rmsnorm(blk.norm2, x)
     if hasattr(blk, "moe"):
-        y, aux = moe_mod.moe_ffn(blk.moe, cfg, h)
+        y, aux = moe_mod.moe_ffn(blk.moe, cfg, h, mesh=active_mesh())
         return x + y, aux
     return x + mlp(blk.mlp, h), None
 

@@ -284,12 +284,14 @@ class RouterService:
                 f"router emitted {s_hat.shape[1]} model columns, expected "
                 f"{len(self.model_names)} ({self.model_names})")
 
-    def route_fused(self, emb: np.ndarray, lam=None,
+    def route_fused(self, emb: np.ndarray, lam=None, qmesh=None,
                     degrade: int = 0) -> tuple:
         """One routed batch through `KNNRouter.serve_fused` (retrieval,
         utility, confidence and availability-masked selection on the
         device).  ``degrade`` serves the wave at that degradation-ladder
         level (shrunk nprobe, dropped re-rank) on routers that support it.
+        ``qmesh`` shards the batch over a mesh's ranks (every rank calls
+        with the same batch; the index replicated; bitwise equal results).
         Returns (choice, s_hat, c_hat, agreement, lam_r) as numpy."""
         # repro: allow-host: input embeddings arrive as host data
         emb = np.atleast_2d(np.asarray(emb, np.float32))
@@ -300,7 +302,7 @@ class RouterService:
                else contextlib.nullcontext())
         with ctx:
             choice, s_hat, c_hat, _, agree = self.router.serve_fused(
-                emb, lam_r, avail=avail)
+                emb, lam_r, avail=avail, qmesh=qmesh)
         self._check_arity(s_hat)
         return choice, s_hat, c_hat, agree, lam_r
 

@@ -1528,3 +1528,134 @@ def test_gpu_autotune_router_times_kernel_4_and_round_trips(tmp_path):
             assert ivf_ops.ivfpq_adc.last_cuda_launches == 1
         for a, b in zip(base, got):
             np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the sharded paths at world 1 over NCCL (slice 15)
+# ---------------------------------------------------------------------------
+
+_NCCL = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _nccl_teardown():
+    """Destroy the world-1 NCCL group `_nccl_mesh` started, if it did."""
+    yield
+    if _NCCL.pop("mesh", None) is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def _nccl_mesh():
+    """A (1, 1) mesh over a world of 1 on NCCL, started once for the module
+    (a `FileStore` in a temporary directory)."""
+    if "mesh" not in _NCCL:
+        import tempfile
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_debug_mesh
+        store = dist.FileStore(tempfile.mkdtemp() + "/store", 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        _NCCL["mesh"] = make_debug_mesh(1, 1)
+    return _NCCL["mesh"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["exact", "ivf", "ivfpq"])
+def test_gpu_sharded_search_world1_equals_the_kernel(kind):
+    """At world 1 the shard is the whole index (plus the dummy list): the
+    sharded search launches the rank's kernel and equals the unsharded
+    kernel bitwise."""
+    _need_cuda()
+    from repro_torch.core import sharded_knn as SK
+    mesh = _nccl_mesh()
+    q, s = _knn_data(16, 3000, 64, seed=41)
+    q, s = torch.from_numpy(q).cuda(), torch.from_numpy(s).cuda()
+    before = {n: getattr(f, "launches") for n, f in (
+        ("exact", knn_topk), ("ivf", ivf_ops.ivf_scan),
+        ("ivfpq", ivf_ops.ivfpq_adc))}
+    if kind == "exact":
+        got = SK.sharded_knn_topk(q, s, 20, mesh)
+        want = knn_topk(q, s, 20)
+        fn = knn_topk
+    elif kind == "ivf":
+        index = ivf_ops.build_ivf_index(s.cpu().numpy(), seed=0,
+                                        device="cuda")
+        got = SK.sharded_ivf_topk(q, index, 20, mesh, nprobe=6)
+        want = ivf_ops.ivf_topk(q, index, 20, nprobe=6)
+        fn = ivf_ops.ivf_scan
+    else:
+        index = ivf_ops.build_ivfpq_index(s.cpu().numpy(), m=8, seed=0,
+                                          device="cuda")
+        got = SK.sharded_ivfpq_topk(q, index, 20, mesh, nprobe=6)
+        want = ivf_ops.ivfpq_topk(q, index, 20, nprobe=6)
+        fn = ivf_ops.ivfpq_adc
+    assert fn.launches > before[kind]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["knn10", "knn20-ivf", "knn20-ivfpq@m=8"])
+def test_gpu_router_mesh_and_qmesh_world1(spec):
+    """`KNNRouter(mesh=)` routes as the unsharded router; `serve_fused(
+    qmesh=)` at 16 and 13 queries equals the unsharded route bitwise."""
+    _need_cuda()
+    import copy
+    mesh = _nccl_mesh()
+    r, Q = _tooling_router(spec)
+    lam = np.linspace(0, 5, 16).astype(np.float32)
+    base = r.serve_fused(Q, lam)
+    rm = copy.copy(r)
+    rm._dev, rm.mesh = {}, mesh
+    got = rm.serve_fused(Q, lam)
+    np.testing.assert_array_equal(got[0], base[0])
+    for a, b in zip(got[1:], base[1:]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    for qn in (16, 13):
+        want = r.serve_fused(Q[:qn], lam[:qn])
+        have = r.serve_fused(Q[:qn], lam[:qn], qmesh=mesh)
+        for a, b in zip(have, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pq", [False, True])
+def test_gpu_probe_of_the_dummy_list_yields_nothing(pq):
+    """Kernels 4 and 5 over a rank's lists with every probe on the empty
+    dummy list (ids -1, inverse norms 0), and with half the probes there:
+    no dummy slot surfaces, the rest equals the plain version."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    Q, L, D, P, C = 9, 40, 32, 4, 6
+    q = torch.randn(Q, D, device="cuda", generator=g)
+    q = (q / q.norm(dim=1, keepdim=True)).contiguous()
+    ids = torch.arange(C * L, dtype=torch.int32, device="cuda").reshape(C, L)
+    ids[C - 1] = -1
+    inv = torch.rand(C, L, device="cuda", generator=g) + 0.5
+    inv[C - 1] = 0
+    for probe in (torch.full((Q, P), C - 1, dtype=torch.int32,
+                             device="cuda"),
+                  torch.stack([torch.tensor([0, C - 1, 2, C - 1])] * Q)
+                  .to(torch.int32).cuda()):
+        if pq:
+            codes = torch.randint(0, 256, (C, 8, L), dtype=torch.uint8,
+                                  device="cuda", generator=g)
+            anch = torch.randn(C, D, device="cuda", generator=g)
+            anch[C - 1] = 0
+            cbs = torch.randn(8, 256, D // 8, device="cuda", generator=g)
+            args = (q, probe, codes, ids, inv, anch, cbs, 30)
+            got = ivf_ops.ivfpq_adc(*args, m=8, nbits=8)
+            want = ivfpq_adc_plain(*args, m=8, nbits=8)
+        else:
+            sup = torch.randn(C, L, D, device="cuda", generator=g)
+            sup[C - 1] = 0
+            args = (q, probe, sup, ids, inv, 30)
+            got = ivf_ops.ivf_scan(*args)
+            want = ivf_scan_plain(*args)
+        assert not ((got[1] >= (C - 1) * L)).any()
+        assert torch.equal(torch.isinf(got[0]), got[1] < 0)
+        assert torch.equal(got[1] < 0, want[1] < 0)
+        fin = torch.isfinite(want[0])
+        assert torch.allclose(got[0][fin], want[0][fin], rtol=1e-4,
+                              atol=1e-5)

@@ -85,6 +85,11 @@ def test_port_imports_without_jax():
             "import repro_torch.analysis.rules.durable_write\n"
             "import repro_torch.kernels.knn_ivf.autotune\n"
             "import repro_torch.launch.mesh, repro_torch.launch.ab\n"
+            "import repro_torch.core.sharded_knn\n"
+            "import repro_torch.distributed.sharding\n"
+            "import repro_torch.distributed.comm\n"
+            "import repro_torch.launch.cost_analysis\n"
+            "import repro_torch.launch.knn_dryrun\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\n"
