@@ -225,6 +225,25 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
         against the local path here within `MOE12_TOL` (relative L2), no
         slot dropped.
      Four ranks time-sharing one card are not a scaling figure.
+ 13. the model-side sharded steps (slice 16, `phase_sharded_steps`; 60 s
+     budget), after phase 12:
+     a. world 1 over NCCL in this process, a 1 x 1 mesh: `launch.steps`'
+        bundles on `launch.shardings.shard_lm`'s model (FSDP2 + DTensor)
+        against the unsharded steps on the same seeded weights, within
+        `STEPS13_TOL` and whether bitwise: h2o-danube-1.8b at full width,
+        2 layers, bf16, 2 train steps of 1 x 2,048 tokens (losses,
+        gradient norms and the updated parameters, with `STEPS13_OPT`'s
+        learning rate; the parameters' distance also within
+        `STEPS13_UPDATE_TOL` of the update's size), a prefill and 8
+        decode steps; mamba2-370m
+        likewise, 2 train steps; the launches of kernels 2, 2b, 3, 6 and
+        6b through `local_map`, sharded and unsharded walls;
+     b. on phase 12's four ranks (`phase13_ep_rank`, inside phase 12's
+        spawn): 12c's layer's routed experts expert-parallel, forward and
+        backward through (y . gy) + aux, the gradients to the input, the
+        router and each rank's whole expert block (by `ep13_sketch`) held
+        here against the local path's within `EP13_TOL`; the backward's
+        wall and its all-to-all share.
 The line before the last is the kernels' JSON summary, the last line the
 device record.  Its cases are the main path's: for kernels 4 and 5 the
 fitted phase-4 index (the synthetic one with --kernels); kernel 6's
@@ -591,11 +610,16 @@ def flash_bwd_case(torch, timer, B, S, KV, G, hd, dtype, causal, window,
                 bound_by=b_by)
 
 
+#: kernel 3's log-sum-exp against the plain one in f32 on the same values
+#: (absolute: the two differ only in the order of f32 sums)
+DECODE_LSE_TOL = 1e-4
+
+
 def decode_case(torch, timer, pos, S, KV, G, hd, dtype, ring, tol, gen):
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import (
-        decode_attention_reference)
+        decode_attention_lse, decode_attention_reference)
     B, H = len(pos), KV * G
     q = torch.randn(B, H, hd, device="cuda", generator=gen).to(dtype)
     ck = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dtype)
@@ -609,6 +633,18 @@ def decode_case(torch, timer, pos, S, KV, G, hd, dtype, ring, tol, gen):
     ref_std = float(ref.std())
     assert ratio <= 1.0, (err, ratio, ref_at, tol)
     assert all(bool((out[b] == 0).all()) for b in range(B) if pos[b] < 0)
+    # the log-sum-exp the sequence-sharded decode merges by (read from the
+    # split kernel's (max, sum) scratch): the same output, and the plain
+    # lse within DECODE_LSE_TOL, -inf exactly for a slot with no valid key
+    out2, lse = decode_attention(q, ck, cv, p, ring=ring, return_lse=True)
+    lse_ref = decode_attention_lse(q.float(), ck.float(), p, ring=ring)
+    torch.cuda.synchronize()
+    assert torch.equal(out2, out)
+    empty = torch.isinf(lse_ref)
+    assert torch.equal(torch.isinf(lse), empty) and bool(
+        (lse[empty] < 0).all()), (lse, lse_ref)
+    lse_err = float((lse - lse_ref)[~empty].abs().max())
+    assert lse_err <= DECODE_LSE_TOL, (lse_err, DECODE_LSE_TOL)
     ms = timer(lambda: decode_attention(q, ck, cv, p, ring=ring))
     plain = timer(lambda: decode_attention_reference(q, ck, cv, p, ring=ring))
     s_idx = torch.arange(S, device="cuda")[None, :]
@@ -626,8 +662,10 @@ def decode_case(torch, timer, pos, S, KV, G, hd, dtype, ring, tol, gen):
     return dict(case=f"pos={pos} S={S} KV={KV} G={G} hd={hd} "
                      f"{str(dtype)[6:]} ring={ring}",
                 max_abs_err=err, err_over_tol=ratio, ref_at_worst=ref_at,
-                tol=tol, ref_std=ref_std, ms=ms,
-                plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+                tol=tol, ref_std=ref_std, lse_max_abs_err=lse_err,
+                lse_tol=DECODE_LSE_TOL, lse_empty_slots=int(empty.sum()),
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def ssd_case(torch, timer, Bs, H, nc, Q, P, G, N, valid, gen, label,
@@ -3956,11 +3994,12 @@ def rank_counters(wrappers):
         w.launches = 0
 
 
-def timed_collectives(torch, comm):
-    """Wrap `comm.all_gather` / `all_to_all` so each call's host wall
-    (device synchronized on both sides, host staging included) adds to the
-    returned dict; the wrappers stay for the process."""
-    spent = {"all_gather": 0.0, "all_to_all": 0.0}
+def timed_collectives(torch, comm, names=("all_gather", "all_to_all")):
+    """Wrap `comm`'s functions ``names`` (default the two public
+    collectives) so each call's host wall (device synchronized on both
+    sides, host staging included) adds to the returned dict; the wrappers
+    stay for the process."""
+    spent = {n: 0.0 for n in names}
 
     def wrap(name):
         fn = getattr(comm, name)
@@ -3973,8 +4012,8 @@ def timed_collectives(torch, comm):
             spent[name] += time.perf_counter() - t0
             return out
         setattr(comm, name, timed)
-    wrap("all_gather")
-    wrap("all_to_all")
+    for name in names:
+        wrap(name)
     return spent
 
 
@@ -4186,11 +4225,88 @@ def phase12_rank_body(torch, np, dist, d):
     rec["ep_wall_s"] = time.perf_counter() - t0
     rec["ep_collective_s"] = dict(spent)
     rec["ep_dropped"] = int(moe_mod.moe_ffn.dropped)
-    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
     if sid == 0:
         out["moe_y"] = y.float().cpu().numpy()
         out["moe_aux"] = np.float32(float(aux))
+    del y, aux
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out.update(phase13_ep_rank(torch, np, dist, mesh, layer, cfg, x, rec))
+    rec["ep13_peak_bytes"] = torch.cuda.max_memory_allocated()
     return out, rec
+
+
+def phase13_ep_rank(torch, np, dist, mesh, layer, cfg, x, rec):
+    """13b on one of phase 12's ranks: the routed experts of 12c's layer
+    expert-parallel (`moe_shard_map`, every rank the same tokens) forward
+    and backward through one loss, (y . gy) + aux (the mean of the ranks'
+    Switch losses).  Each rank's gradients are its share: the input's and
+    the router's are summed over the ranks, the experts' over the data
+    axis (ranks (0, r) then hold block r's whole gradient).  Returns the
+    arrays the parent holds against the local path: the input's and the
+    router's gradients (rank 0), and each block's sketch (`ep13_sketch`,
+    the ranks of data coordinate 0); the walls go into ``rec``."""
+    from repro_torch.distributed import comm
+    from repro_torch.models import moe as moe_mod
+    spent = timed_collectives(torch, comm, names=("_exchange",))
+    gy = moe_grad_output(torch, cfg)
+    for p in layer.parameters():
+        p.requires_grad_(True)
+
+    def run():
+        for p in layer.parameters():
+            p.grad = None
+        xg = x.detach().clone().requires_grad_(True)
+        y, aux = moe_mod.moe_shard_map(layer, cfg, xg, mesh)
+        loss = (y.float() * gy).sum() + aux
+        torch.cuda.synchronize()
+        spent["_exchange"] = 0.0
+        t0 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        return xg, time.perf_counter() - t0
+    run()                                             # warm
+    dist.barrier()
+    xg, wall = run()
+    rec["ep13_backward_s"] = wall
+    rec["ep13_backward_all_to_all_s"] = spent["_exchange"]
+    world = dist.group.WORLD
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    out = {}
+    gx = comm.all_gather(xg.grad.float(), world).sum(0)
+    gr = comm.all_gather(layer.router.grad.float(), world).sum(0)
+    if dist.get_rank() == 0:
+        out["ep13_gx"] = gx.cpu().numpy()
+        out["ep13_grouter"] = gr.cpu().numpy()
+    dgroup = mesh["data"].get_group()
+    for n in ("w_gate", "w_up", "w_down"):
+        g = ep13_sketch(torch, getattr(layer, n).grad, n)
+        g = comm.all_gather(g, dgroup).sum(0)
+        if coord[names.index("data")] == 0:
+            out[f"ep13_g{n}"] = g.cpu().numpy()
+    for p in layer.parameters():
+        p.grad = None
+        p.requires_grad_(False)
+    return out
+
+
+def ep13_sketch(torch, grad, name):
+    """(E, rows) f32: G_e v for each expert's gradient G_e (rows x cols) of
+    the weight ``name``, v a seeded standard normal f32 vector of cols
+    (`EP13_SKETCH_SEED`), eight experts at a time in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(
+        EP13_SKETCH_SEED + ("w_gate", "w_up", "w_down").index(name))
+    v = torch.randn(grad.shape[-1], device="cuda", generator=gen)
+    return torch.cat([g.float() @ v for g in grad.split(8)])
+
+
+def moe_grad_output(torch, cfg):
+    """13b's seeded output gradient gy (f32), the same on every rank and
+    in the parent."""
+    m = MOE12
+    g = torch.Generator(device="cuda").manual_seed(m["seed"] + 1)
+    return torch.randn(m["batch"], m["seq"], cfg.d_model, device="cuda",
+                       generator=g)
 
 
 def moe_input(torch, cfg):
@@ -4350,6 +4466,12 @@ def phase_sharded(torch, tctx, smi):
     outs = [dict(np.load(d / f"rank{r}.npz")) for r in range(n["world"])]
     recs = [json.loads((d / f"rank{r}.json").read_text())
             for r in range(n["world"])]
+    # 13b's arrays: the input's and router's gradients from rank 0, expert
+    # block r's from rank r (data coordinate 0)
+    ep13_out = {"gx": outs[0]["ep13_gx"], "grouter": outs[0]["ep13_grouter"]}
+    for r in (0, 1):
+        for n_ in ("w_gate", "w_up", "w_down"):
+            ep13_out[f"block{r}_g{n_}"] = outs[r][f"ep13_g{n_}"]
     for o in outs[1:]:              # a replicated result on every rank
         for key in ("exact_s", "exact_i", "ivf_i", "ivfpq_i", "qmesh16_0"):
             np.testing.assert_array_equal(o[key], outs[0][key])
@@ -4445,13 +4567,299 @@ def phase_sharded(torch, tctx, smi):
     emit("sharded_ep", nvidia_smi=smi, **ep)
     emit("sharded", phase_wall_s=wall, budget_s=PHASE12_BUDGET_S,
          parts_s=walls)
+    ep13 = {"rank_out": ep13_out, "backward_s": [
+        rc["ep13_backward_s"] for rc in recs], "all_to_all_s": [
+        rc["ep13_backward_all_to_all_s"] for rc in recs],
+        "peak_bytes": [rc["ep13_peak_bytes"] for rc in recs]}
     for rc in recs:
         for wname in ("knn_topk", "ivf_topk", "ivfpq_adc"):
             assert rc["launches"].get(wname, 0) > 0, rc["launches"]
     assert rel <= MOE12_TOL, ep
     assert all(v == 0 for v in ep["ep_dropped"]), ep
     assert wall < PHASE12_BUDGET_S, f"phase 12 took {wall:.1f} s"
-    return a, b, ep
+    return a, b, ep, ep13
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the model-side sharded steps on the card (slice 16)
+# ---------------------------------------------------------------------------
+
+PHASE13_BUDGET_S = 60.0
+#: 13a: full widths, 2 layers, bf16: h2o-danube-1.8b trains 2 steps of
+#: B 1 x S 2,048, prefills and decodes 8 tokens; mamba2-370m trains 2 steps
+STEPS13 = dict(batch=1, seq=2048, train_steps=2, decode_steps=8, layers=2,
+               seed=13)
+#: 13a's limit: the sharded step against the unsharded one, both bf16, as
+#: relative error (losses, gradient norms) or relative L2 (logits, the
+#: parameters after the steps)
+STEPS13_TOL = 1e-3
+#: 13a's optimizer: the default warmup of 100 steps gives the first two
+#: steps a learning rate of 3e-6 and 6e-6, updates below a bf16 weight's
+#: last bit, so a step that never updated its parameters would pass; from
+#: a warmup of 1 step the rate is 3e-4 from the first step
+STEPS13_OPT = dict(warmup_steps=1)
+#: 13a's limit on the parameters' distance from the unsharded step's over
+#: the size of that step's update (from the initial weights): a step that
+#: never updated, or never copied into the DTensor's local shard, reads 1
+#: (the bf16 weights round the updates, so the two steps' updates differ
+#: by more than their losses)
+STEPS13_UPDATE_TOL = 0.1
+#: 13b's limit: the expert-parallel layer's gradients against the local
+#: path's, relative L2 (bf16)
+EP13_TOL = 1e-2
+#: 13b holds each rank's whole expert block by a sketch, G_e v for each
+#: expert e with one seeded f32 vector v a weight (the blocks' gradients
+#: are 3.8 GB a rank); E ||(G - G') v||^2 = ||G - G'||^2 for v of unit
+#: variance, so the sketches' relative L2 estimates the blocks'
+EP13_SKETCH_SEED = 1313
+
+
+def whole_rel_l2(torch, a, b):
+    """Relative L2 distance of the whole of ``a`` from ``b``."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def sharded_steps_world1(torch, smi):
+    """13a: world 1 over NCCL, a 1 x 1 mesh: `launch.steps`' bundles on
+    `launch.shardings.shard_lm`'s model against the unsharded steps on the
+    same seeded weights; every kernel of the path through ``local_map``."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import make_train_step
+    n = STEPS13
+    B, S, seed = n["batch"], n["seq"], n["seed"]
+    wrappers = kernel_wrappers()
+    store = Path(tempfile.mkdtemp(dir=ROOT / "build")) / "store"
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_debug_mesh(1, 1)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        for arch, parts in (("h2o-danube-1.8b", ("train", "prefill",
+                                                 "decode")),
+                            ("mamba2-370m", ("train",))):
+            cfg = get_config(arch)
+            cfg = cfg.replace(n_groups=n["layers"] // len(cfg.pattern))
+            tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                                device="cuda", dtype=torch.int32)
+            batch = {"tokens": tok[:, :-1].contiguous(),
+                     "labels": tok[:, 1:].contiguous()}
+            rec = {"layers": cfg.total_blocks(), "dtype": cfg.dtype}
+            if "train" in parts:
+                bundle = steps.build(cfg, ShapeConfig("p13_train", S, B,
+                                                      "train"), mesh,
+                                     seed=seed)
+                lm, opt, _ = bundle.args
+                opt_cfg = O.OptConfig(**STEPS13_OPT)
+                fn = steps.train_fn(cfg, opt_cfg)
+                lm0 = M.init_params(cfg, seed=seed, device="cuda")
+                init = {k: p.detach().clone()
+                        for k, p in lm0.named_parameters()}
+                opt0 = O.init(dict(lm0.named_parameters()))
+                step0 = make_train_step(cfg, opt_cfg)
+                got, ref, walls, walls0, launches = [], [], [], [], {}
+                for _ in range(n["train_steps"]):
+                    torch.cuda.synchronize()
+                    rank_counters(wrappers)
+                    t0 = time.perf_counter()
+                    m = fn(lm, opt, batch)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    for k, w in wrappers.items():
+                        if w.launches:
+                            launches[k] = launches.get(k, 0) + w.launches
+                    t0 = time.perf_counter()
+                    r = step0(lm0, opt0, batch)
+                    torch.cuda.synchronize()
+                    walls0.append(time.perf_counter() - t0)
+                    got.append([float(m[k]) for k in ("loss", "grad_norm")])
+                    ref.append([float(r[k]) for k in ("loss", "grad_norm")])
+                # the parameters after the steps, gathered, against the
+                # unsharded step's; beside it the distance a step that
+                # never updated would leave (the update's size)
+                p0 = dict(lm0.named_parameters())
+                sq = {"diff": 0.0, "update": 0.0, "norm": 0.0}
+                with torch.no_grad():
+                    for k, p in lm.named_parameters():
+                        full = p.full_tensor() if hasattr(
+                            p, "full_tensor") else p
+                        ref_p = p0[k].float()
+                        sq["diff"] += float((full.float() - ref_p)
+                                            .square().sum())
+                        sq["update"] += float((init[k].float() - ref_p)
+                                              .square().sum())
+                        sq["norm"] += float(ref_p.square().sum())
+                rec["train"] = dict(
+                    loss_grad_norm=got, unsharded=ref,
+                    rel_err=max(abs(a - b) / abs(b) for x, y in zip(got, ref)
+                                for a, b in zip(x, y)),
+                    params_rel_l2=(sq["diff"] / sq["norm"]) ** 0.5,
+                    update_rel_l2=(sq["update"] / sq["norm"]) ** 0.5,
+                    params_err_over_update=(sq["diff"] / sq["update"])
+                    ** 0.5,
+                    opt=STEPS13_OPT, bitwise=got == ref, launches=launches,
+                    step_wall_s=walls, unsharded_step_wall_s=walls0,
+                    tokens=[B, S])
+                del lm, opt, lm0, opt0, bundle, init, p0
+            if "prefill" in parts:
+                bundle = steps.build(cfg, ShapeConfig("p13_prefill", S, B,
+                                                      "prefill"), mesh,
+                                     seed=seed)
+                lm = bundle.args[0]
+                lm0 = M.init_params(cfg, seed=seed, device="cuda")
+                with torch.no_grad():
+                    torch.cuda.synchronize()
+                    rank_counters(wrappers)
+                    t0 = time.perf_counter()
+                    lg = bundle.fn(lm, {"tokens": batch["tokens"]})
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = {k: w.launches for k, w in wrappers.items()
+                                if w.launches}
+                    lg = lg.full_tensor()
+                    t0 = time.perf_counter()
+                    lg0 = M.forward(lm0, cfg, {"tokens": batch["tokens"]})[0]
+                    torch.cuda.synchronize()
+                    wall0 = time.perf_counter() - t0
+                rec["prefill"] = dict(rel_l2=whole_rel_l2(torch, lg, lg0),
+                                      bitwise=bool(torch.equal(lg, lg0)),
+                                      launches=launches, wall_s=wall,
+                                      unsharded_wall_s=wall0)
+                del lg, lg0
+                # decode from zero caches over the same weights
+                dbundle = steps.build(cfg, ShapeConfig("p13_decode", S, B,
+                                                       "decode"), mesh,
+                                      seed=seed)
+                lmd, caches = dbundle.args[0], dbundle.args[1]
+                caches0 = M.init_caches(cfg, B, S, device="cuda")
+                got, ref, walls, walls0, launches = [], [], [], [], {}
+                for t in range(n["decode_steps"]):
+                    token = tok[:, t:t + 1].contiguous()
+                    pos = torch.tensor(t, dtype=torch.int32, device="cuda")
+                    torch.cuda.synchronize()
+                    rank_counters(wrappers)
+                    t0 = time.perf_counter()
+                    lgd = dbundle.fn(lmd, caches, token, pos)[0]
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    for k, w in wrappers.items():
+                        if w.launches:
+                            launches[k] = launches.get(k, 0) + w.launches
+                    got.append(lgd.full_tensor())
+                    posv = torch.full((B,), t, dtype=torch.int32,
+                                      device="cuda")
+                    t0 = time.perf_counter()
+                    ref.append(M.decode_step(lm0, cfg, caches0, token,
+                                             posv)[0])
+                    torch.cuda.synchronize()
+                    walls0.append(time.perf_counter() - t0)
+                got, ref = torch.stack(got), torch.stack(ref)
+                rec["decode"] = dict(rel_l2=whole_rel_l2(torch, got, ref),
+                                     bitwise=bool(torch.equal(got, ref)),
+                                     launches=launches, step_wall_s=walls,
+                                     unsharded_step_wall_s=walls0)
+                del lm, lm0, lmd, caches, caches0, bundle, dbundle
+            out[arch] = rec
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return out
+
+
+def phase13_ep_check(torch, np, ep13):
+    """13b in this process: the local path (`moe_local` on all 2,048
+    tokens, aux the mean of the four blocks' Switch losses, the
+    contract) on 12c's seeded layer and tokens, backward through the same
+    loss; the ranks' summed gradients against it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    m = MOE12
+    cfg = get_config(m["arch"]).replace(capacity_factor=m["capacity_factor"])
+    layer = moe_mod.MoE(cfg, "cuda")
+    layer.init_by_expert_(m["seed"])
+    for p in layer.parameters():
+        p.requires_grad_(True)
+    x = moe_input(torch, cfg).requires_grad_(True)
+    gy = moe_grad_output(torch, cfg)
+    D = cfg.d_model
+    tokens = x.reshape(-1, D)
+    C = moe_mod.capacity(tokens.shape[0], cfg.experts_top_k, cfg.n_experts,
+                         cfg.capacity_factor)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, _ = moe_mod.moe_local(layer, cfg, tokens, C)
+    bl, sl = m["batch"] // 2, m["seq"] // 2
+    aux = torch.stack([moe_mod.route(layer, cfg, x[d * bl:(d + 1) * bl,
+                                                  r * sl:(r + 1) * sl]
+                                     .reshape(-1, D))[2]
+                       for d in range(2) for r in range(2)]).mean()
+    ((y.reshape(x.shape).float() * gy).sum() + aux).backward()
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    el = cfg.n_experts // 2
+    got = ep13["rank_out"]
+    def held(name, ref):
+        return whole_rel_l2(torch, torch.from_numpy(got[name]).cuda(), ref)
+    errs = {"gx": held("gx", x.grad),
+            "grouter": held("grouter", layer.router.grad)}
+    for r in (0, 1):
+        for n_ in ("w_gate", "w_up", "w_down"):
+            ref = ep13_sketch(torch, getattr(layer, n_).grad[
+                r * el:(r + 1) * el], n_)
+            errs[f"block{r}_{n_}"] = held(f"block{r}_g{n_}", ref)
+    del layer, x, y
+    torch.cuda.empty_cache()
+    return dict(rel_l2=errs, local_fwd_bwd_s=local_s,
+                ep_backward_s=ep13["backward_s"],
+                ep_backward_all_to_all_s=ep13["all_to_all_s"],
+                ep_rank_peak_bytes=ep13["peak_bytes"],
+                all_to_all_share=[a / b for a, b in zip(
+                    ep13["all_to_all_s"], ep13["backward_s"])],
+                experts_compared=f"all {el} of each block, by the sketch "
+                "G_e v (EP13_SKETCH_SEED)", tol=EP13_TOL)
+
+
+def phase_sharded_steps(torch, smi, ep13):
+    """13: the model-side sharded steps (slice 16), within
+    `PHASE13_BUDGET_S`: a. `sharded_steps_world1`; b. the expert-parallel
+    layer's backward on phase 12's four ranks (`phase13_ep_rank`) held
+    here against the local path (`phase13_ep_check`)."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    a = sharded_steps_world1(torch, smi)
+    emit("sharded_steps", nvidia_smi=smi, **a)
+    b = phase13_ep_check(torch, np, ep13)
+    emit("sharded_steps_ep", nvidia_smi=smi, note="four ranks time-share "
+         "one card: not a scaling figure", **b)
+    wall = time.perf_counter() - t_phase
+    emit("sharded_steps_phase", phase_wall_s=wall, budget_s=PHASE13_BUDGET_S)
+    dan, mam = a["h2o-danube-1.8b"], a["mamba2-370m"]
+    for part in ("train", "prefill", "decode"):
+        err = dan[part].get("rel_err", dan[part].get("rel_l2"))
+        assert err <= STEPS13_TOL, (part, dan[part])
+    for rec in (dan, mam):
+        tr = rec["train"]
+        assert tr["rel_err"] <= STEPS13_TOL, tr
+        assert tr["params_rel_l2"] <= STEPS13_TOL, tr
+        assert tr["params_err_over_update"] <= STEPS13_UPDATE_TOL, tr
+    need = {("train", "flash_attention"), ("train", "flash_attention_bwd"),
+            ("prefill", "flash_attention"), ("decode", "decode_attention")}
+    for part, kname in need:
+        assert dan[part]["launches"].get(kname, 0) > 0, (part, dan[part])
+    for kname in ("ssd_intra", "ssd_intra_bwd"):
+        assert mam["train"]["launches"].get(kname, 0) > 0, mam["train"]
+    assert all(v <= EP13_TOL for v in b["rel_l2"].values()), b
+    assert wall < PHASE13_BUDGET_S, f"phase 13 took {wall:.1f} s"
+    return a, b
 
 
 def main(argv=None):
@@ -4531,7 +4939,8 @@ def main(argv=None):
         ninth = phase_families(torch, smi)
         phase_front_ends(torch, smi)
         phase_tooling(torch, tctx)
-        phase_sharded(torch, tctx, smi)
+        ep13 = phase_sharded(torch, tctx, smi)[3]
+        phase_sharded_steps(torch, smi, ep13)
         path_of = {"ivf_topk": second, "ivfpq_adc": second,
                    "ssd_intra": third, "ssd_intra_bwd": third,
                    "flash_attention_bwd": ninth}

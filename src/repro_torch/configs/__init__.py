@@ -5,7 +5,8 @@ encoder-decoder seamless-m4t-medium with cross attention).
 
 `base.py` and the config modules are copies of the JAX package's
 (`repro.configs`), kept here so the port imports nothing of `repro`."""
-from .base import ATTN_DENSE, SSM, ModelConfig, reduced
+from .base import (ATTN_DENSE, INPUT_SHAPES, SSM, ModelConfig, ShapeConfig,
+                   reduced)
 from . import (deepseek_v2_236b, h2o_danube_1_8b, internvl2_76b,
                llama4_maverick_400b_a17b, mamba2_370m, qwen1_5_32b, qwen3_4b,
                seamless_m4t_medium, starcoder2_15b, zamba2_7b)
@@ -22,5 +23,9 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ATTN_DENSE", "SSM", "ModelConfig", "get_config",
-           "reduced"]
+def get_shape(name: str) -> ShapeConfig:
+    return INPUT_SHAPES[name]
+
+
+__all__ = ["ARCHS", "ATTN_DENSE", "INPUT_SHAPES", "SSM", "ModelConfig",
+           "ShapeConfig", "get_config", "get_shape", "reduced"]

@@ -76,8 +76,13 @@ def placements_for(mesh, logical: Sequence[Optional[str]], rules=None):
     ``Shard(d)`` of the tensor dimension it shards, else ``Replicate()``.
     Two mesh axes on one dimension shard it in mesh order, as a tuple of
     axes does in the reference (major first)."""
+    return spec_placements(mesh, spec_for(mesh, logical, rules))
+
+
+def spec_placements(mesh, spec):
+    """DTensor placements of a spec (a tuple of None, axis names or tuples
+    of them, one a dimension) over ``mesh``."""
     from torch.distributed.tensor import Replicate, Shard
-    spec = spec_for(mesh, logical, rules)
     owner = {}
     for d, ax in enumerate(spec):
         for a in (() if ax is None else (ax,) if isinstance(ax, str)
@@ -104,13 +109,29 @@ def active_mesh():
 
 def constrain(x, logical: Sequence[Optional[str]]):
     """``x`` laid out by the active rule table: a ``DTensor`` is
-    redistributed; a plain tensor, or any tensor outside a context or of
-    another rank than ``logical``, passes through."""
+    redistributed over its own mesh (the context's, or the "model"
+    sub-mesh a sharded model's activations live on, where the batch axes
+    are FSDP's and each rank holds its own rows), a ``Partial`` summed; a
+    dimension the axis does not divide stays whole, as the reference's
+    ``_fit_spec`` leaves it.  The gradient flowing back through the
+    point is brought to the same layout (a ``Partial`` sum of the
+    consumers' gradients all-reduced once here, as Megatron's tensor
+    parallelism does), so no product downstream in the backward
+    all-gathers a weight to keep a ``Partial`` operand.  A plain tensor, or
+    any tensor outside a context or of another rank than ``logical``,
+    passes through."""
     ctx = getattr(_state, "ctx", None)
     if ctx is None or x.ndim != len(logical):
         return x
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(x, DTensor):
         return x
-    mesh, rules = ctx
-    return x.redistribute(mesh, placements_for(mesh, logical, rules))
+    mesh, rules = x.device_mesh, ctx[1]
+    pl = [Replicate() if p.is_shard() and x.shape[p.dim] % size else p
+          for p, size in zip(placements_for(mesh, logical, rules),
+                             mesh.shape)]
+    y = x.redistribute(mesh, pl)
+    if y.requires_grad:
+        y.register_hook(lambda g: g if tuple(g.placements) == tuple(pl)
+                        else g.redistribute(mesh, pl))
+    return y

@@ -6,7 +6,14 @@ q (B, H, hd), cache_k / cache_v (B, S, KV, hd), pos (B,) int32 ->
 (B, H, hd) in q.dtype.  CPU tensors take the plain version (`ref.py`);
 CUDA tensors launch the kernels or raise: one call launches the split
 kernel over spans of `SPLIT` cache rows and the combine kernel that merges
-the spans' partials (`kernel.cu`).
+the spans' partials (`kernel.cu`).  Fake tensors (the dry-run) allocate
+what the CUDA path allocates (`kernels.fake`).
+
+``return_lse=True`` also returns each (slot, head)'s log-sum-exp of its
+scaled scores (B, H) f32, -inf where no key is valid: what a
+sequence-sharded cache's ranks merge their partial outputs by
+(`models.attention`).  On the card it is read from the split kernel's
+per-span (max, sum) scratch, which the kernel writes anyway.
 """
 from __future__ import annotations
 
@@ -15,8 +22,8 @@ import math
 
 import torch
 
-from .. import _build
-from .ref import decode_attention_reference
+from .. import _build, fake
+from .ref import decode_attention_lse, decode_attention_reference
 
 HEAD_DIMS = (64, 80, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -34,8 +41,10 @@ def _lib():
     return lib
 
 
-def decode_attention(q, cache_k, cache_v, pos, *, ring=False):
-    """q: (B, H, hd); cache_k/v: (B, S, KV, hd); pos: (B,) int32."""
+def decode_attention(q, cache_k, cache_v, pos, *, ring=False,
+                     return_lse=False):
+    """q: (B, H, hd); cache_k/v: (B, S, KV, hd); pos: (B,) int32 -> out, or
+    (out, lse) with ``return_lse``."""
     if q.ndim != 3 or cache_k.ndim != 4 or cache_k.shape != cache_v.shape \
             or cache_k.shape[0] != q.shape[0] \
             or cache_k.shape[3] != q.shape[2] or q.shape[1] % cache_k.shape[2]:
@@ -47,12 +56,21 @@ def decode_attention(q, cache_k, cache_v, pos, *, ring=False):
                          f"({q.shape[0]},), got {tuple(pos.shape)}")
     if not (q.device == cache_k.device == cache_v.device == pos.device):
         raise ValueError("decode_attention: inputs on different devices")
+    B, H, hd = q.shape
+    S = cache_k.shape[1]
+    if fake.is_fake(q):
+        fake.report("decode_attention", 4 * B * H * S * hd)
+        out = torch.empty_like(q)
+        q.new_empty(B * H * -(-S // SPLIT) * (hd + 2), dtype=torch.float32)
+        return (out, q.new_empty((B, H), dtype=torch.float32)) \
+            if return_lse else out
     if q.device.type == "cpu":
-        return decode_attention_reference(q, cache_k, cache_v, pos, ring=ring)
+        out = decode_attention_reference(q, cache_k, cache_v, pos, ring=ring)
+        return (out, decode_attention_lse(q, cache_k, pos, ring=ring)) \
+            if return_lse else out
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    B, H, hd = q.shape
-    S, KV = cache_k.shape[1], cache_k.shape[2]
+    KV = cache_k.shape[2]
     G = H // KV
     if q.dtype not in DTYPES or cache_k.dtype != q.dtype \
             or cache_v.dtype != q.dtype or pos.dtype != torch.int32:
@@ -72,7 +90,8 @@ def decode_attention(q, cache_k, cache_v, pos, *, ring=False):
                          f"65535 (grid axes)")
     out = torch.empty_like(q)
     if out.numel() == 0 or S == 0:
-        return out.zero_()
+        lse = torch.full((B, H), float("-inf"), device=q.device)
+        return (out.zero_(), lse) if return_lse else out.zero_()
     n_split = -(-S // SPLIT)
     part = torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
                        device=q.device)
@@ -83,7 +102,12 @@ def decode_attention(q, cache_k, cache_v, pos, *, ring=False):
         _build.stream_ptr(q.device))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
-    return out
+    if not return_lse:
+        return out
+    # the split kernel's (m, l) of each span, (B, H, n_split, 2) after the
+    # accumulators; an empty span has m = -inf and l = 0
+    ml = part[B * H * n_split * hd:].reshape(B, H, n_split, 2)
+    return out, torch.logsumexp(ml[..., 0] + ml[..., 1].log(), dim=-1)
 
 
 #: calls that launched the kernels (one per call on a CUDA tensor, which

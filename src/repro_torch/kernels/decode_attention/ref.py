@@ -30,6 +30,24 @@ def decode_attention_reference(q, cache_k, cache_v, pos, *, ring=False):
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def decode_attention_lse(q, cache_k, pos, *, ring=False):
+    """The log-sum-exp (B, H) f32 of `decode_attention_reference`'s scaled
+    scores over the valid slots, -inf for a slot with none."""
+    B, H, hd = q.shape
+    S, KV = cache_k.shape[1], cache_k.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg,
+                          cache_k.float()) / math.sqrt(hd)
+    s_idx = torch.arange(S, device=q.device)[None, :]
+    pb = pos.to(device=q.device, dtype=torch.int64)[:, None]
+    if ring:
+        valid = pb - torch.remainder(pb - s_idx, S) >= 0
+    else:
+        valid = s_idx <= pb
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    return torch.logsumexp(scores, dim=-1).reshape(B, H)
+
+
 def decode_attention_split_plain(q, cache_k, cache_v, pos, *, ring=False,
                                  split=64):
     """The split kernel and the combine kernel of `kernel.cu`, step for

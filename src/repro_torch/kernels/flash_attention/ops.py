@@ -11,7 +11,9 @@ requires it, also inside `torch.utils.checkpoint`), `flash_attention` is a
 also writes each row's log-sum-exp and (for bf16) the output in f32, and
 its backward launches the backward kernels (`flash_attention_bwd`), which
 recompute P from the log-sum-exp and take D = rowsum(dO o O) from the f32
-output, as the reference differentiates through its f32 output.
+output, as the reference differentiates through its f32 output.  Fake
+tensors (the dry-run) allocate what the CUDA path allocates and report the
+kernels' FLOPs (`kernels.fake`).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import math
 
 import torch
 
-from .. import _build
+from .. import _build, fake
 from .ref import flash_attention_bwd_plain, flash_attention_reference
 
 HEAD_DIMS = (64, 80, 112, 128)
@@ -80,9 +82,11 @@ def _forward(q, k, v, causal, window, for_backward):
     """Launch the forward kernel.  Returns (out, lse, out32): with
     ``for_backward`` the rows' log-sum-exp (B, H, Sq) and the output in f32
     (``out`` itself for f32 inputs), else None and None."""
-    _check_cuda("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
+    if fake.is_fake(q):
+        return _fake_forward(q, k, causal, window, for_backward)
+    _check_cuda("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = out32 = o32 = None
     if for_backward:
@@ -99,6 +103,21 @@ def _forward(q, k, v, causal, window, for_backward):
         int(window or 0), 1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    return out, lse, out32
+
+
+def _fake_forward(q, k, causal, window, for_backward):
+    """`_forward` on fake tensors (`kernels.fake`): the same outputs
+    allocated, and 4 hd FLOPs a kept (query, key) pair a head reported."""
+    B, Sq, H, hd = q.shape
+    fake.report("flash_attention", 4 * hd * B * H * fake.attention_pairs(
+        Sq, k.shape[1], causal, window or 0))
+    out = torch.empty_like(q)
+    if not for_backward:
+        return out, None, None
+    lse = q.new_empty((B, H, Sq), dtype=torch.float32)
+    out32 = out if q.dtype == torch.float32 else torch.empty_like(
+        q, dtype=torch.float32)
     return out, lse, out32
 
 
@@ -122,7 +141,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal=True, window=0):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd)."""
-    if _check(q, k, v, "flash_attention").type == "cpu":
+    if _check(q, k, v, "flash_attention").type == "cpu" \
+            and not fake.is_fake(q):
         return flash_attention_reference(q, k, v, causal=causal,
                                          window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -138,6 +158,13 @@ def flash_attention_bwd(q, k, v, do, *, causal=True, window=0, out=None,
     ``out`` (B, Sq, H, hd) and ``lse`` (B, H, Sq), both f32, are the
     forward's (`_FlashAttention` passes them); the plain version on the CPU
     recomputes them."""
+    if fake.is_fake(q):
+        B, Sq, H, hd = q.shape
+        fake.report("flash_attention_bwd", 10 * hd * B * H
+                    * fake.attention_pairs(Sq, k.shape[1], causal,
+                                           window or 0))
+        q.new_empty((B, H, Sq), dtype=torch.float32)    # delta
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     if _check(q, k, v, "flash_attention_bwd").type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, causal=causal,
                                          window=window)

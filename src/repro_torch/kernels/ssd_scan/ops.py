@@ -9,7 +9,8 @@ both take their plain versions (`ref.ssd_intra_plain`,
 `ref.ssd_intra_bwd_plain`).  There is no fallback on the card: a CUDA
 tensor the kernels cannot take raises.  Each call launches several CUDA
 kernels (C B^T once per group, then the heads' passes) into scratch of
-`pair_scratch_shape`; the launch counters count calls.
+`pair_scratch_shape`; the launch counters count calls.  Fake tensors (the
+dry-run) allocate what the CUDA path allocates (`kernels.fake`).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, fake
 from .ref import ssd_intra_bwd_plain, ssd_intra_plain
 
 QMAX = 256     # ssd_common.cuh: QMAX, the longest chunk
@@ -90,10 +91,28 @@ def _dims(x, Bm):
     return Bs, H, nc, Q, P, G, N
 
 
+def _intra_flops(x, Bm):
+    """Matrix-product FLOPs of one forward pass: C B^T over a group's
+    causal (row, column) pairs, its masked product with X for every head,
+    and the chunk states (P x Q x N a head and chunk)."""
+    Bs, H, nc, Q, P = x.shape
+    G, N = Bm.shape[1], Bm.shape[4]
+    pairs = Q * (Q + 1) // 2
+    return 2 * Bs * nc * (G * pairs * N + H * pairs * P + H * Q * P * N)
+
+
 def ssd_intra_fwd(x, dt, A, Bm, Cm):
     """Kernel 6's function without autograd: (y_intra, states, cs).  CPU
     tensors take `ssd_intra_plain`; CUDA tensors launch `kernel.cu`."""
     dev = _check(x, dt, A, Bm, Cm)
+    if fake.is_fake(x):
+        Bs, H, nc, Q, P = x.shape
+        G, N = Bm.shape[1], Bm.shape[4]
+        fake.report("ssd_intra", _intra_flops(x, Bm))
+        x.new_empty(pair_scratch_shape(Bs, G, nc, Q), dtype=torch.float32)
+        return (torch.empty_like(x),
+                x.new_empty((Bs, H, nc, P, N), dtype=torch.float32),
+                torch.empty_like(dt))
     if dev.type == "cpu":
         return ssd_intra_plain(x, dt, A, Bm, Cm)
     _kernel_args(dev, x, dt, A, Bm, Cm)
@@ -119,6 +138,13 @@ def ssd_intra_bwd(x, dt, A, Bm, Cm, cs, gy, gst, gcs):
     sums gB / gC over a group's heads itself and writes per-block f64 gA
     that this wrapper sums."""
     dev = _check(x, dt, A, Bm, Cm)
+    if fake.is_fake(x):
+        Bs, G, nc, Q = Bm.shape[:4]
+        # the gradient recomputes C B^T and takes two products a forward one
+        fake.report("ssd_intra_bwd", 2 * _intra_flops(x, Bm))
+        for _ in range(2):
+            x.new_empty(pair_scratch_shape(Bs, G, nc, Q), dtype=torch.float32)
+        return tuple(torch.empty_like(t) for t in (x, dt, A, Bm, Cm))
     if dev.type == "cpu":
         return ssd_intra_bwd_plain(x, dt, A, Bm, Cm, cs, gy, gst, gcs)
     _kernel_args(dev, x, dt, A, Bm, Cm, cs, gy, gst, gcs)

@@ -29,15 +29,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 from pathlib import Path
 
 import torch
 
 from repro_torch import persist
 from repro_torch.launch import cost_analysis as CA
-from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS, link_bw,
-                                     make_debug_mesh, make_production_mesh)
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS, fake_mesh, link_bw
 
 VARIANTS = {
     "f32": (torch.float32, 0),
@@ -45,21 +43,6 @@ VARIANTS = {
     "bf16_klocal8": (torch.bfloat16, 8),
     "f32_klocal8": (torch.float32, 8),
 }
-
-
-def fake_mesh(shape):
-    """Start a fake process group of prod(shape) ranks (this process rank
-    0) and return the mesh over it: the production mesh for (16, 16), a
-    debug mesh otherwise."""
-    import torch.distributed as dist
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-    world = math.prod(shape)
-    if not dist.is_initialized():
-        dist.init_process_group("fake", store=FakeStore(), rank=0,
-                                world_size=world)
-    if tuple(shape) == (16, 16):
-        return make_production_mesh(device_type="cpu")
-    return make_debug_mesh(*shape, device_type="cpu")
 
 
 def run_variant(mesh, n, q, d, k, dtype, k_local):

@@ -116,6 +116,30 @@ def mesh_group(mesh):
     return group
 
 
+def fake_mesh(shape):
+    """Start a fake process group of prod(shape) ranks (this process rank
+    0; ``torch.testing``'s ``FakeStore``, nothing is sent) and return the
+    mesh over it, for a dry-run under ``FakeTensorMode``: the production
+    meshes for (16, 16) and (2, 16, 16), a debug mesh otherwise."""
+    import math
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    world = math.prod(shape)
+    if dist.is_initialized() and dist.get_world_size() != world:
+        dist.destroy_process_group()        # another mesh of the sweep
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    shape = tuple(shape)
+    if shape in ((16, 16), (2, 16, 16)):
+        return make_production_mesh(multi_pod=len(shape) == 3,
+                                    device_type="cpu")
+    if len(shape) == 3:
+        return make_debug_mesh(shape[1], shape[2], pod=shape[0],
+                               device_type="cpu")
+    return make_debug_mesh(*shape, device_type="cpu")
+
+
 def axis_size(mesh, name: str) -> int:
     """Size of the mesh axis ``name`` (0 when the mesh has no such axis)."""
     names = mesh.mesh_dim_names or ()

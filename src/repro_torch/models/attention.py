@@ -20,7 +20,15 @@ MLA is jnp in the reference, so torch ops carry it here: its qk dim
 flash kernel does not take.  `mla_decode` is the absorbed decode over the
 latent cache (B, S, kv_lora_rank) + (B, S, qk_rope_dim);
 ``cfg.mla_naive_decode`` selects `mla_decode_naive`, which expands the
-whole latent cache to per-head K / V every step."""
+whole latent cache to per-head K / V every step.
+
+On a sharded model (`launch.shardings.shard_lm`, `distributed.tp`) the
+kernels run on each rank's own heads (`tp.attend`), and decode runs over
+the reference's sequence-sharded caches (`cache_placements`: S over
+"model"): each rank attends over its own cache rows, the decode kernel
+also returning its log-sum-exp, and the ranks' partials are merged by it
+(`tp.decode_merge`, flash-decoding); MLA's absorbed decode does the same
+in torch ops."""
 from __future__ import annotations
 
 import math
@@ -30,6 +38,7 @@ from torch import nn
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.distributed import tp
 from .layers import RMSNorm, apply_rope, dense_init_, dtype_of, param, rmsnorm
 
 
@@ -65,9 +74,9 @@ def _project_qkv(p: GQA, cfg, x, positions, kv_x=None):
     q, k, v = x @ p.wq, src @ p.wk, src @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, -1, H, hd)
-    k = k.reshape(B, -1, KV, hd)
-    v = v.reshape(B, -1, KV, hd)
+    q = tp.split_heads(q, H, hd)
+    k = tp.split_heads(k, KV, hd)
+    v = tp.split_heads(v, KV, hd)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q)
         k = rmsnorm(p.k_norm, k)
@@ -84,10 +93,9 @@ def gqa_full(p: GQA, cfg, x, positions, *, causal=True, window=None,
     ``kv_x``, no mask (``causal`` is ignored), no RoPE."""
     w = cfg.sliding_window if window is None else window
     q, k, v = _project_qkv(p, cfg, x, positions, kv_x=kv_x)
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=causal and kv_x is None, window=w)
-    B, S = x.shape[0], out.shape[1]
-    return out.reshape(B, S, -1) @ p.wo
+    out = tp.attend(flash_attention, q, k, v,
+                    causal=causal and kv_x is None, window=w)
+    return tp.merge_heads(out) @ p.wo
 
 
 def gqa_decode(p: GQA, cfg, x, cache_k, cache_v, pos, *, window=0):
@@ -99,15 +107,32 @@ def gqa_decode(p: GQA, cfg, x, cache_k, cache_v, pos, *, window=0):
     B = x.shape[0]
     pos = pos.to(device=x.device, dtype=torch.int32)
     q, k, v = _project_qkv(p, cfg, x, pos[:, None])
-    S = cache_k.shape[1]
-    slot = pos % max(S, 1) if window > 0 else pos.clamp(0, S - 1)
+    mesh = tp.mesh_of(p.wq)
     rows = torch.arange(B, device=x.device)
-    cache_k[rows, slot] = k[:, 0]
-    cache_v[rows, slot] = v[:, 0]
-    out = decode_attention(q[:, 0].contiguous(), cache_k, cache_v, pos,
-                           ring=window > 0)
+    S = cache_k.shape[1] * (1 if mesh is None else mesh.size())
+    slot = pos % max(S, 1) if window > 0 else pos.clamp(0, S - 1)
+    if mesh is not None:
+        q, k, v = (tp.full(t) for t in (q, k, v))
+        tp.write_row(cache_k, rows, slot, k[:, 0], mesh)
+        tp.write_row(cache_v, rows, slot, v[:, 0], mesh)
+        out = _decode_sharded(q[:, 0], cache_k, cache_v, pos, mesh)
+    else:
+        cache_k[rows, slot] = k[:, 0]
+        cache_v[rows, slot] = v[:, 0]
+        out = decode_attention(q[:, 0].contiguous(), cache_k, cache_v, pos,
+                               ring=window > 0)
     y = out.reshape(B, -1).to(x.dtype) @ p.wo
     return y[:, None, :], cache_k, cache_v
+
+
+def _decode_sharded(q, cache_k, cache_v, pos, mesh):
+    """Decode attention of q (B, H, hd), every head, over a sequence-sharded
+    cache: this rank's rows through the kernel (its valid prefix,
+    `tp.seq_rows`), the ranks' partials merged by their log-sum-exp."""
+    last = tp.seq_rows(pos, cache_k.shape[1], mesh)
+    out, lse = decode_attention(q.contiguous(), cache_k, cache_v, last,
+                                ring=False, return_lse=True)
+    return tp.decode_merge(out, lse, mesh)
 
 
 def cross_kv(p: GQA, cfg, enc_out):
@@ -132,12 +157,16 @@ def gqa_cross_decode(p: GQA, cfg, x, ck, cv):
     q = x @ p.wq
     if cfg.qkv_bias:
         q = q + p.bq
-    q = q.reshape(B, H, hd)
+    q = tp.split_heads(q, H, hd)[:, 0]
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q)
-    last = torch.full((B,), ck.shape[1] - 1, dtype=torch.int32,
-                      device=x.device)
-    out = decode_attention(q.contiguous(), ck, cv, last, ring=False)
+    mesh = tp.mesh_of(p.wq)
+    Se = ck.shape[1] * (1 if mesh is None else mesh.size())
+    last = torch.full((B,), Se - 1, dtype=torch.int32, device=x.device)
+    if mesh is not None:
+        out = _decode_sharded(tp.full(q), ck, cv, last, mesh)
+    else:
+        out = decode_attention(q.contiguous(), ck, cv, last, ring=False)
     y = out.reshape(B, -1).to(x.dtype) @ p.wo
     return y[:, None, :]
 
@@ -180,7 +209,7 @@ def _mla_q(p: MLA, cfg, x, positions):
         q = rmsnorm(p.q_norm, x @ p.w_dq) @ p.w_uq
     else:
         q = x @ p.wq
-    q = q.reshape(B, S, H, nd + rd)
+    q = tp.split_heads(q, H, nd + rd)
     return q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta)
 
 
@@ -196,39 +225,59 @@ def _mla_scale(cfg):
     return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
 
 
+def _mla_attend(q_nope, q_rope, k_nope, k_rope, v, scale):
+    """Causal MLA attention in f32 on (B, S, H, d) heads (k_rope (B, S, rd)
+    shared by every head); a 1-tuple of (B, S, H, vd)."""
+    S = q_nope.shape[1]
+    scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                             k_rope.float())) * scale
+    mask = torch.ones((S, S), dtype=torch.bool, device=q_nope.device).tril()
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    return (torch.einsum("bhqk,bkhd->bqhd", probs, v.float()),)
+
+
 def mla_full(p: MLA, cfg, x, positions):
-    """Causal full-sequence MLA in f32.  x: (B, S, D)."""
-    B, S, _ = x.shape
+    """Causal full-sequence MLA in f32.  x: (B, S, D).  On a sharded model
+    each rank attends with its own heads (`tp.on_heads`)."""
     H, nd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c, k_rope = _mla_ckv(p, cfg, x, positions)
-    k_nope = (c @ p.w_uk).reshape(B, S, H, nd)
-    v = (c @ p.w_uv).reshape(B, S, H, vd)
-    scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
-              + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
-                             k_rope.float())) * _mla_scale(cfg)
-    mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
-    scores = scores.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
-    return out.reshape(B, S, -1).to(x.dtype) @ p.wo
+    k_nope = tp.split_heads(c @ p.w_uk, H, nd)
+    v = tp.split_heads(c @ p.w_uv, H, vd)
+    out, = tp.on_heads(
+        lambda *a: _mla_attend(*a, _mla_scale(cfg)), H,
+        (q_nope, q_rope, k_nope, k_rope, v), in_dims=(2, 2, 2, None, 2),
+        out_dims=(2,))
+    return tp.merge_heads(out).to(x.dtype) @ p.wo
 
 
 def _mla_step(p: MLA, cfg, x, cache_c, cache_kr, pos):
     """The new token's queries and latent row, written into the caches at
-    ``pos`` (clamped, as `dynamic_update_slice` clamps).  Returns
-    (q_nope, q_rope, valid (B, S))."""
+    ``pos`` (clamped, as `dynamic_update_slice` clamps; on a sharded model
+    into the rank that holds that row).  Returns (q_nope, q_rope,
+    valid (B, S_local))."""
     B = x.shape[0]
     pos = pos.to(device=x.device, dtype=torch.int32)
     positions = pos[:, None]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c, k_rope = _mla_ckv(p, cfg, x, positions)
-    S = cache_c.shape[1]
     rows = torch.arange(B, device=x.device)
-    slot = pos.clamp(0, S - 1)
-    cache_c[rows, slot] = c[:, 0]
-    cache_kr[rows, slot] = k_rope[:, 0]
-    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    S = cache_c.shape[1]
+    mesh = tp.mesh_of(p.w_dkv)
+    if mesh is not None:
+        c, k_rope = tp.full(c), tp.full(k_rope)
+        slot = pos.clamp(0, S * mesh.size() - 1)
+        tp.write_row(cache_c, rows, slot, c[:, 0], mesh)
+        tp.write_row(cache_kr, rows, slot, k_rope[:, 0], mesh)
+        last = tp.seq_rows(pos, S, mesh)
+    else:
+        last = pos
+        slot = pos.clamp(0, S - 1)
+        cache_c[rows, slot] = c[:, 0]
+        cache_kr[rows, slot] = k_rope[:, 0]
+    valid = torch.arange(S, device=x.device)[None, :] <= last[:, None]
     return q_nope[:, 0].float(), q_rope[:, 0].float(), valid
 
 
@@ -237,20 +286,35 @@ def _softmax_valid(scores, valid):
                                             float("-inf")), dim=-1)
 
 
+def _attend_rows(scores, valid, values, mesh):
+    """softmax(scores) @ values over the valid cache rows: scores (B, H, S)
+    f32, values (B, S, d) or (B, S, H, d).  On a sequence-sharded cache
+    (``mesh``) each rank's rows give a partial and its log-sum-exp, which
+    `tp.decode_merge` merges over the ranks."""
+    eq = "bhs,bsd->bhd" if values.ndim == 3 else "bhs,bshd->bhd"
+    if mesh is None:
+        return torch.einsum(eq, _softmax_valid(scores, valid), values)
+    masked = scores.masked_fill(~valid[:, None, :], float("-inf"))
+    lse = torch.logsumexp(masked, dim=-1)
+    probs = torch.softmax(masked, dim=-1).nan_to_num(0.0)
+    return tp.decode_merge(torch.einsum(eq, probs, values), lse, mesh)
+
+
 def mla_decode_naive(p: MLA, cfg, x, cache_c, cache_kr, pos):
     """Naive MLA decode: the whole latent cache expanded to per-head K / V
     each step.  Caches updated in place; returns (y, cache_c, cache_kr)."""
     B = x.shape[0]
     H, nd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
     q_nope, q_rope, valid = _mla_step(p, cfg, x, cache_c, cache_kr, pos)
+    mesh = tp.mesh_of(p.w_dkv)
+    q_nope, q_rope = tp.full(q_nope), tp.full(q_rope)
     S = cache_c.shape[1]
-    k_nope = (cache_c @ p.w_uk).reshape(B, S, H, nd)
-    v = (cache_c @ p.w_uv).reshape(B, S, H, vd)
+    k_nope = (cache_c @ tp.full(p.w_uk)).reshape(B, S, H, nd)
+    v = (cache_c @ tp.full(p.w_uv)).reshape(B, S, H, vd)
     scores = (torch.einsum("bhd,bshd->bhs", q_nope, k_nope.float())
               + torch.einsum("bhd,bsd->bhs", q_rope, cache_kr.float())
               ) * _mla_scale(cfg)
-    out = torch.einsum("bhs,bshd->bhd", _softmax_valid(scores, valid),
-                       v.float())
+    out = _attend_rows(scores, valid, v.float(), mesh)
     y = out.reshape(B, -1).to(x.dtype) @ p.wo
     return y[:, None, :], cache_c, cache_kr
 
@@ -265,14 +329,21 @@ def mla_decode(p: MLA, cfg, x, cache_c, cache_kr, pos):
     H, nd, vd, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim,
                     cfg.kv_lora_rank)
     q_nope, q_rope, valid = _mla_step(p, cfg, x, cache_c, cache_kr, pos)
-    w_uk = p.w_uk.reshape(r, H, nd).float()
-    q_abs = torch.einsum("bhd,rhd->bhr", q_nope, w_uk)
+    mesh = tp.mesh_of(p.w_dkv)
+    # a sharded model: the rank's heads, then every head for its cache rows
+    q_abs, = tp.on_heads(lambda q, w: (torch.einsum("bhd,rhd->bhr", q,
+                                                    w.float()),), H,
+                         (q_nope, tp.split_heads(p.w_uk, H, nd)),
+                         in_dims=(1, 1), out_dims=(1,))
     cf = cache_c.float()
-    scores = (torch.einsum("bhr,bsr->bhs", q_abs, cf)
-              + torch.einsum("bhd,bsd->bhs", q_rope, cache_kr.float())
-              ) * _mla_scale(cfg)
-    out_c = torch.einsum("bhs,bsr->bhr", _softmax_valid(scores, valid), cf)
-    out = torch.einsum("bhr,rhv->bhv", out_c,
-                       p.w_uv.reshape(r, H, vd).float())
+    scores = (torch.einsum("bhr,bsr->bhs", tp.full(q_abs), cf)
+              + torch.einsum("bhd,bsd->bhs", tp.full(q_rope),
+                             cache_kr.float())) * _mla_scale(cfg)
+    out_c = _attend_rows(scores, valid, cf, mesh)
+    out, = tp.on_heads(lambda o, w: (torch.einsum("bhr,rhv->bhv", o,
+                                                  w.float()),), H,
+                       (tp.replicated_like(out_c, mesh),
+                        tp.split_heads(p.w_uv, H, vd)),
+                       in_dims=(1, 1), out_dims=(1,))
     y = out.reshape(B, -1).to(x.dtype) @ p.wo
     return y[:, None, :], cache_c, cache_kr

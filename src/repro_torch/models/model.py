@@ -30,6 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ATTN_DENSE
+from repro_torch.distributed import tp
+from repro_torch.distributed.sharding import constrain
 from . import transformer as tfm
 from .attention import cross_kv
 from .layers import RMSNorm, dense_init_, dtype_of, param, rmsnorm
@@ -55,6 +57,18 @@ class LM(nn.Module):
         if cfg.is_encoder_decoder:
             self.encoder = tfm.stack_init(enc_cfg(cfg), device)
             self.enc_norm = RMSNorm(cfg.d_model, dt, device)
+
+    def forward(self, cfg, batch, long_mode=False):
+        """`forward`'s body, run through the module call so that FSDP's
+        hooks (`launch.shardings.shard_lm`) see it."""
+        x, positions, enc_out = embed_inputs(self, cfg, batch)
+        x = constrain(x, ("batch", "seq", "embed"))
+        x, aux = tfm.stack_full(self.blocks, cfg, x, positions,
+                                shared=getattr(self, "shared", None),
+                                long_mode=long_mode, enc_out=enc_out)
+        x = tp.replicate(rmsnorm(self.final_norm, x))
+        logits = (x @ self.lm_head).float()
+        return constrain(logits, ("batch", "seq", "vocab")), aux
 
 
 def enc_cfg(cfg):
@@ -95,7 +109,7 @@ def encode(lm: LM, cfg, frames):
     x = frames @ lm.frontend_proj
     x, _ = tfm.stack_full(lm.encoder, enc_cfg(cfg), x, _positions(x),
                           causal=False)
-    return rmsnorm(lm.enc_norm, x)
+    return tp.replicate(rmsnorm(lm.enc_norm, x))
 
 
 def embed_inputs(lm: LM, cfg, batch):
@@ -103,7 +117,7 @@ def embed_inputs(lm: LM, cfg, batch):
     patches prepended for a vision model; positions over the whole
     sequence; the encoder's output for an encoder-decoder (else None).
     Patches and frames are cast to the model's dtype first."""
-    x = lm.embed[batch["tokens"]]
+    x = tp.embed(lm.embed, batch["tokens"])
     enc_out = None
     if cfg.frontend == "vision" and "patches" in batch:
         pe = batch["patches"].to(x.dtype) @ lm.frontend_proj
@@ -119,14 +133,10 @@ def forward(lm: LM, cfg, batch, long_mode=False):
     needs them).  Returns (logits (B, P + S, vocab) f32, aux): P patch
     positions first for a vision batch; aux sums the MoE layers' balance
     losses (0 without MoE).  ``long_mode`` gives the hybrid's shared block
-    its sliding window."""
-    x, positions, enc_out = embed_inputs(lm, cfg, batch)
-    x, aux = tfm.stack_full(lm.blocks, cfg, x, positions,
-                            shared=getattr(lm, "shared", None),
-                            long_mode=long_mode, enc_out=enc_out)
-    x = rmsnorm(lm.final_norm, x)
-    logits = (x @ lm.lm_head).float()
-    return logits, aux
+    its sliding window.  On a sharded model (`launch.shardings.shard_lm`)
+    the logits are a DTensor, vocabulary-sharded over "model" where the
+    vocabulary divides, as the reference constrains them."""
+    return lm(cfg, batch, long_mode=long_mode)
 
 
 def loss_fn(lm: LM, cfg, batch, aux_weight=0.01):
@@ -140,12 +150,58 @@ def loss_fn(lm: LM, cfg, batch, aux_weight=0.01):
         pad = labels.new_full(batch["patches"].shape[:2], -1)
         labels = torch.cat([pad, labels], dim=1)
     valid = labels >= 0
-    logp = F.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     n = valid.sum().clamp_min(1)
-    loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / n
+    shard = tp.is_dt(logits) and logits.placements[0].is_shard()
+    if shard and logits.placements[0].dim == logits.ndim - 1:
+        loss = _nll_sum_sharded(logits, labels, valid) / n
+    elif shard and logits.placements[0].dim == 1:
+        loss = _nll_sum_seq_sharded(logits, labels, valid) / n
+    else:       # plain, or a replicated DTensor
+        logp = F.log_softmax(tp.local(tp.replicate(logits)), dim=-1)
+        nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        loss = torch.where(valid, nll, torch.zeros_like(nll)).sum() / n
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux_loss": aux, "tokens": n.float()}
+
+
+def _nll_sum_sharded(logits, labels, valid):
+    """The summed next-token NLL of a sharded model's vocabulary-sharded
+    logits (a DTensor on the "model" sub-mesh): each rank's max, sum of
+    exponentials and label logit over its own columns, reduced over the
+    ranks (`distributed.comm`'s replicated-result gradients), so no rank
+    holds more than its own (N, V / m) f32 block and one temporary of its
+    shape.  The loss is a plain tensor, the same on every rank."""
+    lg = logits.to_local()
+    from repro_torch.distributed import comm
+    mesh = logits.device_mesh
+    group = mesh.get_group()
+    v0 = mesh.get_local_rank() * lg.shape[-1]
+    m = comm.all_reduce_max(lg.amax(-1), group)
+    lse = m + comm.all_reduce_sum(torch.exp(lg - m[..., None]).sum(-1),
+                                  group).log()
+    lo = labels.long() - v0
+    own = (lo >= 0) & (lo < lg.shape[-1])
+    picked = lg.gather(-1, lo.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+    picked = comm.all_reduce_sum(torch.where(own, picked,
+                                             torch.zeros_like(picked)), group)
+    return torch.where(valid, lse - picked, torch.zeros_like(lse)).sum()
+
+
+def _nll_sum_seq_sharded(logits, labels, valid):
+    """The summed NLL of sequence-sharded logits (the rule table's "seq" on
+    "model": each rank the whole vocabulary of its own positions): each
+    rank sums its rows, the ranks' sums are added (a plain tensor, the
+    same on every rank)."""
+    from repro_torch.distributed import comm
+    mesh = logits.device_mesh
+    lg = logits.to_local()
+    r, sl = mesh.get_local_rank(), lg.shape[1]
+    lab = labels[:, r * sl:(r + 1) * sl]
+    ok = valid[:, r * sl:(r + 1) * sl]
+    nll = -F.log_softmax(lg, dim=-1).gather(
+        -1, lab.clamp_min(0)[..., None])[..., 0]
+    return comm.all_reduce_sum(
+        torch.where(ok, nll, torch.zeros_like(nll)).sum(), mesh.get_group())
 
 
 def prefill(lm: LM, cfg, batch):
@@ -182,11 +238,15 @@ def decode_step(lm: LM, cfg, caches, token, pos, feed=None, enc_out=None):
     (B,) bool, when given, the slots whose recurrent (SSM) state this step
     advances; ``enc_out`` (B, Se, D), the encoder output that cross
     attention projects anew where the caches hold no cross K / V.
-    Returns (logits (B, vocab) f32, caches updated in place)."""
-    x = lm.embed[token]
-    x, caches = tfm.stack_decode(lm.blocks, cfg, caches, x, pos, feed=feed,
-                                 shared=getattr(lm, "shared", None),
-                                 enc_out=enc_out)
-    x = rmsnorm(lm.final_norm, x)
-    logits = (x @ lm.lm_head).float()
+    Returns (logits (B, vocab) f32, caches updated in place).  On a
+    sharded model the caches are this rank's shards (`launch.shardings.
+    cache_placements`) and the logits a DTensor."""
+    with tp.unsharded(lm):
+        x = tp.embed(lm.embed, token)
+        x, caches = tfm.stack_decode(lm.blocks, cfg, caches, x, pos,
+                                     feed=feed,
+                                     shared=getattr(lm, "shared", None),
+                                     enc_out=enc_out)
+        x = rmsnorm(lm.final_norm, x)
+        logits = (x @ lm.lm_head).float()
     return logits[:, 0], caches

@@ -29,8 +29,18 @@ the capacity of its LOCAL token count, lays the dispatch buffer out as
 all-to-all over the "model" sub-group, runs its experts over the rows of
 all m sources (grouped by source), and sends them back the same way.
 Every rank then gathers the output blocks into the full (B, S, D); aux is
-averaged over the mesh.  Forward only (serving): the collectives have no
-gradient here.
+averaged over the mesh: the mean of the ranks' Switch losses, each over
+its own block (not the Switch loss of the whole batch).  Differentiable:
+the collectives carry their gradients (`distributed.comm`), to the input
+tokens, the router and the rank's expert block.
+
+On a sharded model (`launch.shardings.shard_lm`) the input is a DTensor
+on the "model" sub-mesh (a data rank's own batch) and the experts a
+``Shard(0)`` DTensor over it after FSDP's all-gather: the layer takes its
+local expert block explicitly (`_moe_tp`) and runs the same path over the
+"model" ranks alone, the sequence split over them; without expert
+parallelism each rank runs its own experts over their slots of the whole
+layer's dispatch (`_moe_expert_sharded`), a ``Partial`` sum.
 
 ``moe_ffn.dropped`` / ``moe_ffn.routed`` count the (token, choice) slots
 dropped at capacity and routed, summed over calls (device tensors, reset
@@ -44,7 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed import comm
+from repro_torch.distributed import comm, tp
 from repro_torch.launch.mesh import axis_size, mesh_group
 
 from .layers import MLP, dense_init_, dtype_of, mlp, param
@@ -104,7 +114,9 @@ def dispatch_indices(flat_e, E: int, C: int):
     N = flat_e.shape[0]
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    # a fixed-size count (not ``bincount``, whose size is the data's)
+    counts = flat_e.new_zeros(E).scatter_add_(0, flat_e,
+                                              torch.ones_like(flat_e))
     offsets = torch.cumsum(counts, 0) - counts
     rank = torch.arange(N, device=flat_e.device) - offsets[se]
     keep_sorted = rank < C
@@ -151,16 +163,18 @@ def moe_local(p: MoE, cfg, tokens, C: int):
     return _combine(cfg, tokens, out, slot, keep, gates), aux
 
 
-def _combine(cfg, tokens, out, slot, keep, gates):
+def _combine(cfg, tokens, out, slot, keep, gates, count=True):
     """Expert outputs (E C, D) back to (T, D): each (token, choice) row
-    times its gate (0 when dropped), summed over the k choices."""
+    times its gate (0 when dropped), summed over the k choices; ``count``
+    adds the drops to `moe_ffn`'s counters."""
     T, D = tokens.shape
     k = cfg.experts_top_k
     flat_out = torch.cat([out, out.new_zeros((1, D))], 0)
     w = (gates.reshape(-1, 1) * keep[:, None]).to(out.dtype)
     y = (flat_out[slot] * w).to(tokens.dtype).reshape(T, k, D).sum(1)
-    moe_ffn.dropped = moe_ffn.dropped + (~keep).sum()
-    moe_ffn.routed = moe_ffn.routed + T * k
+    if count:
+        moe_ffn.dropped = moe_ffn.dropped + (~keep).sum()
+        moe_ffn.routed = moe_ffn.routed + T * k
     return y
 
 
@@ -225,11 +239,86 @@ def moe_shard_map(p: MoE, cfg, x, mesh):
     return y.reshape(x.shape), aux
 
 
+def _moe_tp(p: MoE, cfg, x):
+    """`moe_ffn`'s routed experts on a sharded model: x a DTensor on the
+    "model" sub-mesh, replicated over it; the experts ``Shard(0)`` over it
+    where the axis divides E.  Expert-parallel: each rank its own block of
+    the sequence and of the experts (`moe_shard_map`).  Else (or where the
+    ranks do not divide the sequence: a decode step's one token) each rank
+    routes all the tokens, the same on every rank, and runs its own
+    experts over their slots only (`_moe_expert_sharded`); with the
+    experts whole on every rank, the whole layer.  The router's and the
+    input's gradients are a ``Partial`` sum over the ranks wherever each
+    rank's share differs."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = x.device_mesh
+    B, S, D = x.shape
+    part = [Partial()]
+    if not p.w_gate.placements[0].is_shard():        # experts whole
+        router = tp.data_gathered(p.router)
+        lp = SimpleNamespace(router=tp.local(p.router) if router is None
+                             else router, **{n: tp.local(getattr(p, n))
+                                               for n in _EXPERT_LEAVES})
+        tokens = x.to_local().reshape(-1, D)
+        C = capacity(tokens.shape[0], cfg.experts_top_k, cfg.n_experts,
+                     cfg.capacity_factor)
+        y, aux = moe_local(lp, cfg, tokens, C)
+        return DTensor.from_local(y.reshape(B, S, D), mesh,
+                                  [Replicate()]), aux
+    router = tp.data_gathered(p.router, partial_over_model=True)
+    if router is None:
+        router = p.router.to_local(grad_placements=part)
+    lp = SimpleNamespace(router=router, **{n: getattr(p, n).to_local()
+                                           for n in _EXPERT_LEAVES})
+    xl = x.to_local(grad_placements=part)
+    # aux stays a plain tensor (the same on every rank): a plain tensor
+    # that needs a gradient must never meet a DTensor, whose implicit
+    # replication would hand it back a DTensor gradient
+    if expert_parallel(cfg, mesh) and S % mesh.size() == 0:
+        y, aux = moe_shard_map(lp, cfg, xl, mesh)
+        return DTensor.from_local(y, mesh, [Replicate()]), aux
+    y, aux = _moe_expert_sharded(lp, cfg, xl.reshape(-1, D), mesh)
+    return DTensor.from_local(y.reshape(B, S, D), mesh, part), aux
+
+
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _moe_expert_sharded(p, cfg, tokens, mesh):
+    """Routed experts with the tokens (T, D) on every rank and rank r
+    holding experts [r E_l, (r + 1) E_l): the routing and the capacity are
+    the whole layer's (every rank the same), the dispatch buffer holds
+    this rank's experts' slots only, and y (T, D) is this rank's experts'
+    share, which the ranks' ``Partial`` sum completes.  aux is computed
+    on every rank; its gradient is shared out over the ranks (1 / m each)
+    so that the sum of their gradients counts it once."""
+    T, D = tokens.shape
+    E, k = cfg.n_experts, cfg.experts_top_k
+    m = mesh.size()
+    el = p.w_gate.shape[0]
+    C = capacity(T, k, E, cfg.capacity_factor)
+    gates, idx, aux = route(p, cfg, tokens)
+    slot, keep = dispatch_indices(idx.reshape(-1), E, C)
+    lo = mesh.get_local_rank() * el * C
+    mine = (slot >= lo) & (slot < lo + el * C)
+    ls = torch.where(mine, slot - lo, torch.full_like(slot, el * C))
+    src = tokens[:, None, :].expand(T, k, D).reshape(T * k, D)
+    buf = tokens.new_zeros((el * C + 1, D)).index_put((ls,), src)
+    out = expert_mm(p, buf[:el * C].reshape(el, C, D)).reshape(el * C, D)
+    y = _combine(cfg, tokens, out, ls, keep & mine, gates, count=False)
+    moe_ffn.dropped = moe_ffn.dropped + (~keep).sum()
+    moe_ffn.routed = moe_ffn.routed + T * k
+    return y, aux.detach() + (aux - aux.detach()) / m
+
+
 def moe_ffn(p: MoE, cfg, x, mesh=None):
     """x: (B, S, D) -> (y, aux_loss), shared experts added; expert-parallel
-    over ``mesh`` where `expert_parallel` holds."""
+    over ``mesh`` where `expert_parallel` holds (over a sharded model's
+    "model" sub-mesh for a DTensor ``x``)."""
     B, S, D = x.shape
-    if expert_parallel(cfg, mesh):
+    if tp.is_dt(x):
+        y, aux = _moe_tp(p, cfg, x)
+    elif expert_parallel(cfg, mesh):
         y, aux = moe_shard_map(p, cfg, x, mesh)
     else:
         if p.w_gate.shape[0] != cfg.n_experts:

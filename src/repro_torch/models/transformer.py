@@ -27,7 +27,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_DENSE, ATTN_MOE, MLA_MOE,
                                       SHARED_ATTN, SSM)
-from repro_torch.distributed.sharding import active_mesh
+from repro_torch.distributed import tp
+from repro_torch.distributed.sharding import active_mesh, constrain
 
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -38,7 +39,16 @@ from .layers import MLP, RMSNorm, dtype_of, mlp, rmsnorm
 PORTED_SPECS = (ATTN_DENSE, ATTN_MOE, MLA_MOE, SSM, SHARED_ATTN)
 
 
-class Block(nn.Module):
+class _Layer(nn.Module):
+    """A layer of the stack: its full-sequence pass runs through the module
+    call (`_apply_full`), so FSDP's hooks (`launch.shardings.shard_lm`)
+    see it."""
+
+    def forward(self, *args):
+        return _apply_full(self, *args)
+
+
+class Block(_Layer):
     """One pre-norm attention (GQA or MLA) layer with a SwiGLU or MoE FFN;
     with ``cross`` (an encoder-decoder's decoder layer) also a pre-norm
     cross attention between them."""
@@ -65,7 +75,7 @@ class Block(nn.Module):
         (self.moe if hasattr(self, "moe") else self.mlp).init_(generator)
 
 
-class SSMBlock(nn.Module):
+class SSMBlock(_Layer):
     """One pre-norm Mamba-2 mixer with no FFN (spec ``("ssm", "none")``)."""
 
     def __init__(self, cfg, device):
@@ -94,7 +104,7 @@ class SharedBlock(nn.Module):
         self.mlp.init_(generator)
 
 
-class SharedSlot(nn.Module):
+class SharedSlot(_Layer):
     """A slot of the shared block: no weights of its own."""
 
     def init_(self, generator):
@@ -132,35 +142,52 @@ def stack_init(cfg, device, cross=False) -> nn.ModuleList:
     return nn.ModuleList(one(spec) for spec in layer_specs(cfg))
 
 
+def _norm(p, x):
+    """A block's normed input, whole over the sequence: with the rule
+    table's "seq" on "model" (the dry-run's ``--seq-parallel``) the
+    residual stream is sequence-sharded and each block gathers its input
+    here, as Megatron's sequence parallelism does (a no-op otherwise)."""
+    return tp.replicate(rmsnorm(p, x))
+
+
 def _ffn(blk, cfg, x):
     """The FFN half of a `Block`: (x + ffn(norm2 x), aux)."""
-    h = rmsnorm(blk.norm2, x)
+    h = _norm(blk.norm2, x)
     if hasattr(blk, "moe"):
         y, aux = moe_mod.moe_ffn(blk.moe, cfg, h, mesh=active_mesh())
-        return x + y, aux
-    return x + mlp(blk.mlp, h), None
+        return x + tp.grad_whole(y), aux
+    return x + tp.grad_whole(mlp(blk.mlp, h)), None
 
 
 def _apply_full(blk, cfg, x, positions, shared, long_mode, enc_out=None,
                 causal=True):
-    """One layer over a full sequence; returns (x, aux or None)."""
+    """One layer over a full sequence; returns (x, aux or None), x laid
+    out by the rule table (``constrain``: a sharded model's row-parallel
+    outputs summed over "model")."""
     if isinstance(blk, SSMBlock):
-        return x + ssm_mod.ssm_full(blk.ssm, cfg, rmsnorm(blk.norm1, x)), None
+        x = x + tp.grad_whole(ssm_mod.ssm_full(blk.ssm, cfg,
+                                               _norm(blk.norm1, x)))
+        return constrain(x, ("batch", "seq", "embed")), None
     if isinstance(blk, SharedSlot):
         w = cfg.shared_attn_window if long_mode else 0
-        x = x + gqa_full(shared.attn, cfg, rmsnorm(shared.norm1, x),
-                         positions, causal=True, window=w)
-        return x + mlp(shared.mlp, rmsnorm(shared.norm2, x)), None
-    h = rmsnorm(blk.norm1, x)
+        x = constrain(x + tp.grad_whole(gqa_full(
+            shared.attn, cfg, _norm(shared.norm1, x), positions,
+            causal=True, window=w)), ("batch", "seq", "embed"))
+        x = x + tp.grad_whole(mlp(shared.mlp, _norm(shared.norm2, x)))
+        return constrain(x, ("batch", "seq", "embed")), None
+    h = _norm(blk.norm1, x)
     if isinstance(blk.attn, MLA):
-        x = x + mla_full(blk.attn, cfg, h, positions)
+        y = mla_full(blk.attn, cfg, h, positions)
     else:
-        x = x + gqa_full(blk.attn, cfg, h, positions, causal=causal,
-                         window=cfg.sliding_window)
+        y = gqa_full(blk.attn, cfg, h, positions, causal=causal,
+                     window=cfg.sliding_window)
+    x = constrain(x + tp.grad_whole(y), ("batch", "seq", "embed"))
     if enc_out is not None and hasattr(blk, "cross"):
-        x = x + gqa_full(blk.cross, cfg, rmsnorm(blk.norm_cross, x),
-                         positions, window=0, kv_x=enc_out)
-    return _ffn(blk, cfg, x)
+        y = gqa_full(blk.cross, cfg, _norm(blk.norm_cross, x), positions,
+                     window=0, kv_x=enc_out)
+        x = constrain(x + tp.grad_whole(y), ("batch", "seq", "embed"))
+    x, aux = _ffn(blk, cfg, x)
+    return constrain(x, ("batch", "seq", "embed")), aux
 
 
 def stack_full(blocks, cfg, x, positions, shared=None, long_mode=False,
@@ -169,23 +196,43 @@ def stack_full(blocks, cfg, x, positions, shared=None, long_mode=False,
     encoder).  Returns (x, aux): aux sums the MoE layers' balance losses
     (an f32 zero without MoE).  With ``cfg.remat`` and gradients on, each
     layer is recomputed in the backward pass (`torch.utils.checkpoint`),
-    as the reference checkpoints each scanned group.  ``long_mode`` gives
+    as the reference checkpoints each scanned group: all of it with
+    ``cfg.remat_policy`` "full", all but the matrix products without batch
+    dims with "dots" (`dots_policy`).  Each layer runs through its module
+    call (FSDP's hooks).  ``long_mode`` gives
     the shared block its sliding window ``cfg.shared_attn_window``;
     ``enc_out`` (B, Se, D) feeds the decoder layers' cross attention;
     ``causal=False`` is the encoder's bidirectional self-attention."""
     remat = cfg.remat and torch.is_grad_enabled()
+    kw = {}
+    if remat and cfg.remat_policy == "dots":
+        kw["context_fn"] = dots_context
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in blocks:
         if remat:
-            x, a = checkpoint(_apply_full, blk, cfg, x, positions, shared,
-                              long_mode, enc_out, causal,
-                              use_reentrant=False)
+            x, a = checkpoint(blk, cfg, x, positions, shared, long_mode,
+                              enc_out, causal, use_reentrant=False, **kw)
         else:
-            x, a = _apply_full(blk, cfg, x, positions, shared, long_mode,
-                               enc_out, causal)
+            x, a = blk(cfg, x, positions, shared, long_mode, enc_out, causal)
         if a is not None:
             aux = aux + a
     return x, aux
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: the outputs of
+    matrix products without batch dims (``mm`` / ``addmm``: a weight
+    product) are saved, everything else (``bmm``, the attention and SSD
+    kernels, the pointwise ops) is recomputed in the backward pass."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(dots_policy)
 
 
 def caches_init(cfg, batch, cache_len, device, long_mode=False,
@@ -244,37 +291,45 @@ def stack_decode(blocks, cfg, caches, x, pos, feed=None, shared=None,
     K / V where the cache holds them, else to ``enc_out`` (projected anew
     each step), else not at all, as the reference's decode."""
     for blk, cache in zip(blocks, caches):
-        if isinstance(blk, SSMBlock):
-            h, new = ssm_mod.ssm_decode(blk.ssm, cfg, rmsnorm(blk.norm1, x),
-                                        cache)
-            for key, t in new.items():
-                if feed is not None:
-                    keep = feed.view(-1, *([1] * (t.ndim - 1)))
-                    t = torch.where(keep, t.to(cache[key].dtype), cache[key])
-                cache[key].copy_(t)
-            x = x + h
-            continue
-        if isinstance(blk, SharedSlot):
-            x = x + _attn_decode(shared.attn, cfg, rmsnorm(shared.norm1, x),
-                                 cache, pos, cfg.shared_attn_window)
-            x = x + mlp(shared.mlp, rmsnorm(shared.norm2, x))
-            continue
-        h = rmsnorm(blk.norm1, x)
-        if isinstance(blk.attn, MLA):
-            y, cache["c"], cache["kr"] = mla_decode(blk.attn, cfg, h,
-                                                    cache["c"], cache["kr"],
-                                                    pos)
-            x = x + y
-        else:
-            x = x + _attn_decode(blk.attn, cfg, h, cache, pos,
-                                 cfg.sliding_window)
-        if hasattr(blk, "cross") and ("ck" in cache or enc_out is not None):
-            xin = rmsnorm(blk.norm_cross, x)
-            if "ck" in cache:
-                x = x + gqa_cross_decode(blk.cross, cfg, xin, cache["ck"],
-                                         cache["cv"])
-            else:
-                x = x + gqa_full(blk.cross, cfg, xin, None, window=0,
-                                 kv_x=enc_out)
-        x = _ffn(blk, cfg, x)[0]
+        with tp.unsharded(blk):
+            x = _decode_one(blk, cfg, cache, x, pos, feed, shared, enc_out)
     return x, caches
+
+
+def _decode_one(blk, cfg, cache, x, pos, feed, shared, enc_out):
+    """One layer of `stack_decode`; returns x (laid out by the rule table,
+    as `_apply_full`'s)."""
+    emb = ("batch", "seq", "embed")
+    if isinstance(blk, SSMBlock):
+        h, new = ssm_mod.ssm_decode(blk.ssm, cfg, rmsnorm(blk.norm1, x),
+                                    cache)
+        for key, t in new.items():
+            if feed is not None:
+                keep = feed.view(-1, *([1] * (t.ndim - 1)))
+                t = torch.where(keep, t.to(cache[key].dtype), cache[key])
+            cache[key].copy_(t)
+        return constrain(x + h, emb)
+    if isinstance(blk, SharedSlot):
+        x = constrain(x + _attn_decode(shared.attn, cfg,
+                                       rmsnorm(shared.norm1, x), cache, pos,
+                                       cfg.shared_attn_window), emb)
+        return constrain(x + mlp(shared.mlp, rmsnorm(shared.norm2, x)), emb)
+    h = rmsnorm(blk.norm1, x)
+    if isinstance(blk.attn, MLA):
+        y, cache["c"], cache["kr"] = mla_decode(blk.attn, cfg, h, cache["c"],
+                                                cache["kr"], pos)
+        x = x + y
+    else:
+        x = x + _attn_decode(blk.attn, cfg, h, cache, pos,
+                             cfg.sliding_window)
+    x = constrain(x, emb)
+    if hasattr(blk, "cross") and ("ck" in cache or enc_out is not None):
+        xin = rmsnorm(blk.norm_cross, x)
+        if "ck" in cache:
+            x = x + gqa_cross_decode(blk.cross, cfg, xin, cache["ck"],
+                                     cache["cv"])
+        else:
+            x = x + gqa_full(blk.cross, cfg, xin, None, window=0,
+                             kv_x=enc_out)
+        x = constrain(x, emb)
+    return constrain(_ffn(blk, cfg, x)[0], emb)

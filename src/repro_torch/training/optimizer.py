@@ -5,7 +5,13 @@ torch tensors, not `torch.optim.AdamW`.
 Parameters and gradients are ``{name: tensor}`` dictionaries (e.g.
 ``dict(lm.named_parameters())``).  Where the reference returns new trees,
 `update` writes the new parameters and optimizer state in place, which
-saves a copy of every f32 buffer per step."""
+saves a copy of every f32 buffer per step.
+
+On a sharded model (`launch.shardings.shard_lm`) the parameters, their
+gradients and the state are DTensors of matching placements: `update`
+runs the same multi-tensor ops on their local shards (every op is
+elementwise), and `global_norm` sums each tensor's whole square (its
+``Partial`` sum all-reduced)."""
 from __future__ import annotations
 
 import math
@@ -53,8 +59,16 @@ def init(params: Tensors) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def global_norm(tensors: Tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+    return torch.sqrt(sum(_whole(torch.sum(torch.square(t.float())))
                           for t in tensors.values()))
 
 
@@ -79,9 +93,9 @@ def update(opt: OptConfig, grads: Tensors, state: dict,
     dev = next(iter(params.values())).device
     scale, lr, bc1, bc2 = (t.to(dev) for t in (scale, lr, bc1, bc2))
     names = list(params)
-    m, v, master = ([state[k][n] for n in names] for k in ("m", "v",
-                                                           "master"))
-    g = torch._foreach_mul([grads[n].float() for n in names], scale)
+    m, v, master = ([_local(state[k][n]) for n in names]
+                    for k in ("m", "v", "master"))
+    g = torch._foreach_mul([_local(grads[n]).float() for n in names], scale)
     # m = b1 m + (1 - b1) g;  v = b2 v + ((1 - b2) g) g
     torch._foreach_mul_(m, opt.b1)
     torch._foreach_add_(m, torch._foreach_mul(g, 1 - opt.b1))
@@ -94,5 +108,5 @@ def update(opt: OptConfig, grads: Tensors, state: dict,
     upd = torch._foreach_div(torch._foreach_div(m, bc1), den)
     torch._foreach_add_(upd, torch._foreach_mul(master, opt.weight_decay))
     torch._foreach_sub_(master, torch._foreach_mul(upd, lr))
-    torch._foreach_copy_([params[n] for n in names], master)
+    torch._foreach_copy_([_local(params[n]) for n in names], master)
     return {"grad_norm": gnorm, "lr": lr}

@@ -1,6 +1,12 @@
 """The training step of the port (mirrors `repro.training.train_step`):
-loss, backward, AdamW update."""
+loss, backward, AdamW update.  The same step trains a sharded model
+(`launch.shardings.shard_lm`): its forward and backward run in the
+model's sharding context, the gradients FSDP leaves replicated are
+averaged over the data ranks, and the metrics come back replicated (the
+loss averaged over the data ranks' batches, the tokens summed)."""
 from __future__ import annotations
+
+import contextlib
 
 from repro_torch.models import model as M
 from . import optimizer as opt_mod
@@ -16,12 +22,20 @@ def make_train_step(cfg, opt_cfg: opt_mod.OptConfig):
         for p in params.values():
             p.requires_grad_(True)
             p.grad = None
-        total, metrics = M.loss_fn(lm, cfg, batch)
-        total.backward()
+        sh = getattr(lm, "sharding", None)
+        with sh.context() if sh else contextlib.nullcontext():
+            total, metrics = M.loss_fn(lm, cfg, batch)
+            total.backward()
+        if sh:
+            sh.sync_grads(lm)
         grads = {n: p.grad for n, p in params.items()}
         opt_metrics = opt_mod.update(opt_cfg, grads, opt_state, params)
         for p in params.values():
             p.grad = None
+        if sh:
+            metrics = {k: sh.metric(v, "sum" if k == "tokens" else "mean")
+                       for k, v in metrics.items()}
+            return dict(metrics, **opt_metrics, total_loss=sh.metric(total))
         metrics = {k: v.detach() for k, v in metrics.items()}
         return dict(metrics, **opt_metrics, total_loss=total.detach())
     return train_step

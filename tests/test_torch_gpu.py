@@ -191,6 +191,31 @@ def test_gpu_decode_kernel_matches_plain(dtype, hd, ring, tol, S, pos, seed):
     assert (out[pos < 0] == 0).all()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hd,ring,S,pos,seed", [
+    (torch.bfloat16, 128, False, 100, [0, 99, 99, 37], 128),
+    (torch.bfloat16, 80, True, 100, [0, 99, 150, 37], 80),
+    (torch.float32, 64, False, 300, [-1, 127, 128, 299], 364),
+    (torch.float32, 80, True, 300, [-1, 64, 300, 1000], 380),
+])
+def test_gpu_decode_lse_matches_plain(dtype, hd, ring, S, pos, seed):
+    """``return_lse``'s log-sum-exp (from the split kernel's (max, sum)
+    scratch, what the sequence-sharded decode merges by) against the plain
+    one, -inf for a slot with no valid key; the output unchanged."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_lse
+    _need_cuda()
+    q, ck, cv = (torch.from_numpy(x).cuda().to(dtype)
+                 for x in _decode_data(4, S, 32, 8, hd, seed))
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    out, lse = decode_attention(q, ck, cv, pos, ring=ring, return_lse=True)
+    assert torch.equal(out, decode_attention(q, ck, cv, pos, ring=ring))
+    ref = decode_attention_lse(q.float(), ck.float(), pos, ring=ring)
+    empty = torch.isinf(ref)
+    assert torch.equal(torch.isinf(lse), empty) and (lse[empty] < 0).all()
+    assert empty.any() == bool((pos < 0).any())
+    torch.testing.assert_close(lse[~empty], ref[~empty], rtol=0, atol=1e-4)
+
+
 def _ivf_index(pq, nbits=8, N=6000, D=128, seed=0):
     rng = np.random.default_rng(seed)
     centers = rng.normal(size=(16, D)) * 3

@@ -90,6 +90,10 @@ def test_port_imports_without_jax():
             "import repro_torch.distributed.comm\n"
             "import repro_torch.launch.cost_analysis\n"
             "import repro_torch.launch.knn_dryrun\n"
+            "import repro_torch.distributed.tp\n"
+            "import repro_torch.launch.shardings, repro_torch.launch.steps\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+            "import repro_torch.kernels.fake\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\n"
