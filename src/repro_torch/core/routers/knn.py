@@ -77,6 +77,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.distributed import comm
 from repro_torch.kernels.knn_ivf.ops import (DEFAULT_DELTA_CAP,
                                              DEFAULT_NPROBE, DEFAULT_RERANK,
@@ -422,6 +423,7 @@ class KNNRouter(Router):
             buf = new
         if lo < n:
             buf[lo:n] = torch.from_numpy(host[lo:n]).to(self.device)
+            tracing.count(tracing.HOST_SYNCS)
         self._dev[name] = (buf, max(lo, n))
 
     def _dev_rows(self, name: str, host: np.ndarray) -> torch.Tensor:
@@ -569,6 +571,7 @@ class KNNRouter(Router):
         if self._dev.get("avail_key") != key:
             self._dev["avail"] = torch.from_numpy(a).to(self.device)
             self._dev["avail_key"] = key
+            tracing.count(tracing.HOST_SYNCS)
         return self._dev["avail"]
 
     @torch.no_grad()
@@ -581,22 +584,31 @@ class KNNRouter(Router):
         backend `resolve_backend` picks for the batch.  ``qmesh`` shards
         the batch over its ranks (`_serve_sharded`), bitwise equal to the
         unsharded route."""
-        q = self._queries(X)
-        # repro: allow-host: lambdas arrive as host request metadata
-        lam_t = torch.from_numpy(np.asarray(lam, np.float32).reshape(-1)).to(
-            self.device)
-        av = self._avail_dev(avail)
-        if qmesh is not None:
-            out = self._serve_sharded(qmesh, q, lam_t, av)
-            # repro: allow-host: the single end-of-batch materialization
-            return tuple(o.cpu().numpy() for o in out)
-        sims, idx = self._search(q, self.resolve_backend(len(q)))
-        # read after the search: the support covers every id it returned
-        S, C = self._support_dev()
-        out = _serve_tail(sims, idx, S, C, lam_t, av, weights=self.weights,
-                          temperature=float(self.temperature))
-        # repro: allow-host: the single end-of-batch materialization
-        return tuple(o.cpu().numpy() for o in out)
+        with tracing.span("router.serve"):
+            # repro: allow-host: lambdas arrive as host request metadata
+            lam_t = torch.from_numpy(np.asarray(lam, np.float32).reshape(-1)).to(
+                self.device)
+            tracing.count(tracing.HOST_SYNCS)
+            with tracing.span("router.search"):
+                q = self._queries(X)
+                tracing.count(tracing.HOST_SYNCS)
+                av = self._avail_dev(avail)
+                if qmesh is None:
+                    sims, idx = self._search(q, self.resolve_backend(len(q)))
+            if qmesh is not None:
+                out = self._serve_sharded(qmesh, q, lam_t, av)
+            else:
+                with tracing.span("router.tail"):
+                    # read after the search: the support covers every id
+                    # it returned
+                    S, C = self._support_dev()
+                    out = _serve_tail(sims, idx, S, C, lam_t, av,
+                                      weights=self.weights,
+                                      temperature=float(self.temperature))
+            with tracing.span("router.d2h"):
+                tracing.count(tracing.HOST_SYNCS, len(out))
+                # repro: allow-host: the single end-of-batch materialization
+                return tuple(o.cpu().numpy() for o in out)
 
     def _serve_sharded(self, qmesh, q, lam, avail):
         """The fused route with the batch sharded over ``qmesh``: the batch

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import tracing
+
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -74,6 +76,7 @@ def apply_rope(x, positions, theta: float):
     layout: the first and second halves of Dh form the rotated pairs."""
     inv_freq = torch.from_numpy(rope_frequencies(x.shape[-1], theta)).to(
         x.device)
+    tracing.count(tracing.HOST_SYNCS)       # a pageable copy: it waits
     ang = positions[..., None].float() * inv_freq
     sin = torch.sin(ang)[..., None, :]
     cos = torch.cos(ang)[..., None, :]

@@ -15,6 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ATTN_DENSE, ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
@@ -63,14 +64,22 @@ class QueryEncoder:
 
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
         """Embeds ``_CHUNK`` texts per encoder call; returns host numpy."""
-        toks = np.stack([hash_tokenize(t) for t in texts])
-        parts = []
-        for i in range(0, len(toks), _CHUNK):
-            t = torch.from_numpy(toks[i:i + _CHUNK]).to(self.device)
-            parts.append(self.embed_tokens(t.long()).cpu().numpy())
-        emb = np.concatenate(parts)
-        emb /= np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-9)
-        return emb.astype(np.float32)
+        with tracing.span("encoder.embed"):
+            with tracing.span("encoder.tokenize"):
+                toks = np.stack([hash_tokenize(t) for t in texts])
+            parts = []
+            for i in range(0, len(toks), _CHUNK):
+                with tracing.span("encoder.forward"):
+                    t = torch.from_numpy(toks[i:i + _CHUNK]).to(self.device)
+                    tracing.count(tracing.HOST_SYNCS)
+                    out = self.embed_tokens(t.long())
+                with tracing.span("encoder.d2h"):
+                    parts.append(out.cpu().numpy())
+                    tracing.count(tracing.HOST_SYNCS)
+            emb = np.concatenate(parts)
+            emb /= np.maximum(np.linalg.norm(emb, axis=1, keepdims=True),
+                              1e-9)
+            return emb.astype(np.float32)
 
 
 @lru_cache(maxsize=None)

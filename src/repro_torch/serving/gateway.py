@@ -34,6 +34,8 @@ Endpoints::
     GET  /health                200 all breakers closed / 503 degraded
     GET  /health/live           200 while the event loop serves
     GET  /stats                 RouterService.stats() + gateway counters
+                                + `tracing.summary()` (spans and counters
+                                recorded while tracing is on)
 
 Failure mapping: `Overloaded` -> 429 with ``Retry-After``; a request that
 lands in ``ExecutionReport.failed`` (attempt budget / candidate pool
@@ -78,6 +80,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from repro_torch import tracing
 from repro_torch.core.routers.spec import RouterSpec, format_spec, parse_spec
 from .faults import DegradationLadder, Overloaded
 from .router_service import RouterService, to_jsonable
@@ -725,6 +728,7 @@ class Gateway:
                 "ttft_p99_s": _percentile(ttfts, 99),
                 "ttft_window": len(ttfts),
             },
+            "tracing": tracing.summary(),
         }
         await self._send_json(writer, 200, payload)
 

@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.dataset import RoutingDataset
 from repro_torch.core.routers import (Router, RouterSpec, load_router,
                                       make_router, spec_of)
@@ -293,18 +294,19 @@ class RouterService:
         ``qmesh`` shards the batch over a mesh's ranks (every rank calls
         with the same batch; the index replicated; bitwise equal results).
         Returns (choice, s_hat, c_hat, agreement, lam_r) as numpy."""
-        # repro: allow-host: input embeddings arrive as host data
-        emb = np.atleast_2d(np.asarray(emb, np.float32))
-        lam_r = self._resolve_lam(lam, len(emb))
-        avail = self.availability_mask()
-        dg = getattr(self.router, "degraded", None)
-        ctx = (dg(self.ladder[degrade]) if degrade and callable(dg)
-               else contextlib.nullcontext())
-        with ctx:
-            choice, s_hat, c_hat, _, agree = self.router.serve_fused(
-                emb, lam_r, avail=avail, qmesh=qmesh)
-        self._check_arity(s_hat)
-        return choice, s_hat, c_hat, agree, lam_r
+        with tracing.span("service.route"):
+            # repro: allow-host: input embeddings arrive as host data
+            emb = np.atleast_2d(np.asarray(emb, np.float32))
+            lam_r = self._resolve_lam(lam, len(emb))
+            avail = self.availability_mask()
+            dg = getattr(self.router, "degraded", None)
+            ctx = (dg(self.ladder[degrade]) if degrade and callable(dg)
+                   else contextlib.nullcontext())
+            with ctx:
+                choice, s_hat, c_hat, _, agree = self.router.serve_fused(
+                    emb, lam_r, avail=avail, qmesh=qmesh)
+            self._check_arity(s_hat)
+            return choice, s_hat, c_hat, agree, lam_r
 
     def route_legacy(self, emb: np.ndarray, lam=None) -> tuple:
         """The staged chain (retrieval, then utility + confidence, then
@@ -332,33 +334,36 @@ class RouterService:
     def submit_texts(self, texts: Sequence[str], prompts_tokens=None,
                      max_new_tokens: int = 8, lam=None,
                      degrade: int = 0) -> List[RoutedResult]:
-        emb = self.encoder.embed_texts(list(texts))
-        choice, s_hat, c_hat, conf, lam_r = self.route_fused(
-            emb, lam, degrade=degrade)
-        results = []
-        for i, text in enumerate(texts):
-            mi = int(choice[i])
-            if (conf is not None and self.fallback_model
-                    and conf[i] < self.confidence_floor):
-                mi = self.model_names.index(self.fallback_model)
-            m = self.model_names[mi]
-            toks = (prompts_tokens[i] if prompts_tokens is not None
-                    else enc.hash_tokenize(text)[:16])
-            toks = np.asarray(toks, np.int32)
-            vocab = self.engines[m].cfg.vocab_size
-            req = Request(uid=self._uid, prompt_tokens=toks % vocab,
-                          max_new_tokens=max_new_tokens)
-            self._uid += 1
-            results.append(RoutedResult(
-                uid=req.uid, model=m, request=req,
-                predicted_score=float(s_hat[i, mi]),
-                predicted_cost=float(c_hat[i, mi]),
-                lam=float(lam_r[i]),
-                confidence=float(conf[i]) if conf is not None else None,
-                s_row=np.asarray(s_hat[i]).copy(),
-                c_row=np.asarray(c_hat[i]).copy(),
-                degradation=int(degrade)))
-        return results
+        with tracing.span("service.submit"):
+            emb = self.encoder.embed_texts(list(texts))
+            choice, s_hat, c_hat, conf, lam_r = self.route_fused(
+                emb, lam, degrade=degrade)
+            with tracing.span("service.results"):
+                results = []
+                for i, text in enumerate(texts):
+                    mi = int(choice[i])
+                    if (conf is not None and self.fallback_model
+                            and conf[i] < self.confidence_floor):
+                        mi = self.model_names.index(self.fallback_model)
+                    m = self.model_names[mi]
+                    toks = (prompts_tokens[i] if prompts_tokens is not None
+                            else enc.hash_tokenize(text)[:16])
+                    toks = np.asarray(toks, np.int32)
+                    vocab = self.engines[m].cfg.vocab_size
+                    req = Request(uid=self._uid, prompt_tokens=toks % vocab,
+                                  max_new_tokens=max_new_tokens)
+                    self._uid += 1
+                    results.append(RoutedResult(
+                        uid=req.uid, model=m, request=req,
+                        predicted_score=float(s_hat[i, mi]),
+                        predicted_cost=float(c_hat[i, mi]),
+                        lam=float(lam_r[i]),
+                        confidence=(float(conf[i]) if conf is not None
+                                    else None),
+                        s_row=np.asarray(s_hat[i]).copy(),
+                        c_row=np.asarray(c_hat[i]).copy(),
+                        degradation=int(degrade)))
+                return results
 
     # ---- feedback ingestion ----
     def observe(self, queries, scores, costs=None,

@@ -33,6 +33,7 @@ from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from .engine import Request, ServingEngine
 from .faults import DegradationLadder, Overloaded
 
@@ -192,20 +193,23 @@ class MicroBatcher:
         if not self._queue:
             return []
         level = self._degradation_level()
-        wave = [self._queue.popleft()
-                for _ in range(min(self.max_batch, len(self._queue)))]
-        tickets = [w[0] for w in wave]
-        texts = [w[1] for w in wave]
-        default = self.service.default_lam
-        lam_vec = np.asarray([default if w[2] is None else float(w[2])
-                              for w in wave], np.float32)
-        # only pass degrade= when the ladder engaged: level 0 keeps the
-        # call valid for any service whose submit_texts lacks the argument
-        kw = {"degrade": level} if level else {}
-        results = self.service.submit_texts(
-            texts, max_new_tokens=self.max_new_tokens, lam=lam_vec, **kw)
-        for t, res in zip(tickets, results):
-            self._results[t] = res
+        q = min(self.max_batch, len(self._queue))
+        with tracing.span("scheduler.flush", wave=self.flushes, q=q,
+                          level=level):
+            wave = [self._queue.popleft() for _ in range(q)]
+            tickets = [w[0] for w in wave]
+            texts = [w[1] for w in wave]
+            default = self.service.default_lam
+            lam_vec = np.asarray([default if w[2] is None else float(w[2])
+                                  for w in wave], np.float32)
+            # only pass degrade= when the ladder engaged: level 0 keeps the
+            # call valid for any service whose submit_texts lacks the
+            # argument
+            kw = {"degrade": level} if level else {}
+            results = self.service.submit_texts(
+                texts, max_new_tokens=self.max_new_tokens, lam=lam_vec, **kw)
+            for t, res in zip(tickets, results):
+                self._results[t] = res
         self.flushes += 1
         self.routed += len(results)
         self.last_degradation = level

@@ -20,6 +20,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch import tracing
+
 Tensors = Dict[str, torch.Tensor]
 
 
@@ -84,8 +86,9 @@ def update(opt: OptConfig, grads: Tensors, state: dict,
     per-leaf formula.  Returns {"grad_norm", "lr"}."""
     state["step"].add_(1)
     step = state["step"]
-    gnorm = global_norm(grads)
-    scale = torch.clamp(opt.clip_norm / (gnorm + 1e-9), max=1.0)
+    with tracing.span("train.clip"):
+        gnorm = global_norm(grads)
+        scale = torch.clamp(opt.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(opt, step)
     stepf = step.to(torch.float32)
     bc1 = 1 - opt.b1 ** stepf

@@ -25,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import tracing  # noqa: E402
 from repro_torch.serving.faults import FaultInjector  # noqa: E402
 from repro_torch.serving.gateway import (MODEL_PREFIX,  # noqa: E402
                                          Gateway, GatewayError, demo_gateway,
@@ -143,6 +144,36 @@ def test_health_live_models_and_stats(gw):
     assert st["gateway"]["batcher"]["flushes"] >= 1
     assert st["gateway"]["ttft_p50_s"] > 0
     assert json.loads(json.dumps(st)) == st
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_stats_carry_the_tracing_summary(gw, on):
+    """`/stats` carries `tracing.summary()`: with tracing off nothing is
+    recorded; on, a request's wave shows as a count and total ms by span
+    name, and the route's host syncs by site."""
+    tracing.disable()
+    tracing.reset()
+    if on:
+        tracing.enable()
+    try:
+        assert _chat(gw.port, max_tokens=2)[0] == 200
+        st = json.loads(_get(gw.port, "/stats")[2])["tracing"]
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert st["active"] is on
+    if not on:
+        assert st["spans"] == {} and st["counters"] == {}
+        return
+    spans = st["spans"]
+    for name in ("scheduler.flush", "service.submit", "encoder.tokenize",
+                 "router.serve", "service.results"):
+        assert spans[name]["count"] >= 1 and spans[name]["total_ms"] > 0
+    assert spans["service.submit"]["count"] == \
+        spans["scheduler.flush"]["count"]
+    syncs = st["counters"]["host_syncs"]
+    assert syncs["sites"]["router.d2h"] == 5 * spans["router.d2h"]["count"]
+    assert syncs["total"] == sum(syncs["sites"].values())
 
 
 def test_stream_sse_well_formed(gw):
