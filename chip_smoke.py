@@ -127,7 +127,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
         published widths and depth in bf16: 10 steps of batch 2 x 4,096
         (the reference's TRAIN_4K length, hd 80, window 4,096, 24 layers,
         remat), counters zeroed before and read after: the loss finite
-        and falling, kernel 2 >= 2 x 24 x 10 launches and kernel 2b (the
+        and falling, kernel 2 >= 2 x 24 x 10 launches, every one on its
+        bf16 tensor-core kernel, and kernel 2b (the
         flash backward) >= 24 x 10, no plain attention reached with a CUDA
         tensor; `--ckpt` (the reference's layout) read back through the
         port's reader, bitwise equal; one step under `torch.profiler`
@@ -145,9 +146,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      128, G 1, 5 and 12, causal, windowed and non-causal, S not a multiple
      of its tiles, f32 and bf16, with and without a KV head's query heads
      split over blocks (`kv_splits`), each against autograd through the
-     plain version and SDPA's backward; and kernels 2 and 3 at hd 112.  The
-     build line counts the tensor-core instructions of kernel 2b's dQ /
-     dK-dV kernel (HMMA.16816 in bf16, HMMA.1688 in f32) at each head dim.
+     plain version and SDPA's backward; and kernels 2 and 3 at hd 112, and
+     kernel 2 at 9a's shape and at 8 x 1,024.  The build line counts the
+     tensor-core instructions of kernel 2b's dQ / dK-dV kernel (HMMA.16816
+     in bf16, HMMA.1688 in f32) and of kernel 2's forward (HMMA in the four
+     bf16 instantiations, none in the four f32 ones) at each head dim.
  10. the vision and audio front ends (slice 13, `phase_front_ends`; 120 s
      budget), the counters zeroed before each part and read after it:
      a. seamless-m4t-medium at its published widths and depth (12 encoder,
@@ -858,7 +861,12 @@ def phase_kernels(torch, seed):
             (256, 40, 16, 4, 128, bf16, True, 16, 1e-2),
             # zamba2-7b's shared block: hd 3,584 / 32 = 112, G 1
             (2, 512, 32, 32, 112, bf16, True, 0, 1e-2),
-            (1, 150, 32, 32, 112, f32, True, 0, 2e-5)]):
+            (1, 150, 32, 32, 112, f32, True, 0, 2e-5),
+            # danube's two training shapes (the benchmark's s4k and s1k
+            # cells; their window of 4,096 masks nothing at S <= 4,096, so
+            # causal alone, and SDPA takes its causal path)
+            (2, 4096, 32, 8, 80, bf16, True, 0, 1e-2),
+            (8, 1024, 32, 8, 80, bf16, True, 0, 1e-2)]):
         r = flash_case(torch, timer, *args,
                        gen=gen("flash", *args[:5], str(args[5]), *args[6:8]))
         emit("kernel", name="flash_attention", **r)
@@ -3244,6 +3252,7 @@ def phase_train_attention(torch, wrappers):
     undo = refuse_plain_on_cuda(torch)
     for w in wrappers.values():
         w.launches = 0
+    wrappers["flash_attention"].tc_launches = 0
     state = {}
     t0 = time.perf_counter()
     try:
@@ -3252,6 +3261,7 @@ def phase_train_attention(torch, wrappers):
         undo()
     wall = time.perf_counter() - t0
     launches = {n: w.launches for n, w in wrappers.items()}
+    tc_launches = wrappers["flash_attention"].tc_launches
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in hist]
     walls = [h["wall_s"] for h in hist]
@@ -3276,6 +3286,7 @@ def phase_train_attention(torch, wrappers):
                max_memory_allocated=peak,
                launches={n: launches[n] for n in ("flash_attention",
                                                   "flash_attention_bwd")},
+               flash_attention_tc_launches=tc_launches,
                other_launches={n: v for n, v in launches.items() if n not in
                                ("flash_attention", "flash_attention_bwd")},
                checkpoint_bytes=ck_bytes, checkpoint_read_s=read_s,
@@ -3287,6 +3298,9 @@ def phase_train_attention(torch, wrappers):
         launches
     assert launches["flash_attention_bwd"] >= n_attn * TRAIN9["steps"], \
         launches
+    # bf16: every forward on the tensor-core kernel
+    assert tc_launches == launches["flash_attention"], (tc_launches,
+                                                        launches)
     assert equal, "the checkpoint read back differs from the weights"
     torch.cuda.empty_cache()
 
@@ -4907,14 +4921,22 @@ def main(argv=None):
                 "flash_attention_bwd", op, by_function=True).items()
                 if "flash_bwd_kernel" in f}
            for op in ("HMMA.16816", "HMMA.1688")}
+    # kernel 2's bf16 forward (flash_fwd_kernel_tc) too, at each head dim;
+    # its f32 forward stays on the FMA units
+    fwd = {f: n for f, n in _build.sass_count(
+        "flash_attention", "HMMA", by_function=True).items()
+        if "flash_fwd_kernel" in f}
     emit("build_sass", hmma_instructions=hmma,
-         flash_attention_bwd_hmma=bwd)
+         flash_attention_bwd_hmma=bwd, flash_attention_hmma=fwd)
     assert all(v > 0 for v in hmma.values()), hmma
     for op, tag in (("HMMA.16816", "__nv_bfloat16"), ("HMMA.1688", "IfLi")):
         # the 4 head dims of the one dtype (<float, 64> mangles as
         # ...IfLi64E...)
         got = [f for f, n in bwd[op].items() if n > 0]
         assert len(got) == 4 and all(tag in f for f in got), (op, bwd[op])
+    got = sorted(f for f, n in fwd.items() if n > 0)
+    assert len(fwd) == 8 and len(got) == 4 and all(
+        "flash_fwd_kernel_tc" in f for f in got), fwd
 
     main_cases = phase_kernels(torch, args.seed)
     launches = {n: None for n in main_cases}

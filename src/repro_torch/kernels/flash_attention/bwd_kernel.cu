@@ -44,7 +44,8 @@
 //   sum    (splits > 1 only) adds the partials in split order and writes dK
 //          and dV.
 //
-// Products.  The five products are warp-level `mma.sync` tiles whose
+// Products (the bf16 primitives in flash_mma.cuh, shared with the forward's
+// bf16 kernel).  The five products are warp-level `mma.sync` tiles whose
 // accumulator layout (C fragment of m16n8: rows g, g + 8, columns 2t, 2t + 1
 // of each 8-column tile, g = lane / 4, t = lane % 4) is the layout the
 // softmax recompute works in.  S, dP, S^T and dP^T multiply two tiles that
@@ -87,11 +88,9 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
-#include <stdint.h>
-#include <string.h>
 
 #include "../tf32_mma.cuh"
-#include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -117,38 +116,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // ---------------------------------------------------------------- mma
 
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// (x0, x1) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), x0 in the low
-// half (the smaller k of an A fragment register)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h),
-                                                 x1 - __high2float(h));
-  memcpy(&hi, &h, 4);
-  memcpy(&lo, &l, 4);
-}
-
 // acc += (a b) of one k-step in three TF32 passes, in a fresh f32 sum
 __device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&ab)[4],
                                      const uint32_t (&as)[4],
@@ -160,14 +127,6 @@ __device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&ab)[4],
   mma_tf32(d, ab, bb);
 #pragma unroll
   for (int r = 0; r < 4; ++r) acc[r] += d[r];
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) x[n][r] = 0.f;
 }
 
 // Warp products over the padded tiles of TileRows<T, HD>:
@@ -309,24 +268,11 @@ struct BwdSmem {
   }
 };
 
-__device__ __forceinline__ bool live(int i, int j, int Sq, int Sk, int causal,
-                                     int window) {
-  return i < Sq && j < Sk && (!causal || j <= i) &&
-         (window <= 0 || i - j < window);
-}
-
 // every pair of query tile [q0, q0 + 64) and key tile [k0, k0 + 64) is live
 __device__ __forceinline__ bool all_live(int q0, int k0, int Sq, int Sk,
                                          int causal, int window) {
   return q0 + BQ <= Sq && k0 + BK <= Sk && (!causal || k0 + BK - 1 <= q0) &&
          (window <= 0 || q0 + BQ - 1 - k0 < window);
-}
-
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 template <typename T, int HD>

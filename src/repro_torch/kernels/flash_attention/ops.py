@@ -4,7 +4,9 @@
 
 Model layout in and out: q (B, Sq, H, hd), k / v (B, Sk, KV, hd) ->
 (B, Sq, H, hd) in q.dtype.  CPU tensors take the plain versions (`ref.py`,
-differentiated by autograd); CUDA tensors launch the kernels or raise.  On
+differentiated by autograd); CUDA tensors launch the kernels or raise: f32
+inputs the forward kernel on the FMA units, bf16 inputs the one on the
+tensor cores (`kernel.cu`, chosen there by the dtype).  On
 the card, where a gradient is wanted (grad mode on and an input that
 requires it, also inside `torch.utils.checkpoint`), `flash_attention` is a
 `torch.autograd.Function`: its forward launches the forward kernel, which
@@ -103,6 +105,8 @@ def _forward(q, k, v, causal, window, for_backward):
         int(window or 0), 1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention.tc_launches += 1
     return out, lse, out32
 
 
@@ -205,6 +209,9 @@ def flash_attention_bwd(q, k, v, do, *, causal=True, window=0, out=None,
 #: forward kernel launches through `flash_attention` (one per call on a
 #: CUDA tensor, also inside the autograd Function)
 flash_attention.launches = 0
+#: of those, the bf16 ones: `kernel.cu`'s tensor-core kernel
+#: (`flash_fwd_kernel_tc`); f32 inputs launch the FMA kernel
+flash_attention.tc_launches = 0
 #: calls that launched the backward kernels (each launches the delta kernel
 #: and the dQ / dK-dV kernel, and the partials' sum where `kv_splits` > 1)
 flash_attention_bwd.launches = 0

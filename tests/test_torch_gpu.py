@@ -1137,11 +1137,15 @@ def _bwd_err(got, want, dtype):
     (torch.bfloat16, 1, 333, 2, 4, 112, True, 100),
     (torch.float32, 1, 450, 1, 3, 80, True, 0),
     (torch.bfloat16, 1, 1000, 4, 12, 128, True, 0),
+    # hd 64 windowed in bf16: 2b from the tensor-core forward's lse and o32
+    # at every head dim
+    (torch.bfloat16, 1, 200, 1, 5, 64, True, 48),
 ])
 def test_gpu_flash_backward_matches_plain(dtype, B, S, KV, G, hd, causal,
                                           window):
     """Kernel 2b through the autograd Function (forward with lse, then the
-    backward kernels) against autograd through the plain version in f32 on
+    backward kernels; a bf16 forward is the tensor-core kernel, whose lse
+    and o32 2b reads) against autograd through the plain version in f32 on
     the same values; f32 limit 2e-5, bf16 1e-2 or its own rounding.  A
     second backward gives the same bits (no atomics)."""
     _need_cuda()
@@ -1684,3 +1688,164 @@ def test_gpu_probe_of_the_dummy_list_yields_nothing(pq):
         fin = torch.isfinite(want[0])
         assert torch.allclose(got[0][fin], want[0][fin], rtol=1e-4,
                               atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# kernel 2's bf16 forward on the tensor cores (`flash_fwd_kernel_tc`) and
+# the f32 kernel it leaves alone
+# ---------------------------------------------------------------------------
+
+def _fwd_inputs(B, Sq, Sk, KV, G, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Sq, KV * G, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(B, Sk, KV, hd)).astype(np.float32)
+            for _ in range(2))
+    return [torch.from_numpy(t).cuda().to(dtype) for t in (q, k, v)]
+
+
+def _live_rows(Sq, Sk, causal, window):
+    i = torch.arange(Sq, device="cuda")[:, None]
+    j = torch.arange(Sk, device="cuda")[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool, device="cuda")
+    if causal:
+        ok &= j <= i
+    if window:
+        ok &= i - j < window
+    return ok
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,KV,G,hd,causal,window", [
+    (2, 4096, 4096, 8, 4, 80, True, 4096),     # danube's training shape
+    (8, 1024, 1024, 8, 4, 80, True, 4096),     # and its 1k packing
+    (2, 130, 130, 2, 1, 64, True, 0),
+    (1, 333, 333, 1, 4, 80, True, 100),
+    (1, 512, 512, 32, 1, 112, True, 0),        # zamba2's shared block
+    (4, 1024, 1024, 8, 4, 128, True, 256),     # qwen3-4b with a window
+    (1, 257, 257, 1, 12, 128, True, 64),
+    (1, 200, 200, 2, 3, 128, False, 0),
+    (1, 150, 150, 2, 2, 112, False, 0),
+    (2, 2048, 1500, 16, 1, 64, False, 0),      # seamless's cross attention
+    (4, 1, 1500, 16, 1, 64, False, 0),
+    (1, 96, 40, 16, 1, 64, False, 0),
+    (1, 200, 40, 2, 2, 80, True, 16),          # rows with no live key
+])
+def test_gpu_tc_forward_matches_plain(B, Sq, Sk, KV, G, hd, causal, window):
+    """The bf16 kernel against the plain version in f32 on the same values:
+    o within the card's bf16 limit (1e-2, or 2^-8 |ref| + 2e-5 where
+    larger), o32 within 2e-5 + 2^-14 |ref| and lse within 1e-5 + 1e-6
+    |lse| of the float64 one (tests/test_torch_flash_fwd.py's limits); a
+    row with no live key reads 0 and lse +inf.  One launch on the
+    tensor-core path a call; a second call gives the same bits."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v = _fwd_inputs(B, Sq, Sk, KV, G, hd, torch.bfloat16,
+                          Sq + Sk + hd + G)
+    n0 = (fops.flash_attention.launches, fops.flash_attention.tc_launches)
+    o, lse, o32 = fops._forward(q, k, v, causal, window, True)
+    again = fops._forward(q, k, v, causal, window, True)
+    assert (fops.flash_attention.launches,
+            fops.flash_attention.tc_launches) == (n0[0] + 2, n0[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip((o, lse, o32), again))
+    rows = _live_rows(Sq, Sk, causal, window).any(-1)
+    assert torch.all(o32[:, ~rows] == 0) and torch.all(o[:, ~rows] == 0)
+    assert torch.all(lse[..., ~rows] == float("inf"))
+    ref = flash_attention_reference(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window)[:, rows]
+    H = KV * G
+    s = torch.einsum("bqkgd,bskd->bkgqs",
+                     q.double().reshape(B, Sq, KV, G, hd), k.double())
+    s = s.masked_fill(~_live_rows(Sq, Sk, causal, window), float("-inf"))
+    ref_lse = (torch.logsumexp(s / hd ** 0.5, -1).reshape(B, H, Sq)
+               [..., rows])
+    del s
+    lim = torch.maximum(torch.full_like(ref, 1e-2),
+                        ref.abs() * 2.0 ** -8 + 2e-5)
+    assert float(((o[:, rows].float() - ref).abs() / lim).max()) <= 1.0
+    assert float(((o32[:, rows] - ref).abs()
+                  / (2e-5 + 2.0 ** -14 * ref.abs())).max()) <= 1.0
+    assert float(((lse[..., rows].double() - ref_lse).abs()
+                  / (1e-5 + 1e-6 * ref_lse.abs())).max()) <= 1.0
+
+
+#: sha256 of the f32 forward's (o, lse) at `_F32_CASES`, from
+#: `flash_fwd_kernel<float, HD>` as it stood before bf16 inputs left it for
+#: the tensor-core kernel (an H100, sm_90a): the f32 path gives the same bits
+_F32_DIGESTS = {
+    "(32, 64, 64, 12, 1, 64, True, 0)":
+        "20bca91b5c63aba8c9367ba9599032f76f11b312bd513e58c455dbd2606a64bb",
+    "(2, 256, 256, 8, 4, 80, True, 64)":
+        "78ec098060abcc05eff36093bfe4ba8f6bf261ddd0116016daef9a10c495a7b9",
+    "(1, 150, 150, 32, 1, 112, True, 0)":
+        "40f95b1372ec4f22b56762ecac4d4b71467659b4ecd6f4660b0ae16fc843997a",
+    "(2, 200, 200, 8, 1, 128, False, 0)":
+        "9c49e82091fa83d324dbd2bdc68558488d3d63011ffa5b2e51ab731758b96b50",
+    "(1, 130, 130, 2, 4, 64, True, 0)":
+        "b6b19cd77a060223d1f7bb201a80468d813d2ede813fabdce95e9c1a513103dd"}
+_F32_CASES = [(32, 64, 64, 12, 1, 64, True, 0),     # the query encoder's
+              (2, 256, 256, 8, 4, 80, True, 64),
+              (1, 150, 150, 32, 1, 112, True, 0),
+              (2, 200, 200, 8, 1, 128, False, 0),
+              (1, 130, 130, 2, 4, 64, True, 0)]
+
+
+def _f32_forward_digests():
+    import hashlib
+    from repro_torch.kernels.flash_attention import ops as fops
+    out = {}
+    for case in _F32_CASES:
+        B, Sq, Sk, KV, G, hd, causal, window = case
+        q, k, v = _fwd_inputs(B, Sq, Sk, KV, G, hd, torch.float32,
+                              Sq + Sk + hd + G)
+        o, lse, _ = fops._forward(q, k, v, causal, window, True)
+        h = hashlib.sha256()
+        for t in (o, lse):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        out[str(case)] = h.hexdigest()
+    return out
+
+
+@pytest.mark.gpu
+def test_gpu_f32_forward_bits_unchanged():
+    """f32 inputs still launch the FMA kernel, none of them the tensor-core
+    one, and give its recorded bits."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import ops as fops
+    n0 = fops.flash_attention.tc_launches
+    assert _f32_forward_digests() == _F32_DIGESTS
+    assert fops.flash_attention.tc_launches == n0
+
+
+@pytest.mark.gpu
+def test_gpu_forward_sass_bf16_on_the_tensor_cores():
+    """`cuobjdump -sass` of the forward library: HMMA.16816 in each of the
+    four bf16 entry functions, no HMMA at all in the four f32 ones."""
+    _need_cuda()
+    from repro_torch.kernels import _build
+    bf16 = _build.sass_count("flash_attention", "HMMA.16816",
+                             by_function=True)
+    any_mma = _build.sass_count("flash_attention", "HMMA", by_function=True)
+    tc = [f for f in any_mma if "flash_fwd_kernel_tc" in f]
+    fma = [f for f in any_mma if "flash_fwd_kernel" in f and f not in tc]
+    assert len(tc) == 4 and len(fma) == 4, sorted(any_mma)
+    assert all(bf16[f] > 0 for f in tc), bf16
+    assert all(any_mma[f] == 0 for f in fma), any_mma
+
+
+@pytest.mark.gpu
+def test_gpu_danube_step_runs_the_tensor_core_forward():
+    """One step of h2o-danube-1.8b at its published widths and depth (24
+    layers, per-layer remat, bf16): 48 forward launches, all on the
+    tensor-core path (forward and recompute), 24 of the backward."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import train
+    n0 = (fops.flash_attention.launches, fops.flash_attention.tc_launches,
+          fops.flash_attention_bwd.launches)
+    hist = train.main(["--arch", "h2o-danube-1.8b", "--steps", "1",
+                       "--batch", "1", "--seq", "256", "--log-every", "1"])
+    assert np.isfinite(hist[0]["loss"])
+    assert (fops.flash_attention.launches - n0[0],
+            fops.flash_attention.tc_launches - n0[1],
+            fops.flash_attention_bwd.launches - n0[2]) == (48, 48, 24)
+    torch.cuda.empty_cache()
