@@ -613,6 +613,75 @@ def flash_bwd_case(torch, timer, B, S, KV, G, hd, dtype, causal, window,
                 bound_by=b_by)
 
 
+#: MLA's softmax scale at DeepSeek-V2's YaRN (mscale^2 / sqrt(192))
+MLA_SCALE = (0.1 * 0.707 * math.log(40) + 1) ** 2 / math.sqrt(192)
+
+
+def mla_case(torch, timer, B, S, H, gen, block=16):
+    """Kernels 2 and 2b at MLA's pair (q / k 192, v 128, H = KV, causal,
+    bf16, YaRN's scale) against the plain version in f32 on the same
+    values, computed over blocks of ``block`` heads (heads are
+    independent at H = KV), within the bf16 limits of `attn_err` and
+    `grad_err`; the backward called twice (bitwise-equal).  Plain ms is a
+    block's time x H / block; the library times are SDPA's forward and
+    backward at the same shape and scale.  Bounds: 2 (dk + dv) and 6 dk +
+    4 dv flops a kept pair a head at the bf16 peak, or the bytes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_reference)
+    bf16, c = torch.bfloat16, MLA_SCALE
+    q, k = (torch.randn(B, S, H, 192, device="cuda", generator=gen).to(bf16)
+            for _ in range(2))
+    v, do = (torch.randn(B, S, H, 128, device="cuda", generator=gen).to(bf16)
+             for _ in range(2))
+    o, lse, o32 = fops._forward(q, k, v, True, 0, True, c)
+    bwd = lambda: fops.flash_attention_bwd(q, k, v, do, causal=True,
+                                           out=o32, lse=lse, scale=c)
+    got, again = bwd(), bwd()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "a second backward returned other bits"
+    worst = {"o": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for h0 in range(0, H, block):
+        sl = slice(h0, h0 + block)
+        qq, kk, vv = (t[:, :, sl].float().requires_grad_() for t in (q, k, v))
+        r = flash_attention_reference(qq, kk, vv, causal=True, scale=c)
+        gr = torch.autograd.grad(r, (qq, kk, vv), do[:, :, sl].float())
+        worst["o"] = max(worst["o"], attn_err(torch, o[:, :, sl],
+                                              r.detach(), 1e-2, bf16)[1])
+        for n, a, b in zip(("dq", "dk", "dv"), got, gr):
+            worst[n] = max(worst[n], grad_err(torch, a[:, :, sl], b,
+                                              bf16)[1])
+        del r, gr, qq, kk, vv
+    torch.cuda.empty_cache()
+    assert max(worst.values()) <= 1.0, worst
+    fwd_ms = timer(lambda: fops._forward(q, k, v, True, 0, True, c))
+    bwd_ms = timer(bwd)
+    hb = min(block, H)
+    qb, kb, vb = (t[:, :, :hb].float() for t in (q, k, v))
+    plain_ms = timer(lambda: flash_attention_reference(
+        qb, kb, vb, causal=True, scale=c), iters=3) * H / hb
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=c))
+    lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=c)
+    lib_bwd = timer(lambda: torch.autograd.grad(
+        lo, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    pairs = B * H * live_pairs(S, S, True, 0)
+    f_ms, f_by = bound(2 * B * S * H * (2 * 192 + 2 * 128) + 4 * B * H * S,
+                       2 * (192 + 128) * pairs, bf16)
+    b_ms, b_by = bound(2 * B * S * H * (3 * 192 + 3 * 128)
+                       + 4 * B * S * H * 128 + 4 * B * H * S,
+                       (6 * 192 + 4 * 128) * pairs, bf16)
+    return dict(case=f"B={B} S={S} H=KV={H} dk=192 dv=128 bfloat16 causal "
+                     f"scale={c:.5f}", err_over_tol=worst,
+                repeat_bitwise_equal=True, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                fwd_bound_ms=f_ms, fwd_bound_by=f_by, bwd_bound_ms=b_ms,
+                bwd_bound_by=b_by, plain_fwd_ms=plain_ms,
+                library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd)
+
+
 #: kernel 3's log-sum-exp against the plain one in f32 on the same values
 #: (absolute: the two differ only in the order of f32 sums)
 DECODE_LSE_TOL = 1e-4
@@ -943,6 +1012,11 @@ def phase_kernels(torch, seed):
                                gen=gen("flash_bwd_cross", B, Sq, Sk,
                                        str(dt)), Sk=Sk)
             emit("kernel", name="flash_attention_bwd", cross=True, **r)
+    # MLA's (192, 128) pair (DeepSeek-V2), small, then at the benchmark
+    # cell's shape (train.deepseek-v2.s4k: B 2, S 4,096, 128 heads)
+    for args in [(1, 300, 4), (2, 4096, 128)]:
+        r = mla_case(torch, timer, *args, gen=gen("mla", *args))
+        emit("kernel", name="flash_attention_mla", **r)
     return main
 
 
@@ -4929,13 +5003,14 @@ def main(argv=None):
     emit("build_sass", hmma_instructions=hmma,
          flash_attention_bwd_hmma=bwd, flash_attention_hmma=fwd)
     assert all(v > 0 for v in hmma.values()), hmma
-    for op, tag in (("HMMA.16816", "__nv_bfloat16"), ("HMMA.1688", "IfLi")):
+    for op, tag, k in (("HMMA.16816", "__nv_bfloat16", 5),
+                       ("HMMA.1688", "IfLi", 4)):
         # the 4 head dims of the one dtype (<float, 64> mangles as
-        # ...IfLi64E...)
+        # ...IfLi64E...), and in bf16 MLA's (192, 128) pair
         got = [f for f, n in bwd[op].items() if n > 0]
-        assert len(got) == 4 and all(tag in f for f in got), (op, bwd[op])
+        assert len(got) == k and all(tag in f for f in got), (op, bwd[op])
     got = sorted(f for f, n in fwd.items() if n > 0)
-    assert len(fwd) == 8 and len(got) == 4 and all(
+    assert len(fwd) == 9 and len(got) == 5 and all(
         "flash_fwd_kernel_tc" in f for f in got), fwd
 
     main_cases = phase_kernels(torch, args.seed)

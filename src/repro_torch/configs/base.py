@@ -23,6 +23,7 @@ LayerSpec = Tuple[str, str]
 ATTN_DENSE: LayerSpec = ("attn", "dense")
 ATTN_MOE: LayerSpec = ("attn", "moe")
 MLA_MOE: LayerSpec = ("mla", "moe")
+MLA_DENSE: LayerSpec = ("mla", "dense")   # DeepSeek's leading dense layers
 SSM: LayerSpec = ("ssm", "none")
 SHARED_ATTN: LayerSpec = ("shared_attn", "none")
 
@@ -57,6 +58,21 @@ class ModelConfig:
     experts_top_k: int = 1
     moe_d_ff: int = 0                    # routed expert intermediate size
     capacity_factor: float = 1.25
+    # router: "topk" (softmax over the k best logits, Switch balance loss)
+    # or "group_limited" (DeepSeek-V2: softmax over all experts, the top
+    # `moe_topk_groups` of `moe_n_groups` groups by their best score, the
+    # top k inside them, gates x `moe_routed_scaling`, per-sequence
+    # balance loss)
+    moe_router: str = "topk"
+    moe_n_groups: int = 1
+    moe_topk_groups: int = 1
+    moe_routed_scaling: float = 1.0
+    # experts a layer holds: 0 -> all, by capacity dispatch; n > 0 -> the
+    # block [moe_first_expert, + n) of an expert-parallel rank, routed over
+    # all n_experts and computed dropless by grouped products
+    moe_local_experts: int = 0
+    moe_first_expert: int = 0
+    aux_weight: float = 0.01             # the balance loss's weight in the loss
 
     # --- MLA (DeepSeek-V2) ---
     kv_lora_rank: int = 0
@@ -64,6 +80,11 @@ class ModelConfig:
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+    # RoPE scaling as (key, value) pairs, () for none; DeepSeek-V2's YaRN:
+    # (("type", "yarn"), ("factor", 40), ("original_max_position_embeddings",
+    # 4096), ("beta_fast", 32), ("beta_slow", 1), ("mscale", 0.707),
+    # ("mscale_all_dim", 0.707))
+    rope_scaling: Tuple[Tuple[str, object], ...] = ()
 
     # --- SSM (Mamba-2 SSD) ---
     ssm_state: int = 0

@@ -79,6 +79,13 @@
 // feed both terms of the split; wgmma (64-row warpgroup tiles, descriptors
 // over swizzled shared memory) is the route to SDPA's time and later work.
 //
+// MLA (DeepSeek-V2): q and k of 192 dims, v and dO of 128, bf16 only, at H
+// = KV (one split): `flash_bwd_kernel<bf16, 192, 128>`, the same blocks with
+// S^T / S over the 192 columns, dP^T / dP over 128, dV of 128 columns and
+// dK / dQ of 192.  A dkdv warp holds 96 + 64 f32 accumulators of dK and dV
+// beside S^T and dP^T's 64, so its K / V tiles stay resident but the ring
+// streams one stage (BwdSmem), 87,040 B, two blocks an SM.
+//
 // What bounds it on an H100: operations.  Per live (query, key) pair and
 // query head, S and dP in both passes and dQ, dV, dK, 2 hd flops each
 // (14 B H hd a pair), plus the split's second terms of dQ, dV, dK (6 more):
@@ -253,18 +260,25 @@ struct Mma<float, HD> {
 
 // ---------------------------------------------------------------- kernels
 
-// Shared memory of the dq and dkdv blocks: two fixed tiles (Q, dO or K, V),
-// STAGES x two streamed tiles (K, V or Q, dO), STAGES x the streamed query
-// rows' lse and D (dkdv), the warps' f32 scratch (f32 only).
-template <typename T, int HD>
+// Shared memory of the dq and dkdv blocks at query / key head dim DK and
+// value head dim DV: two fixed tiles (Q of DK, dO of DV or K of DK, V of
+// DV), ST x two streamed tiles (K, V or Q, dO), ST x the streamed query
+// rows' lse and D (dkdv), the warps' f32 scratch (f32 only).  ST: stages of
+// the ring, two where DK = DV; MLA's pair (192, 128) streams one, since a
+// block of two (130,048 B) would leave one block an SM, four warps, and one
+// (87,040 B) lets two share it.
+template <typename T, int DK, int DV>
 struct BwdSmem {
-  using R = TileRows<T, HD>;
-  static constexpr int RING = 2 * R::TILE;
-  static constexpr int ROWS = RING + STAGES * 2 * R::TILE;
-  static constexpr int SCR = ROWS + STAGES * 2 * 64 * 4;
-  static constexpr int BYTES = SCR + NW * Mma<T, HD>::SCRATCH;
+  using R = TileRows<T, DK>;
+  using RV = TileRows<T, DV>;
+  static constexpr int ST = DK == DV ? STAGES : 1;
+  static constexpr int PAIR = R::TILE + RV::TILE;
+  static constexpr int RING = PAIR;
+  static constexpr int ROWS = RING + ST * PAIR;
+  static constexpr int SCR = ROWS + ST * 2 * 64 * 4;
+  static constexpr int BYTES = SCR + NW * Mma<T, DK>::SCRATCH;
   __device__ static unsigned char* stage(unsigned char* smem, int s) {
-    return smem + RING + s * 2 * R::TILE;
+    return smem + RING + s * PAIR;
   }
 };
 
@@ -275,17 +289,17 @@ __device__ __forceinline__ bool all_live(int q0, int k0, int Sq, int Sk,
          (window <= 0 || q0 + BQ - 1 - k0 < window);
 }
 
-template <typename T, int HD>
+template <typename T, int DV>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const float* __restrict__ o, const T* __restrict__ dO,
                        float* __restrict__ delta, int Sq, int H, long rows) {
   const long r = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
-  const float* orow = o + r * HD;
-  const T* grow = dO + r * HD;
+  const float* orow = o + r * DV;
+  const T* grow = dO + r * DV;
   float s = 0.f;
-  for (int d = lane; d < HD; d += 32) s = fmaf(orow[d], to_f(grow[d]), s);
+  for (int d = lane; d < DV; d += 32) s = fmaf(orow[d], to_f(grow[d]), s);
   s = warp_sum(s);
   // row r of (B, Sq, H) -> (B, H, Sq)
   const int h = (int)(r % H);
@@ -296,16 +310,16 @@ flash_bwd_delta_kernel(const float* __restrict__ o, const T* __restrict__ dO,
 }
 
 // dQ of query rows [q0, q0 + 64) of head h, batch b
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 __device__ __forceinline__ void dq_block(
     unsigned char* smem, const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dO,
     const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dq, int h, int b, int q0, int Sq, int Sk, int H, int KV,
     int causal, int window, float scale2, float scale) {
-  using L = BwdSmem<T, HD>;
-  using R = TileRows<T, HD>;
-  using M = Mma<T, HD>;
+  using L = BwdSmem<T, DK, DV>;
+  using R = typename L::R;
+  using RV = typename L::RV;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int kvh = h / (H / KV);
@@ -328,30 +342,34 @@ __device__ __forceinline__ void dq_block(
     dd[e] = i < Sq ? delta[bh * Sq + i] : 0.f;
   }
 
-  float acc[HD / 8][4];
+  float acc[DK / 8][4];
   zero(acc);
 
   auto issue = [&](int it, int st) {
     unsigned char* S = L::stage(smem, st);
     const int k0 = k_lo + it * BK;
-    load_tile<T, HD, NTH>(S, k, b, k0, Sk, KV, kvh, tid);
-    load_tile<T, HD, NTH>(S + R::TILE, v, b, k0, Sk, KV, kvh, tid);
+    load_tile<T, DK, NTH>(S, k, b, k0, Sk, KV, kvh, tid);
+    load_tile<T, DV, NTH>(S + R::TILE, v, b, k0, Sk, KV, kvh, tid);
   };
-  load_tile<T, HD, NTH>(Qs, q, b, q0, Sq, H, h, tid);
-  load_tile<T, HD, NTH>(dOs, dO, b, q0, Sq, H, h, tid);
+  load_tile<T, DK, NTH>(Qs, q, b, q0, Sq, H, h, tid);
+  load_tile<T, DV, NTH>(dOs, dO, b, q0, Sq, H, h, tid);
   if (n > 0) issue(0, 0);
   cp_async_commit();
   for (int it = 0; it < n; ++it) {
-    if (it + 1 < n) issue(it + 1, (it + 1) % STAGES);
-    cp_async_commit();
-    cp_async_wait<1>();
+    if constexpr (L::ST > 1) {
+      if (it + 1 < n) issue(it + 1, (it + 1) % L::ST);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
     const int k0 = k_lo + it * BK;
-    const unsigned char* Ks = L::stage(smem, it % STAGES);
+    const unsigned char* Ks = L::stage(smem, it % L::ST);
     const unsigned char* Vs = Ks + R::TILE;
     float s[8][4], dp[8][4];
-    M::nt(s, Qs + 16 * w * R::LD, Ks);
-    M::nt(dp, dOs + 16 * w * R::LD, Vs);
+    Mma<T, DK>::nt(s, Qs + 16 * w * R::LD, Ks);
+    Mma<T, DV>::nt(dp, dOs + 16 * w * RV::LD, Vs);
     const bool full = all_live(q0, k0, Sq, Sk, causal, window);
 #pragma unroll
     for (int c = 0; c < 8; ++c)
@@ -363,8 +381,12 @@ __device__ __forceinline__ void dq_block(
         const float p = ok ? exp2f(s[c][r] * scale2 - l2[r >> 1]) : 0.f;
         dp[c][r] = p * (dp[c][r] - dd[r >> 1]);
       }
-    M::pa(acc, dp, Ks, scr);       // dQ += dS K
+    Mma<T, DK>::pa(acc, dp, Ks, scr);   // dQ += dS K
     __syncthreads();               // this stage is refilled next tile
+    if constexpr (L::ST == 1) {
+      if (it + 1 < n) issue(it + 1, 0);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();              // no copy may outlive the block
 
@@ -372,9 +394,9 @@ __device__ __forceinline__ void dq_block(
   for (int e = 0; e < 2; ++e) {
     const int i = q0 + 16 * w + g + 8 * e;
     if (i >= Sq) continue;
-    T* row = dq + (((size_t)b * Sq + i) * H + h) * HD;
+    T* row = dq + (((size_t)b * Sq + i) * H + h) * DK;
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c)
+    for (int c = 0; c < DK / 8; ++c)
       store2(row + 8 * c + 2 * t, acc[c][2 * e] * scale,
              acc[c][2 * e + 1] * scale);
   }
@@ -382,7 +404,7 @@ __device__ __forceinline__ void dq_block(
 
 // dK and dV of keys [k0, k0 + 64) of KV head kvh, batch b, over the query
 // heads of split `split`
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 __device__ __forceinline__ void dkdv_block(
     unsigned char* smem, const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dO,
@@ -390,9 +412,9 @@ __device__ __forceinline__ void dkdv_block(
     T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ part,
     int kvh, int split, int b, int k0, int B, int Sq, int Sk, int H, int KV,
     int splits, int causal, int window, float scale2, float scale) {
-  using L = BwdSmem<T, HD>;
-  using R = TileRows<T, HD>;
-  using M = Mma<T, HD>;
+  using L = BwdSmem<T, DK, DV>;
+  using R = typename L::R;
+  using RV = typename L::RV;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int G = H / KV;
@@ -407,7 +429,7 @@ __device__ __forceinline__ void dkdv_block(
   const int nq = q_hi > q_lo ? (q_hi - q_lo + BQ - 1) / BQ : 0;
   const int n = nq * (h_hi - h_lo);
 
-  float ak[HD / 8][4], av[HD / 8][4];
+  float ak[DK / 8][4], av[DV / 8][4];
   zero(ak);
   zero(av);
 
@@ -416,32 +438,36 @@ __device__ __forceinline__ void dkdv_block(
   auto issue = [&](int it, int st) {
     unsigned char* S = L::stage(smem, st);
     const int h = h_lo + it / nq, q0 = q_lo + (it % nq) * BQ;
-    load_tile<T, HD, NTH>(S, q, b, q0, Sq, H, h, tid);
-    load_tile<T, HD, NTH>(S + R::TILE, dO, b, q0, Sq, H, h, tid);
+    load_tile<T, DK, NTH>(S, q, b, q0, Sq, H, h, tid);
+    load_tile<T, DV, NTH>(S + R::TILE, dO, b, q0, Sq, H, h, tid);
     const int i = q0 + (tid & 63);
     const float* src = (tid < 64 ? lse : delta) +
                        ((size_t)b * H + h) * Sq + min(i, Sq - 1);
     cp_async4(reinterpret_cast<float*>(smem + L::ROWS) + st * 128 + tid, src,
               i < Sq ? 4 : 0);
   };
-  load_tile<T, HD, NTH>(Ks, k, b, k0, Sk, KV, kvh, tid);
-  load_tile<T, HD, NTH>(Vs, v, b, k0, Sk, KV, kvh, tid);
+  load_tile<T, DK, NTH>(Ks, k, b, k0, Sk, KV, kvh, tid);
+  load_tile<T, DV, NTH>(Vs, v, b, k0, Sk, KV, kvh, tid);
   if (n > 0) issue(0, 0);
   cp_async_commit();
   for (int it = 0; it < n; ++it) {
-    if (it + 1 < n) issue(it + 1, (it + 1) % STAGES);
-    cp_async_commit();
-    cp_async_wait<1>();
+    if constexpr (L::ST > 1) {
+      if (it + 1 < n) issue(it + 1, (it + 1) % L::ST);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    const int st = it % STAGES;
+    const int st = it % L::ST;
     const int q0 = q_lo + (it % nq) * BQ;
     const unsigned char* Qs = L::stage(smem, st);
     const unsigned char* dOs = Qs + R::TILE;
     const float* rows = reinterpret_cast<const float*>(smem + L::ROWS) +
                         st * 128;
     float s[8][4], dp[8][4];
-    M::nt(s, Ks + 16 * w * R::LD, Qs);      // S^T: 16 keys x 64 queries
-    M::nt(dp, Vs + 16 * w * R::LD, dOs);    // dP^T
+    Mma<T, DK>::nt(s, Ks + 16 * w * R::LD, Qs);     // S^T: 16 keys x 64 queries
+    Mma<T, DV>::nt(dp, Vs + 16 * w * RV::LD, dOs);  // dP^T
     const bool full = all_live(q0, k0, Sq, Sk, causal, window);
 #pragma unroll
     for (int c = 0; c < 8; ++c)
@@ -455,28 +481,49 @@ __device__ __forceinline__ void dkdv_block(
         s[c][r] = p;
         dp[c][r] = p * (dp[c][r] - rows[64 + col]);
       }
-    M::pa(av, s, dOs, scr);        // dV += P^T dO
-    M::pa(ak, dp, Qs, scr);        // dK += dS^T Q
+    Mma<T, DV>::pa(av, s, dOs, scr);   // dV += P^T dO
+    Mma<T, DK>::pa(ak, dp, Qs, scr);   // dK += dS^T Q
     __syncthreads();               // this stage is refilled next item
+    if constexpr (L::ST == 1) {
+      if (it + 1 < n) issue(it + 1, 0);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();              // no copy may outlive the block
 
-  const size_t nel = (size_t)B * Sk * KV * HD;
+  if constexpr (DK == DV) {
+    constexpr int HD = DK;
+    const size_t nel = (size_t)B * Sk * KV * HD;
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int j = k0 + 16 * w + g + 8 * e;
-    if (j >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + j) * KV + kvh) * HD + 2 * t;
+    for (int e = 0; e < 2; ++e) {
+      const int j = k0 + 16 * w + g + 8 * e;
+      if (j >= Sk) continue;
+      const size_t off = (((size_t)b * Sk + j) * KV + kvh) * HD + 2 * t;
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
-      if (splits == 1) {
-        store2(dk + off + 8 * c, ak[c][2 * e] * scale, ak[c][2 * e + 1] * scale);
-        store2(dv + off + 8 * c, av[c][2 * e], av[c][2 * e + 1]);
-      } else {
-        float* pk = part + 2 * split * nel + off + 8 * c;
-        store2(pk, ak[c][2 * e], ak[c][2 * e + 1]);
-        store2(pk + nel, av[c][2 * e], av[c][2 * e + 1]);
+      for (int c = 0; c < HD / 8; ++c) {
+        if (splits == 1) {
+          store2(dk + off + 8 * c, ak[c][2 * e] * scale, ak[c][2 * e + 1] * scale);
+          store2(dv + off + 8 * c, av[c][2 * e], av[c][2 * e + 1]);
+        } else {
+          float* pk = part + 2 * split * nel + off + 8 * c;
+          store2(pk, ak[c][2 * e], ak[c][2 * e + 1]);
+          store2(pk + nel, av[c][2 * e], av[c][2 * e + 1]);
+        }
       }
+    }
+  } else {       // one split (the wrapper's rule at H = KV)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = k0 + 16 * w + g + 8 * e;
+      if (j >= Sk) continue;
+      const size_t row = ((size_t)b * Sk + j) * KV + kvh;
+#pragma unroll
+      for (int c = 0; c < DK / 8; ++c)
+        store2(dk + row * DK + 2 * t + 8 * c, ak[c][2 * e] * scale,
+               ak[c][2 * e + 1] * scale);
+#pragma unroll
+      for (int c = 0; c < DV / 8; ++c)
+        store2(dv + row * DV + 2 * t + 8 * c, av[c][2 * e], av[c][2 * e + 1]);
     }
   }
 }
@@ -485,7 +532,7 @@ __device__ __forceinline__ void dkdv_block(
 // blocks [0, nk KV splits B) are dkdv blocks, key tile slowest (the first
 // key tiles, the longest under a causal mask, first), the rest dq blocks,
 // query tile slowest (the last query tiles first).
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(NTH)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dO,
@@ -500,14 +547,14 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int blk = blockIdx.x;
   if (blk < per_kt * nk) {
     const int r = blk % per_kt, ks = r % (KV * splits);
-    dkdv_block<T, HD>(smem, q, k, v, dO, lse, delta, dk, dv, part,
+    dkdv_block<T, DK, DV>(smem, q, k, v, dO, lse, delta, dk, dv, part,
                       ks / splits, ks % splits, r / (KV * splits),
                       blk / per_kt * BK, B, Sq, Sk, H, KV, splits, causal,
                       window, scale2, scale);
   } else {
     const int i = blk - per_kt * nk, nq = (Sq + BQ - 1) / BQ;
     const int r = i % (H * B);
-    dq_block<T, HD>(smem, q, k, v, dO, lse, delta, dq, r % H, r / H,
+    dq_block<T, DK, DV>(smem, q, k, v, dO, lse, delta, dq, r % H, r / H,
                     (nq - 1 - i / (H * B)) * BQ, Sq, Sk, H, KV, causal,
                     window, scale2, scale);
   }
@@ -530,50 +577,59 @@ flash_bwd_sum_kernel(const float* __restrict__ part, T* __restrict__ dk,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 int launch(const void* q, const void* k, const void* v, const float* o,
            const float* lse, const void* dO, void* dq, void* dk, void* dv,
            float* delta, float* part, int B, int Sq, int Sk, int H, int KV,
            int causal, int window, int splits, float scale, cudaStream_t st) {
-  using L = BwdSmem<T, HD>;
+  using L = BwdSmem<T, DK, DV>;
+  if (DK != DV && splits != 1) return (int)cudaErrorInvalidValue;
   const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k);
   const T *tv = static_cast<const T*>(v), *tg = static_cast<const T*>(dO);
   T *tdk = static_cast<T*>(dk), *tdv = static_cast<T*>(dv);
   const long rows = (long)B * Sq * H;
-  flash_bwd_delta_kernel<T, HD><<<(unsigned)((rows * 32 + 255) / 256), 256, 0,
+  flash_bwd_delta_kernel<T, DV><<<(unsigned)((rows * 32 + 255) / 256), 256, 0,
                                   st>>>(o, tg, delta, Sq, H, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // the attribute is per device, so it is set on every launch
-  e = cudaFuncSetAttribute(flash_bwd_kernel<T, HD>,
+  e = cudaFuncSetAttribute(flash_bwd_kernel<T, DK, DV>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            L::BYTES);
   if (e != cudaSuccess) return (int)e;
   const long blocks = (long)KV * splits * B * ((Sk + BK - 1) / BK) +
                       (long)H * B * ((Sq + BQ - 1) / BQ);
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  flash_bwd_kernel<T, HD><<<(unsigned)blocks, NTH, L::BYTES, st>>>(
+  flash_bwd_kernel<T, DK, DV><<<(unsigned)blocks, NTH, L::BYTES, st>>>(
       tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), tdk, tdv, part, B, Sq,
       Sk, H, KV, splits, causal, window, scale * LOG2E, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  const size_t nel = (size_t)B * Sk * KV * HD, nb = (nel + 255) / 256;
+  const size_t nel = (size_t)B * Sk * KV * DK, nb = (nel + 255) / 256;
   flash_bwd_sum_kernel<T><<<(unsigned)(nb < 4096 ? nb : 4096), 256, 0, st>>>(
       part, tdk, tdv, nel, splits, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
+int dispatch_hd(int hd, int vd, const void* q, const void* k, const void* v,
                 const float* o, const float* lse, const void* dO, void* dq,
                 void* dk, void* dv, float* delta, float* part, int B, int Sq,
                 int Sk, int H, int KV, int causal, int window, int splits,
                 float scale, cudaStream_t st) {
+  // MLA's pair (DeepSeek-V2: q / k 192, v 128), bf16
+  if (vd != hd) {
+    if constexpr (sizeof(T) == 2) {
+      if (hd == 192 && vd == 128)
+        return launch<T, 192, 128>(q, k, v, o, lse, dO, dq, dk, dv, delta, part, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, o, lse, dO, dq, dk, dv, delta, part, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
-    case 80: return launch<T, 80>(q, k, v, o, lse, dO, dq, dk, dv, delta, part, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
-    case 112: return launch<T, 112>(q, k, v, o, lse, dO, dq, dk, dv, delta, part, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, lse, dO, dq, dk, dv, delta, part, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
+    case 64: return launch<T, 64, 64>(q, k, v, o, lse, dO, dq, dk, dv, delta, part, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
+    case 80: return launch<T, 80, 80>(q, k, v, o, lse, dO, dq, dk, dv, delta, part, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
+    case 112: return launch<T, 112, 112>(q, k, v, o, lse, dO, dq, dk, dv, delta, part, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
+    case 128: return launch<T, 128, 128>(q, k, v, o, lse, dO, dq, dk, dv, delta, part, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -582,19 +638,21 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q / dO / dq (B, Sq, H, hd), k / v / dk / dv (B, Sk, KV, hd), contiguous
-// and 16-byte aligned, f32 (bf16 == 0) or bf16; o (B, Sq, H, hd) and lse
-// (B, H, Sq) f32 from the forward (o before its rounding to bf16); delta
-// f32 scratch of B H Sq floats; splits in [1, H / KV] blocks a KV head's
-// query heads are split over, and for splits > 1 part f32 scratch of
-// splits x 2 x B Sk KV hd floats; hd in {64, 80, 112, 128}; window 0 =
-// none.
+// q / dq (B, Sq, H, hd), k / dk (B, Sk, KV, hd), v / dv (B, Sk, KV, vd),
+// dO (B, Sq, H, vd), contiguous and 16-byte aligned, f32 (bf16 == 0) or
+// bf16; o (B, Sq, H, vd) and lse (B, H, Sq) f32 from the forward (o before
+// its rounding to bf16); delta f32 scratch of B H Sq floats; splits in [1,
+// H / KV] blocks a KV head's query heads are split over, and for splits > 1
+// part f32 scratch of splits x 2 x B Sk KV hd floats; hd = vd in {64, 80,
+// 112, 128}, or (hd, vd) = (192, 128) in bf16 with one split; window 0 =
+// none; scale multiplies q k^T.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* lse, const void* dO,
                                void* dq, void* dk, void* dv, void* delta,
                                void* part, int bf16, int B, int Sq, int Sk,
-                               int H, int KV, int hd, int causal, int window,
-                               int splits, float scale, void* stream) {
+                               int H, int KV, int hd, int vd, int causal,
+                               int window, int splits, float scale,
+                               void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV || splits < 1 ||
       splits > H / KV || (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -604,8 +662,8 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   auto dl = static_cast<float*>(delta);
   auto pt = static_cast<float*>(part);
   if (bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, of, ls, dO, dq, dk, dv, dl, pt, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
-  return dispatch_hd<float>(hd, q, k, v, of, ls, dO, dq, dk, dv, dl, pt, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
+    return dispatch_hd<__nv_bfloat16>(hd, vd, q, k, v, of, ls, dO, dq, dk, dv, dl, pt, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
+  return dispatch_hd<float>(hd, vd, q, k, v, of, ls, dO, dq, dk, dv, dl, pt, B, Sq, Sk, H, KV, causal, window, splits, scale, st);
 }
 
 }  // extern "C"

@@ -87,6 +87,13 @@
 // without Q in registers 0 / 144 B and slower), hd 112 / 128 under 255, no
 // spills.  Dynamic shared memory (Q, two stages of K and V) 55,296 /
 // 67,584 B at hd 64 / 80 (128 rows of Q), 76,800 / 87,040 at hd 112 / 128.
+//
+// MLA (DeepSeek-V2): q and k of 192 dims (128 without RoPE, 64 with), v of
+// 128, one kernel `flash_fwd_kernel_tc<192, 128>`: S over twelve 16-column
+// k-steps, P.V and the output over 128 columns, one m-tile a warp as at hd
+// 128; 111,616 B of shared memory (Q 64 rows of 400 B, two stages of K
+// 25,600 and V 17,408), so two blocks an SM still fit.  Its scale is the
+// caller's (YaRN's mscale^2 / sqrt(192)), as every instantiation's is.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -333,22 +340,25 @@ constexpr int TC_WARPS = 4;
 constexpr int TC_NT = 32 * TC_WARPS;
 constexpr int TC_STAGES = 2;            // ring of K / V tiles
 
-// The kernel's shape at head dim HD.  MT 16-row m-tiles a warp: two up to
-// hd 80 (each K and V fragment feeds both, half the shared-memory reads
+// The kernel's shape at query / key head dim DK and value head dim DV (DV
+// = DK but for MLA's pair, 192 / 128).  MT 16-row m-tiles a warp: two up
+// to dk 80 (each K and V fragment feeds both, half the shared-memory reads
 // and the cp.async traffic a product), one above, where two tiles' output
 // fragments and S do not fit in registers.  QREG: Q's A fragments held in
-// registers across the key tiles (hd <= 80; above, read anew a tile).
-// Shared memory: Q (ROWS rows), then TC_STAGES x (K, V).
-template <int HD>
+// registers across the key tiles (dk <= 80; above, read anew a tile).
+// Shared memory: Q (ROWS rows of DK), then TC_STAGES x (K of DK, V of DV).
+template <int DK, int DV>
 struct Tc {
-  using R = TileRows<__nv_bfloat16, HD>;
-  static constexpr int MT = HD <= 80 ? 2 : 1;
-  static constexpr bool QREG = HD <= 80;
+  using R = TileRows<__nv_bfloat16, DK>;
+  using RV = TileRows<__nv_bfloat16, DV>;
+  static constexpr int MT = DK <= 80 ? 2 : 1;
+  static constexpr bool QREG = DK <= 80;
   static constexpr int ROWS = 16 * TC_WARPS * MT;
   static constexpr int QB = ROWS * R::LD;
-  static constexpr int BYTES = QB + 2 * TC_STAGES * R::TILE;
+  static constexpr int STAGE = R::TILE + RV::TILE;
+  static constexpr int BYTES = QB + TC_STAGES * STAGE;
   __device__ static unsigned char* stage(unsigned char* smem, int s) {
-    return smem + QB + 2 * s * R::TILE;
+    return smem + QB + s * STAGE;
   }
 };
 
@@ -368,7 +378,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int HD>
+template <int DK, int DV>
 __global__ void __launch_bounds__(TC_NT, 2)
 flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -377,8 +387,9 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
                     float* __restrict__ o32, int B, int Sq, int Sk, int H,
                     int KV, int causal, int window, float scale2) {
   using T = __nv_bfloat16;
-  using R = TileRows<T, HD>;
-  using S = Tc<HD>;
+  using S = Tc<DK, DV>;
+  using R = typename S::R;
+  using RV = typename S::RV;
   constexpr int MT = S::MT, BQT = S::ROWS;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
@@ -399,22 +410,22 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
   auto issue = [&](int it) {
     if (it < n) {
       unsigned char* st = S::stage(smem, it % TC_STAGES);
-      load_tile<T, HD, TC_NT>(st, k, b, k_lo + it * BK, Sk, KV, kvh, tid);
-      load_tile<T, HD, TC_NT>(st + R::TILE, v, b, k_lo + it * BK, Sk, KV,
+      load_tile<T, DK, TC_NT>(st, k, b, k_lo + it * BK, Sk, KV, kvh, tid);
+      load_tile<T, DV, TC_NT>(st + R::TILE, v, b, k_lo + it * BK, Sk, KV,
                               kvh, tid);
     }
     cp_async_commit();
   };
 #pragma unroll
   for (int r = 0; r < BQT / 64; ++r)
-    load_tile<T, HD, TC_NT>(smem + r * R::TILE, q, b, q0 + 64 * r, Sq, H, h,
+    load_tile<T, DK, TC_NT>(smem + r * R::TILE, q, b, q0 + 64 * r, Sq, H, h,
                             tid);
   issue(0);
 
   // rows wq0 + 16 mt + g (e = 0) and + 8 (e = 1): running max (log2
   // domain, scaled), this thread's part of the running sum, output C
   // fragments
-  float m[MT][2], l[MT][2], acc[MT][HD / 8][4];
+  float m[MT][2], l[MT][2], acc[MT][DV / 8][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     m[mt][0] = m[mt][1] = -CUDART_INF_F;
@@ -427,7 +438,7 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
     ldsm4(a, Qw + (16 * mt + lr + 8 * (mi & 1)) * R::LD +
                  (16 * kk + 8 * (mi >> 1)) * 2);
   };
-  uint32_t qa[S::QREG ? MT : 1][HD / 16][4];
+  uint32_t qa[S::QREG ? MT : 1][DK / 16][4];
 
   for (int it = 0; it < n; ++it) {
     cp_async_wait<0>();
@@ -438,7 +449,7 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk) q_frag(qa[mt][kk], mt, kk);
+          for (int kk = 0; kk < DK / 16; ++kk) q_frag(qa[mt][kk], mt, kk);
     }
     const int k0 = k_lo + it * BK;
     // a tile wholly above the causal diagonal for this warp's rows
@@ -452,7 +463,7 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) zero(s[mt]);
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       uint32_t a[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -531,14 +542,14 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
         split_bf16(s[mt][2 * j + 1][2], s[mt][2 * j + 1][3], ph[mt][j][3], pl[mt][j][3]);
       }
 #pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
+    for (int np = 0; np < DV / 16; ++np) {
       float d[MT][2][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) zero(d[mt]);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         uint32_t bb[4];
-        ldsm4t(bb, Vs + (16 * j + lr + 8 * (mi & 1)) * R::LD +
+        ldsm4t(bb, Vs + (16 * j + lr + 8 * (mi & 1)) * RV::LD +
                        (16 * np + 8 * (mi >> 1)) * 2);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
@@ -576,9 +587,9 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
       if (lse != nullptr && t == 0)
         lse[((size_t)b * H + h) * Sq + i] =
             ls > 0.f ? (m[mt][e] + log2f(ls)) * LN2 : CUDART_INF_F;
-      const size_t row = (((size_t)b * Sq + i) * H + h) * HD + 2 * t;
+      const size_t row = (((size_t)b * Sq + i) * H + h) * DV + 2 * t;
 #pragma unroll
-      for (int c = 0; c < HD / 8; ++c) {
+      for (int c = 0; c < DV / 8; ++c) {
         const float x = acc[mt][c][2 * e] * inv;
         const float y = acc[mt][c][2 * e + 1] * inv;
         store2(o + row + 8 * c, x, y);
@@ -587,21 +598,21 @@ flash_fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
     }
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, float* o32, int B, int Sq, int Sk, int H, int KV,
               int causal, int window, float scale, cudaStream_t st) {
   using T = __nv_bfloat16;
-  constexpr int bytes = Tc<HD>::BYTES;
+  constexpr int bytes = Tc<DK, DV>::BYTES;
   // the attribute is per device, so it is set on every launch
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_kernel_tc<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
-  constexpr int rows = Tc<HD>::ROWS;
+  constexpr int rows = Tc<DK, DV>::ROWS;
   const long blocks = (long)((Sq + rows - 1) / rows) * H * B;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  flash_fwd_kernel_tc<HD><<<(unsigned)blocks, TC_NT, bytes, st>>>(
+  flash_fwd_kernel_tc<DK, DV><<<(unsigned)blocks, TC_NT, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, o32, B, Sq, Sk, H,
       KV, causal, window, scale * LOG2E);
@@ -616,13 +627,21 @@ int launch_for(const void* q, const void* k, const void* v, void* o,
   if constexpr (sizeof(T) == 4)
     return launch<T, HD>(q, k, v, o, lse, o32, B, Sq, Sk, H, KV, causal, window, scale, st);
   else
-    return launch_tc<HD>(q, k, v, o, lse, o32, B, Sq, Sk, H, KV, causal, window, scale, st);
+    return launch_tc<HD, HD>(q, k, v, o, lse, o32, B, Sq, Sk, H, KV, causal, window, scale, st);
 }
 
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                float* lse, float* o32, int B, int Sq, int Sk, int H, int KV,
-                int causal, int window, float scale, cudaStream_t st) {
+int dispatch_hd(int hd, int dv, const void* q, const void* k, const void* v,
+                void* o, float* lse, float* o32, int B, int Sq, int Sk, int H,
+                int KV, int causal, int window, float scale, cudaStream_t st) {
+  // MLA's pair (DeepSeek-V2: q / k 192 = 128 + 64 RoPE dims, v 128), bf16
+  if (dv != hd) {
+    if constexpr (sizeof(T) == 2) {
+      if (hd == 192 && dv == 128)
+        return launch_tc<192, 128>(q, k, v, o, lse, o32, B, Sq, Sk, H, KV, causal, window, scale, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (hd) {
     case 64: return launch_for<T, 64>(q, k, v, o, lse, o32, B, Sq, Sk, H, KV, causal, window, scale, st);
     case 80: return launch_for<T, 80>(q, k, v, o, lse, o32, B, Sq, Sk, H, KV, causal, window, scale, st);
@@ -636,21 +655,22 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// q (B, Sq, H, hd), k / v (B, Sk, KV, hd), o (B, Sq, H, hd), contiguous and
-// 16-byte aligned, f32 (bf16 == 0) or bf16; hd in {64, 80, 112, 128};
-// window 0 = none.  For the backward (bwd_kernel.cu), when not null: lse
+// q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, dv), o (B, Sq, H, dv),
+// contiguous and 16-byte aligned, f32 (bf16 == 0) or bf16; hd = dv in {64,
+// 80, 112, 128}, or (hd, dv) = (192, 128) in bf16; window 0 = none; scale
+// multiplies q k^T.  For the backward (bwd_kernel.cu), when not null: lse
 // receives each row's natural-log log-sum-exp, f32 (B, H, Sq), and o32 the
-// output in f32 (B, Sq, H, hd), before its rounding to bf16.
+// output in f32 (B, Sq, H, dv), before its rounding to bf16.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            void* lse, void* o32, int bf16, int B, int Sq,
-                           int Sk, int H, int KV, int hd, int causal,
+                           int Sk, int H, int KV, int hd, int dv, int causal,
                            int window, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto ls = static_cast<float*>(lse);
   auto o4 = static_cast<float*>(o32);
   if (bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, ls, o4, B, Sq, Sk, H, KV, causal, window, scale, st);
-  return dispatch_hd<float>(hd, q, k, v, o, ls, o4, B, Sq, Sk, H, KV, causal, window, scale, st);
+    return dispatch_hd<__nv_bfloat16>(hd, dv, q, k, v, o, ls, o4, B, Sq, Sk, H, KV, causal, window, scale, st);
+  return dispatch_hd<float>(hd, dv, q, k, v, o, ls, o4, B, Sq, Sk, H, KV, causal, window, scale, st);
 }
 
 }  // extern "C"

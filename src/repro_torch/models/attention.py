@@ -15,9 +15,13 @@ arrays), which saves a copy of the whole cache per layer and step.
 of `cross_kv`, every slot at position Se - 1: the reference's softmax
 over the whole encoder output.
 
-MLA is jnp in the reference, so torch ops carry it here: its qk dim
-(nope + rope, 192 at full width) differs from its v dim (128), which the
-flash kernel does not take.  `mla_decode` is the absorbed decode over the
+MLA is jnp in the reference; here `mla_full` runs the same forward
+attention kernel on [q_nope, q_rope] against [k_nope, k_rope broadcast
+over the heads], its qk dim (nope + rope, 192 at full width) apart from
+its v dim (128), with the softmax scale of `mla_scale` (YaRN's mscale^2 /
+sqrt(192) where the config's ``rope_scaling`` asks for it); f32 on the
+card keeps the einsum attention (the kernels' (192, 128) pair is bf16).
+`mla_decode` is the absorbed decode over the
 latent cache (B, S, kv_lora_rank) + (B, S, qk_rope_dim);
 ``cfg.mla_naive_decode`` selects `mla_decode_naive`, which expands the
 whole latent cache to per-head K / V every step.
@@ -36,10 +40,12 @@ import math
 import torch
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.distributed import tp
-from .layers import RMSNorm, apply_rope, dense_init_, dtype_of, param, rmsnorm
+from .layers import (RMSNorm, apply_rope, dense_init_, dtype_of, param,
+                     rmsnorm, yarn_mscale)
 
 
 class GQA(nn.Module):
@@ -210,24 +216,49 @@ def _mla_q(p: MLA, cfg, x, positions):
     else:
         q = x @ p.wq
     q = tp.split_heads(q, H, nd + rd)
-    return q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta)
+    return q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta,
+                                   cfg.rope_scaling)
 
 
 def _mla_ckv(p: MLA, cfg, x, positions):
     ckv = x @ p.w_dkv
     r = cfg.kv_lora_rank
     c = rmsnorm(p.kv_norm, ckv[..., :r])
-    k_rope = apply_rope(ckv[..., None, r:], positions, cfg.rope_theta)
+    k_rope = apply_rope(ckv[..., None, r:], positions, cfg.rope_theta,
+                        cfg.rope_scaling)
     return c, k_rope[..., 0, :]
 
 
-def _mla_scale(cfg):
-    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+def mla_scale(cfg):
+    """The softmax scale 1/sqrt(nope + rope), times YaRN's mscale(factor,
+    mscale_all_dim)^2 where ``rope_scaling`` sets mscale_all_dim
+    (DeepSeek-V2: 1.2608^2 / sqrt(192) = 0.11472)."""
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    s = dict(cfg.rope_scaling)
+    if s.get("mscale_all_dim"):
+        m = yarn_mscale(float(s["factor"]), float(s["mscale_all_dim"]))
+        scale *= m * m
+    return scale
+
 
 
 def _mla_attend(q_nope, q_rope, k_nope, k_rope, v, scale):
-    """Causal MLA attention in f32 on (B, S, H, d) heads (k_rope (B, S, rd)
-    shared by every head); a 1-tuple of (B, S, H, vd)."""
+    """Causal MLA attention on (B, S, H, d) heads (k_rope (B, S, rd) shared
+    by every head); a 1-tuple of (B, S, H, vd).  The forward attention
+    kernel on the concatenated heads; f32 on the card the einsum
+    attention below (`_mla_attend_f32`)."""
+    if q_nope.is_cuda and q_nope.dtype == torch.float32:
+        return _mla_attend_f32(q_nope, q_rope, k_nope, k_rope, v, scale)
+    H = q_nope.shape[2]
+    q = torch.cat([q_nope, q_rope], -1).contiguous()
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        -1, -1, H, -1)], -1).contiguous()
+    return (flash_attention(q, k, v.contiguous(), causal=True, scale=scale),)
+
+
+def _mla_attend_f32(q_nope, q_rope, k_nope, k_rope, v, scale):
+    """Causal MLA attention in f32 by einsum (the kernels take no f32
+    (192, 128) pair)."""
     S = q_nope.shape[1]
     scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
               + torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
@@ -239,17 +270,18 @@ def _mla_attend(q_nope, q_rope, k_nope, k_rope, v, scale):
 
 
 def mla_full(p: MLA, cfg, x, positions):
-    """Causal full-sequence MLA in f32.  x: (B, S, D).  On a sharded model
-    each rank attends with its own heads (`tp.on_heads`)."""
+    """Causal full-sequence MLA.  x: (B, S, D).  On a sharded model each
+    rank attends with its own heads (`tp.on_heads`)."""
     H, nd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c, k_rope = _mla_ckv(p, cfg, x, positions)
     k_nope = tp.split_heads(c @ p.w_uk, H, nd)
     v = tp.split_heads(c @ p.w_uv, H, vd)
-    out, = tp.on_heads(
-        lambda *a: _mla_attend(*a, _mla_scale(cfg)), H,
-        (q_nope, q_rope, k_nope, k_rope, v), in_dims=(2, 2, 2, None, 2),
-        out_dims=(2,))
+    with tracing.span("mla.attend"):
+        out, = tp.on_heads(
+            lambda *a: _mla_attend(*a, mla_scale(cfg)), H,
+            (q_nope, q_rope, k_nope, k_rope, v), in_dims=(2, 2, 2, None, 2),
+            out_dims=(2,))
     return tp.merge_heads(out).to(x.dtype) @ p.wo
 
 
@@ -313,7 +345,7 @@ def mla_decode_naive(p: MLA, cfg, x, cache_c, cache_kr, pos):
     v = (cache_c @ tp.full(p.w_uv)).reshape(B, S, H, vd)
     scores = (torch.einsum("bhd,bshd->bhs", q_nope, k_nope.float())
               + torch.einsum("bhd,bsd->bhs", q_rope, cache_kr.float())
-              ) * _mla_scale(cfg)
+              ) * mla_scale(cfg)
     out = _attend_rows(scores, valid, v.float(), mesh)
     y = out.reshape(B, -1).to(x.dtype) @ p.wo
     return y[:, None, :], cache_c, cache_kr
@@ -338,7 +370,7 @@ def mla_decode(p: MLA, cfg, x, cache_c, cache_kr, pos):
     cf = cache_c.float()
     scores = (torch.einsum("bhr,bsr->bhs", tp.full(q_abs), cf)
               + torch.einsum("bhd,bsd->bhs", tp.full(q_rope),
-                             cache_kr.float())) * _mla_scale(cfg)
+                             cache_kr.float())) * mla_scale(cfg)
     out_c = _attend_rows(scores, valid, cf, mesh)
     out, = tp.on_heads(lambda o, w: (torch.einsum("bhr,rhv->bhv", o,
                                                   w.float()),), H,

@@ -139,11 +139,14 @@ def forward(lm: LM, cfg, batch, long_mode=False):
     return lm(cfg, batch, long_mode=long_mode)
 
 
-def loss_fn(lm: LM, cfg, batch, aux_weight=0.01):
+def loss_fn(lm: LM, cfg, batch, aux_weight=None):
     """Mean next-token cross-entropy over labels >= 0 (negative labels are
     ignored; a vision batch's patch positions take label -1), plus
-    ``aux_weight`` times the aux loss.  Returns (total, metrics) with the
-    reference's metric names."""
+    ``aux_weight`` (default ``cfg.aux_weight``, 0.01 as the reference's)
+    times the aux loss.  Returns (total, metrics) with the reference's
+    metric names."""
+    if aux_weight is None:
+        aux_weight = cfg.aux_weight
     logits, aux = forward(lm, cfg, batch)
     labels = batch["labels"].long()
     if cfg.frontend == "vision" and "patches" in batch:

@@ -42,6 +42,26 @@ local expert block explicitly (`_moe_tp`) and runs the same path over the
 parallelism each rank runs its own experts over their slots of the whole
 layer's dispatch (`_moe_expert_sharded`), a ``Partial`` sum.
 
+A layer that holds a block of experts (``cfg.moe_local_experts`` n > 0,
+first id ``cfg.moe_first_expert``: one rank of DeepSeek-V2's expert-
+parallel layout, `moe_held`), and any layer with the DeepSeek router
+(holding all E), routes every token over all E experts and
+computes its own experts over every choice that reached them, dropless:
+the choices sorted by expert (stable; the others last), one grouped
+product a weight over the held experts' rows (`grouped_swiglu`,
+``torch._grouped_mm`` with device offsets, so nothing waits for the
+host), back to (token, choice) order and summed over k in a fixed order.
+Its output is the held block's share; the shared experts are added once.
+The DeepSeek router (``cfg.moe_router`` "group_limited", `route_grouped`)
+takes the softmax over all experts in f32, the best ``moe_topk_groups``
+of ``moe_n_groups`` groups by their best score, the top k inside them
+(ties to the lower id), gates = scores x ``moe_routed_scaling``, and the
+per-sequence balance loss.  With tracing on, the spans ``moe.route`` and
+``moe.experts`` and the counters ``moe.held_rows`` (choices the held
+experts computed) and ``moe.held_peak_rows`` (rows of the busiest held
+expert), a call each outside the backward pass (a remat's recompute is
+not counted), accumulated on the card.
+
 ``moe_ffn.dropped`` / ``moe_ffn.routed`` count the (token, choice) slots
 dropped at capacity and routed, summed over calls (device tensors, reset
 by assigning 0)."""
@@ -54,6 +74,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.distributed import comm, tp
 from repro_torch.launch.mesh import axis_size, mesh_group
 
@@ -140,6 +161,90 @@ def route(p: MoE, cfg, tokens):
     me = probs.mean(0)
     ce = F.one_hot(idx[:, 0], E).float().mean(0)
     return gates, idx, E * torch.sum(me * ce)
+
+
+def route_grouped(p: MoE, cfg, tokens, batch: int):
+    """DeepSeek-V2's group-limited greedy router.  tokens: (T, D), T =
+    ``batch`` x S in sequence order -> (gates (T, k) f32, idx (T, k)
+    int64, aux):
+
+        s = softmax(tokens W_r) over all E experts (f32)
+        group score = the best s of each of the G groups of E / G experts
+        kept = the top ``moe_topk_groups`` groups; idx = the top k of s over
+        the kept groups' experts (descending, ties to the lower id)
+        gates = s[idx] x ``moe_routed_scaling`` (not renormalised)
+        aux = mean over sequences of sum_e f_e P_e, f_e = (choices of e in
+        the sequence) E / (S k), P_e = the sequence's mean of s_e
+
+    (aux is the per-sequence balance loss before its weight, alpha_1)."""
+    T = tokens.shape[0]
+    E, k = cfg.n_experts, cfg.experts_top_k
+    G, kg = cfg.moe_n_groups, cfg.moe_topk_groups
+    scores = torch.softmax(tokens.float() @ p.router, dim=-1)
+    best = scores.view(T, G, E // G).amax(-1)
+    _, gidx = torch.sort(best, dim=-1, descending=True, stable=True)
+    keep = torch.zeros_like(best, dtype=torch.bool).scatter_(
+        1, gidx[:, :kg], True)
+    masked = scores.masked_fill(~keep.repeat_interleave(E // G, dim=1), 0.0)
+    vals, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
+    gates = vals[:, :k] * cfg.moe_routed_scaling
+    idx = idx[:, :k]
+    S = T // batch
+    f = torch.zeros((batch, E), dtype=torch.float32, device=tokens.device)
+    f.scatter_add_(1, idx.reshape(batch, S * k),
+                   torch.ones((batch, S * k), dtype=torch.float32,
+                              device=tokens.device))
+    f = f / (S * k / E)
+    aux = (f * scores.view(batch, S, E).mean(1)).sum(1).mean()
+    return gates, idx, aux
+
+
+def grouped_swiglu(p, xs, offs):
+    """SwiGLU of the held experts over rows grouped by expert: xs (N, D),
+    expert j's rows [offs[j - 1], offs[j]) (offs (n,) int32 on xs's
+    device).  Rows from offs[-1] on are left unspecified (the caller
+    selects them away).  One ``torch._grouped_mm`` a weight."""
+    g = torch._grouped_mm(xs, p.w_gate, offs=offs)
+    u = torch._grouped_mm(xs, p.w_up, offs=offs)
+    return torch._grouped_mm(F.silu(g) * u, p.w_down, offs=offs)
+
+
+def moe_held(p: MoE, cfg, x):
+    """The held block's share of the layer, dropless (module docstring).
+    x: (B, S, D) -> (y (B, S, D), aux)."""
+    B, S, D = x.shape
+    tokens = x.reshape(-1, D)
+    T = tokens.shape[0]
+    k = cfg.experts_top_k
+    n, lo = p.w_gate.shape[0], cfg.moe_first_expert
+    with tracing.span("moe.route"):
+        if cfg.moe_router == "group_limited":
+            gates, idx, aux = route_grouped(p, cfg, tokens, B)
+        else:
+            gates, idx, aux = route(p, cfg, tokens)
+        flat = idx.reshape(-1)
+        held = (flat >= lo) & (flat < lo + n)
+        key = torch.where(held, flat - lo, torch.full_like(flat, n))
+        order = torch.argsort(key, stable=True)
+        counts = key.new_zeros(n + 1).scatter_add_(0, key,
+                                                   torch.ones_like(key))
+        offs = torch.cumsum(counts[:n], 0).to(torch.int32)
+        inv = torch.empty_like(order).scatter_(
+            0, order, torch.arange(order.numel(), device=order.device))
+        hs = held[order][:, None]
+    if torch._C._current_graph_task_id() == -1:     # not a recompute
+        tracing.count("moe.held_rows", counts[:n].sum())
+        tracing.count("moe.held_peak_rows", counts[:n].amax())
+    with tracing.span("moe.experts"):
+        src = tokens[:, None, :].expand(T, k, D).reshape(T * k, D)
+        xs = torch.where(hs, src[order], torch.zeros((), dtype=src.dtype,
+                                                      device=src.device))
+        out = torch.where(hs, grouped_swiglu(p, xs, offs),
+                          torch.zeros((), dtype=xs.dtype, device=xs.device))
+        w = (gates.reshape(-1, 1) * held[:, None]).to(out.dtype)
+        y = (out[inv] * w).to(tokens.dtype).reshape(T, k, D).sum(1)
+    moe_ffn.routed = moe_ffn.routed + T * k
+    return y.reshape(B, S, D), aux
 
 
 def expert_mm(p, buffer):
@@ -316,7 +421,13 @@ def moe_ffn(p: MoE, cfg, x, mesh=None):
     over ``mesh`` where `expert_parallel` holds (over a sharded model's
     "model" sub-mesh for a DTensor ``x``)."""
     B, S, D = x.shape
-    if tp.is_dt(x):
+    if cfg.moe_local_experts or cfg.moe_router != "topk":
+        if tp.is_dt(x):
+            raise NotImplementedError(
+                "moe_ffn: a held expert block or the group-limited router "
+                "on a sharded model is not ported")
+        y, aux = moe_held(p, cfg, x)
+    elif tp.is_dt(x):
         y, aux = _moe_tp(p, cfg, x)
     elif expert_parallel(cfg, mesh):
         y, aux = moe_shard_map(p, cfg, x, mesh)

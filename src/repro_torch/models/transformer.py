@@ -3,7 +3,8 @@
 group by group, pattern slot by pattern slot, then the tail groups:
 
 - `Block` for an attention layer ``("attn", "dense" | "moe")`` or an MLA
-  layer ``("mla", "moe")``;
+  layer ``("mla", "moe" | "dense")`` (DeepSeek's leading dense layers: a
+  pattern of ``("mla", "dense")`` before a tail of ``("mla", "moe")``);
 - `SSMBlock` for a Mamba-2 layer ``("ssm", "none")``;
 - `SharedSlot`, which holds nothing, for a slot of the hybrid's shared
   attention block ``("shared_attn", "none")``: the one `SharedBlock` lives
@@ -25,8 +26,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (ATTN_DENSE, ATTN_MOE, MLA_MOE,
-                                      SHARED_ATTN, SSM)
+from repro_torch.configs.base import (ATTN_DENSE, ATTN_MOE, MLA_DENSE,
+                                      MLA_MOE, SHARED_ATTN, SSM)
 from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import active_mesh, constrain
 
@@ -36,7 +37,7 @@ from .attention import (GQA, MLA, gqa_cross_decode, gqa_decode, gqa_full,
                         mla_decode, mla_full)
 from .layers import MLP, RMSNorm, dtype_of, mlp, rmsnorm
 
-PORTED_SPECS = (ATTN_DENSE, ATTN_MOE, MLA_MOE, SSM, SHARED_ATTN)
+PORTED_SPECS = (ATTN_DENSE, ATTN_MOE, MLA_MOE, MLA_DENSE, SSM, SHARED_ATTN)
 
 
 class _Layer(nn.Module):
@@ -64,7 +65,8 @@ class Block(_Layer):
             self.cross = GQA(cfg, device)
         self.norm2 = RMSNorm(cfg.d_model, dt, device)
         if ffn == "moe":
-            self.moe = moe_mod.MoE(cfg, device)
+            self.moe = moe_mod.MoE(cfg, device,
+                                   n_local=cfg.moe_local_experts or None)
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
 

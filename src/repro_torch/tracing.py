@@ -152,10 +152,12 @@ def span(name: str, **attrs):
     return _Span(name, attrs)
 
 
-def count(name: str, n: int = 1) -> None:
+def count(name: str, n=1) -> None:
     """Add ``n`` to counter ``name`` at the innermost span open on this
     thread, or on a thread that opened none (autograd's, running a
-    backward) at the latest span opened on any thread."""
+    backward) at the latest span opened on any thread.  ``n`` may be a
+    device tensor: it is added on the device, where it stays until
+    `summary` reads it, so a count never waits for the card."""
     if not (_enabled or _profiler._is_profiler_enabled):
         return
     st = _stack()
@@ -166,6 +168,11 @@ def count(name: str, n: int = 1) -> None:
     with _lock:
         sites = _counters.setdefault(name, {})
         sites[site] = sites.get(site, 0) + n
+
+
+def _value(n):
+    """A counter's number: a device tensor read back (one wait, here)."""
+    return n.item() if hasattr(n, "item") else n
 
 
 def records() -> List[Record]:
@@ -180,6 +187,8 @@ def summary() -> dict:
     with _lock:
         spans = {k: {"count": c, "total_ms": ns / 1e6}
                  for k, (c, ns) in sorted(_totals.items())}
-        ctr = {k: {"total": sum(v.values()), "sites": dict(sorted(v.items()))}
-               for k, v in sorted(_counters.items())}
+        counters = {k: {s: _value(n) for s, n in v.items()}
+                    for k, v in _counters.items()}
+    ctr = {k: {"total": sum(v.values()), "sites": dict(sorted(v.items()))}
+           for k, v in sorted(counters.items())}
     return {"active": active(), "spans": spans, "counters": ctr}

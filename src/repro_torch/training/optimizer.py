@@ -24,6 +24,11 @@ from repro_torch import tracing
 
 Tensors = Dict[str, torch.Tensor]
 
+#: f32 bytes of the leaves one round of `update`'s multi-tensor ops takes:
+#: its temporaries (about 18 bytes a parameter) are one group's, not the
+#: whole model's.  A leaf larger than this is a group of its own.
+GROUP_BYTES = 1 << 30
+
 
 @dataclass(frozen=True)
 class OptConfig:
@@ -74,16 +79,36 @@ def global_norm(tensors: Tensors) -> torch.Tensor:
                           for t in tensors.values()))
 
 
+def groups(names, tensors: Tensors, limit: int = GROUP_BYTES):
+    """``names`` in order, cut into runs whose f32 bytes stay within
+    ``limit`` (a larger leaf alone)."""
+    out, cur, nbytes = [], [], 0
+    for n in names:
+        b = 4 * _local(tensors[n]).numel()
+        if cur and nbytes + b > limit:
+            out.append(cur)
+            cur, nbytes = [], 0
+        cur.append(n)
+        nbytes += b
+    if cur:
+        out.append(cur)
+    return out
+
+
 @torch.no_grad()
 def update(opt: OptConfig, grads: Tensors, state: dict,
-           params: Tensors) -> Dict[str, torch.Tensor]:
+           params: Tensors, group_bytes: int = GROUP_BYTES
+           ) -> Dict[str, torch.Tensor]:
     """One AdamW step: clip by the global norm, bias-corrected moments,
     decoupled weight decay on the f32 master, parameters cast back to
     their dtype.  ``state`` and ``params`` are updated in place, the step
     counter too, so a step captured in a CUDA graph replays as the next
     step.  The moments and weights go through multi-tensor (``_foreach``)
     ops, one launch for many parameters, in the order of the reference's
-    per-leaf formula.  Returns {"grad_norm", "lr"}."""
+    per-leaf formula, over `groups` of leaves of at most ``group_bytes``
+    f32 bytes in turn: every element takes the same operations whatever
+    the grouping, so the numbers are the same bits, and the temporaries
+    are one group's.  Returns {"grad_norm", "lr"}."""
     state["step"].add_(1)
     step = state["step"]
     with tracing.span("train.clip"):
@@ -95,7 +120,14 @@ def update(opt: OptConfig, grads: Tensors, state: dict,
     bc2 = 1 - opt.b2 ** stepf
     dev = next(iter(params.values())).device
     scale, lr, bc1, bc2 = (t.to(dev) for t in (scale, lr, bc1, bc2))
-    names = list(params)
+    for names in groups(list(params), params, group_bytes):
+        _adamw(opt, names, grads, state, params, scale, lr, bc1, bc2)
+    return {"grad_norm": gnorm, "lr": lr}
+
+
+def _adamw(opt, names, grads, state, params, scale, lr, bc1, bc2):
+    """The moments' and weights' multi-tensor ops over the leaves
+    ``names``."""
     m, v, master = ([_local(state[k][n]) for n in names]
                     for k in ("m", "v", "master"))
     g = torch._foreach_mul([_local(grads[n]).float() for n in names], scale)
@@ -112,4 +144,3 @@ def update(opt: OptConfig, grads: Tensors, state: dict,
     torch._foreach_add_(upd, torch._foreach_mul(master, opt.weight_decay))
     torch._foreach_sub_(master, torch._foreach_mul(upd, lr))
     torch._foreach_copy_([_local(params[n]) for n in names], master)
-    return {"grad_norm": gnorm, "lr": lr}

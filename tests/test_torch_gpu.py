@@ -1819,7 +1819,8 @@ def test_gpu_f32_forward_bits_unchanged():
 @pytest.mark.gpu
 def test_gpu_forward_sass_bf16_on_the_tensor_cores():
     """`cuobjdump -sass` of the forward library: HMMA.16816 in each of the
-    four bf16 entry functions, no HMMA at all in the four f32 ones."""
+    five bf16 entry functions (hd 64 / 80 / 112 / 128 and MLA's q / k 192
+    with v 128), no HMMA at all in the four f32 ones."""
     _need_cuda()
     from repro_torch.kernels import _build
     bf16 = _build.sass_count("flash_attention", "HMMA.16816",
@@ -1827,7 +1828,9 @@ def test_gpu_forward_sass_bf16_on_the_tensor_cores():
     any_mma = _build.sass_count("flash_attention", "HMMA", by_function=True)
     tc = [f for f in any_mma if "flash_fwd_kernel_tc" in f]
     fma = [f for f in any_mma if "flash_fwd_kernel" in f and f not in tc]
-    assert len(tc) == 4 and len(fma) == 4, sorted(any_mma)
+    # the four head dims, and MLA's (192, 128) pair
+    assert len(tc) == 5 and len(fma) == 4, sorted(any_mma)
+    assert any("ILi192ELi128E" in f for f in tc), tc
     assert all(bf16[f] > 0 for f in tc), bf16
     assert all(any_mma[f] == 0 for f in fma), any_mma
 
@@ -1848,4 +1851,170 @@ def test_gpu_danube_step_runs_the_tensor_core_forward():
     assert (fops.flash_attention.launches - n0[0],
             fops.flash_attention.tc_launches - n0[1],
             fops.flash_attention_bwd.launches - n0[2]) == (48, 48, 24)
+    torch.cuda.empty_cache()
+
+
+# ---- MLA's (192, 128) pair (DeepSeek-V2) and the unchanged bits ----------
+
+#: sha256 of kernel 2's bf16 forward (o, lse, o32) and kernel 2b's backward
+#: (dq, dk, dv) at `_bits_inputs`, from the kernels before the (192, 128)
+#: pair joined their templates (an H100, sm_90a): danube's two training
+#: shapes, the other head dims and an f32 case give the same bits
+_BITS_DIGESTS = {
+    "fwd B=2 S=4096 H=32 KV=8 hd=80 bfloat16":
+        "7c3114c31e696803339bb9cf07c275ee6c425e79e91e48bc50d38e7cafe568f2",
+    "bwd B=2 S=4096 H=32 KV=8 hd=80 bfloat16":
+        "7e0cf3cf2fc606dd231b8bd125b136a7efa2c2fb0a019d91c8984a21f1e1dfc1",
+    "fwd B=8 S=1024 H=32 KV=8 hd=80 bfloat16":
+        "5f35664dbbf777260ddd711be3498d68fdef024dde7770357f2e11686febd6a0",
+    "bwd B=8 S=1024 H=32 KV=8 hd=80 bfloat16":
+        "22a007a01deabef439dd7a2bae60ea64a907318ac0041171e31a6e00485579f6",
+    "fwd B=1 S=300 H=8 KV=2 hd=64 bfloat16":
+        "10eb751e3b52f0eb55b753460aed0d91945cbea80a9fecc2ef9a78026ad597ca",
+    "bwd B=1 S=300 H=8 KV=2 hd=64 bfloat16":
+        "f9f153785d453c11df16b2ae658086917a6fcc6052244d2f6662e1a336c2f1e6",
+    "fwd B=1 S=300 H=8 KV=8 hd=112 bfloat16":
+        "040ef93cad99c20d3f158c863abb6b7ef50ca46c9bbad45362e7ec81e6f5b63c",
+    "bwd B=1 S=300 H=8 KV=8 hd=112 bfloat16":
+        "43a547eb55cd86b464b5be9761757a7270e577ba80b82526359fd26aba42d18c",
+    "fwd B=2 S=500 H=16 KV=4 hd=128 bfloat16":
+        "6c8e397fcdda4ee7c047ac59325ec063e8b21f38142e42074adca02fa7cb0cc3",
+    "bwd B=2 S=500 H=16 KV=4 hd=128 bfloat16":
+        "cd110674806e71036a2e04babb12d6d12e8b3974fc572cefc5e211ee5ee34b31",
+    "fwd B=2 S=256 H=8 KV=4 hd=80 float32":
+        "1a920bf96b87ebadcc903cec443f15c8729a9c79cc5bd1353ae76d06ef117287",
+    "bwd B=2 S=256 H=8 KV=4 hd=80 float32":
+        "99a3633bc06dc4dc725d7fbc59a5ecfd5e324058d676c3cd2766dc771693469e"}
+
+
+def _bits_inputs(B, S, H, KV, hd, dt):
+    g = torch.Generator(device="cuda").manual_seed(B * 100003 + S * 7 + hd)
+    return [torch.randn(*sh, device="cuda", generator=g).to(dt) for sh in
+            [(B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)]]
+
+
+@pytest.mark.gpu
+def test_gpu_equal_dim_kernels_keep_their_bits():
+    """Kernels 2 and 2b at danube's shapes (and hd 64 / 112 / 128, f32)
+    give the recorded bits of the templates before MLA's pair."""
+    _need_cuda()
+    import hashlib
+    from repro_torch.kernels.flash_attention import ops as fops
+    cases = [(2, 4096, 32, 8, 80, torch.bfloat16),
+             (8, 1024, 32, 8, 80, torch.bfloat16),
+             (1, 300, 8, 2, 64, torch.bfloat16),
+             (1, 300, 8, 8, 112, torch.bfloat16),
+             (2, 500, 16, 4, 128, torch.bfloat16),
+             (2, 256, 8, 4, 80, torch.float32)]
+    got = {}
+    for B, S, H, KV, hd, dt in cases:
+        q, k, v, do = _bits_inputs(B, S, H, KV, hd, dt)
+        o, lse, o32 = fops._forward(q, k, v, True, 0, True)
+        grads = fops.flash_attention_bwd(q, k, v, do, causal=True, window=0,
+                                         out=o32, lse=lse)
+        for name, ts in (("fwd", (o, lse, o32)), ("bwd", grads)):
+            h = hashlib.sha256()
+            for t in ts:
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+            got[f"{name} B={B} S={S} H={H} KV={KV} hd={hd} "
+                f"{str(dt)[6:]}"] = h.hexdigest()
+    assert got == _BITS_DIGESTS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H", [(1, 300, 4), (2, 1000, 8)])
+def test_gpu_mla_pair_matches_plain_and_sdpa(B, S, H):
+    """Kernels 2 and 2b at q / k 192 and v 128 (bf16, causal, YaRN's
+    scale) against the plain version in f32 on the same values and
+    against SDPA's forward and backward: o within the bf16 limit (1e-2,
+    or 2^-8 |ref| + 2e-5 where larger), dq / dk / dv within the same; a
+    second backward gives the same bits."""
+    _need_cuda()
+    import math
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    c = (0.1 * 0.707 * math.log(40) + 1) ** 2 / math.sqrt(192)
+    g = torch.Generator(device="cuda").manual_seed(S + H)
+    q, k = (torch.randn(B, S, H, 192, device="cuda", generator=g).bfloat16()
+            for _ in range(2))
+    v, do = (torch.randn(B, S, H, 128, device="cuda", generator=g).bfloat16()
+             for _ in range(2))
+    o, lse, o32 = fops._forward(q, k, v, True, 0, True, c)
+    got = fops.flash_attention_bwd(q, k, v, do, causal=True, out=o32,
+                                   lse=lse, scale=c)
+    again = fops.flash_attention_bwd(q, k, v, do, causal=True, out=o32,
+                                     lse=lse, scale=c)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    qq, kk, vv = (t.float().requires_grad_() for t in (q, k, v))
+    ref = flash_attention_reference(qq, kk, vv, causal=True, scale=c)
+    grads = torch.autograd.grad(ref, (qq, kk, vv), do.float())
+    qt, kt, vt = (t.transpose(1, 2).float().requires_grad_()
+                  for t in (q, k, v))
+    sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=c)
+    sgrads = torch.autograd.grad(sd, (qt, kt, vt),
+                                 do.transpose(1, 2).float())
+
+    def ratio(a, r):
+        lim = torch.maximum(torch.full_like(r, 1e-2),
+                            r.abs() * 2.0 ** -8 + 2e-5)
+        return float(((a.float() - r).abs() / lim).max())
+    assert ratio(o, ref.detach()) <= 1.0
+    assert ratio(o, sd.detach().transpose(1, 2)) <= 1.0
+    for a, r, s in zip(got, grads, sgrads):
+        assert ratio(a, r) <= 1.0
+        assert ratio(a, s.transpose(1, 2)) <= 1.0
+
+
+@pytest.mark.gpu
+def test_gpu_backward_sass_mla_pair_on_the_tensor_cores():
+    """HMMA.16816 in the backward's (192, 128) instantiation."""
+    _need_cuda()
+    from repro_torch.kernels import _build
+    bf16 = _build.sass_count("flash_attention_bwd", "HMMA.16816",
+                             by_function=True)
+    mla = [f for f in bf16 if "flash_bwd_kernel" in f
+           and "Li192ELi128E" in f]
+    assert len(mla) == 1 and bf16[mla[0]] > 0, sorted(bf16)
+
+
+@pytest.mark.gpu
+def test_gpu_deepseek_step_runs_the_mla_kernels(monkeypatch):
+    """One training step of DeepSeek-V2 at its published widths (one dense
+    and one MoE layer, 20 of 160 experts held, per-layer remat, bf16):
+    MLA's attention goes through kernels 2 and 2b at (192, 128), 4
+    forward launches (forward and recompute) and 2 backward, and never
+    through the f32 einsum attention."""
+    _need_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MLA_DENSE, MLA_MOE
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import make_train_step
+
+    def refuse(*a, **kw):
+        raise AssertionError("the einsum attention ran on the card")
+    monkeypatch.setattr(A, "_mla_attend_f32", refuse)
+    yarn = (("beta_fast", 32), ("beta_slow", 1), ("factor", 40),
+            ("mscale", 0.707), ("mscale_all_dim", 0.707),
+            ("original_max_position_embeddings", 4096), ("type", "yarn"))
+    cfg = get_config("deepseek-v2-236b").replace(
+        n_layers=2, pattern=(MLA_DENSE,), n_groups=1,
+        tail_pattern=(MLA_MOE,), n_tail_groups=1, vocab_size=1024,
+        head_dim=192, moe_router="group_limited", moe_n_groups=8,
+        moe_topk_groups=3, moe_routed_scaling=16.0, moe_local_experts=20,
+        rope_scaling=yarn, aux_weight=0.003)
+    lm = M.init_params(cfg, seed=0, device="cuda")
+    st = O.init(dict(lm.named_parameters()))
+    step = make_train_step(cfg, O.OptConfig(warmup_steps=1))
+    tok = torch.randint(0, 1024, (1, 257), device="cuda")
+    n0 = (fops.flash_attention.tc_launches,
+          fops.flash_attention_bwd.launches)
+    m = step(lm, st, {"tokens": tok[:, :-1], "labels": tok[:, 1:]})
+    assert np.isfinite(float(m["loss"]))
+    assert (fops.flash_attention.tc_launches - n0[0],
+            fops.flash_attention_bwd.launches - n0[1]) == (4, 2)
+    del lm, st
     torch.cuda.empty_cache()
