@@ -71,7 +71,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      k = 2,048.  Decode attention runs at the span edges (positions 0,
      span - 1, span, S - 1, a slot with no valid key) and with spans of
      64 and 128 rows; flash attention at an S that is not a multiple of
-     its 64-key tile.
+     its 64-key tile.  AdamW's two passes (`kernels.adamw`) run over the
+     leaves of h2o-danube-1.8b and of a DeepSeek-V2 rank, each timed
+     against the plain code it replaces (`global_norm`, the `_foreach`
+     chain): the norm within 1e-6 of `global_norm`'s and the clip's scale
+     its formula on it, the update's bits on a few leaves.
   5. mamba2-370m (slice 3), at its published widths with seeded weights:
      a. `repro_torch.launch.train.main` trains 10 steps in bf16 (batch 4 x
         2,048, zipf stream) with the counters zeroed just before and read
@@ -129,7 +133,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
         remat), counters zeroed before and read after: the loss finite
         and falling, kernel 2 >= 2 x 24 x 10 launches, every one on its
         bf16 tensor-core kernel, and kernel 2b (the
-        flash backward) >= 24 x 10, no plain attention reached with a CUDA
+        flash backward) >= 24 x 10, AdamW's norm pass 5 launches a step
+        and its update pass 4, no plain attention reached with a CUDA
         tensor; `--ckpt` (the reference's layout) read back through the
         port's reader, bitwise equal; one step under `torch.profiler`
         (device time by kernel, idle share).
@@ -240,7 +245,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
         `STEPS13_UPDATE_TOL` of the update's size), a prefill and 8
         decode steps; mamba2-370m
         likewise, 2 train steps; the launches of kernels 2, 2b, 3, 6 and
-        6b through `local_map`, sharded and unsharded walls;
+        6b through `local_map` and of AdamW's two passes, sharded and
+        unsharded walls;
      b. on phase 12's four ranks (`phase13_ep_rank`, inside phase 12's
         spawn): 12c's layer's routed experts expert-parallel, forward and
         backward through (y . gy) + aux, the gradients to the input, the
@@ -250,8 +256,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 The line before the last is the kernels' JSON summary, the last line the
 device record.  Its cases are the main path's: for kernels 4 and 5 the
 fitted phase-4 index (the synthetic one with --kernels); kernel 6's
-launches are read on phase 5a's training path, kernel 2b's on phase 9a's
-(phase 10's launches are in its own lines).
+launches are read on phase 5a's training path, kernel 2b's and AdamW's
+passes' on phase 9a's (phase 10's launches are in its own lines).
 """
 from __future__ import annotations
 
@@ -291,6 +297,11 @@ KERNEL_SOURCES = {
     # whose intra-chunk part the kernel computes (ref.py:27-82)
     "ssd_intra_bwd": ("src/repro_torch/kernels/ssd_scan/bwd_kernel.cu",
                       "src/repro/kernels/ssd_scan/kernel.py:59"),
+    # AdamW's clip and update: the JAX trainer leaves them to XLA
+    "adamw_clip_scale": ("src/repro_torch/kernels/adamw/kernel.cu",
+                         "src/repro/training/optimizer.py:53"),
+    "adamw_update": ("src/repro_torch/kernels/adamw/kernel.cu",
+                     "src/repro/training/optimizer.py:50"),
 }
 #: the main path's retrieval shape: 16 texts against the 70,000-row train
 #: split of a 100,000-row support set, ~sqrt(N) = 265 lists, lists capped at
@@ -682,6 +693,124 @@ def mla_case(torch, timer, B, S, H, gen, block=16):
                 library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd)
 
 
+def adamw_leaf_sets():
+    """(shape, dtype) of every leaf of the two trained configurations, as
+    their benchmark cells train them: h2o-danube-1.8b (219 bf16 leaves,
+    1.83 B parameters) and one expert-parallel rank of DeepSeek-V2 (5
+    layers, 20 of 160 experts held, 12,800 ids: 84 leaves, the routers
+    f32, 3.15 B parameters)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MLA_DENSE, MLA_MOE
+    from repro_torch.models import model as M
+    dsv2 = get_config("deepseek-v2-236b").replace(
+        n_layers=5, pattern=(MLA_DENSE,), n_groups=1,
+        tail_pattern=(MLA_MOE,), n_tail_groups=4, vocab_size=12800,
+        head_dim=192, moe_local_experts=20)
+    return {label: {n: (tuple(p.shape), p.dtype)
+                    for n, p in M.LM(cfg, "meta").named_parameters()}
+            for label, cfg in (("h2o-danube-1.8b",
+                                get_config("h2o-danube-1.8b")),
+                               ("deepseek-v2-236b", dsv2))}
+
+
+def adamw_case(torch, timer, label, leaves, gen, check=8):
+    """AdamW's two passes (`kernels.adamw`) over a model's leaf set, each
+    timed alone against the plain code it replaces, and `training.
+    optimizer.update` whole (the norm, the schedule's scalars, the
+    update).  The norm pass: its norm within `ADAMW_NORM_RTOL` of
+    `global_norm`'s on the same gradients, its scale the clip's formula
+    on that norm bit for bit, two calls the same bits.  The update pass:
+    ``check`` leaves (the first ones and an f32 one, where there is one)
+    through it and through the `_foreach` chain from the same state with
+    the same scalars, the same bits.  Bounds: the bytes, a gradient read
+    by the norm; g, m, v and the master read, m, v and the master
+    written, the parameter written by the update.  Returns the records of
+    the kernels line's "adamw_clip_scale" and "adamw_update"."""
+    from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.training import optimizer as O
+    params = {n: torch.empty(s, dtype=dt, device="cuda").normal_(
+        std=0.02, generator=gen) for n, (s, dt) in leaves.items()}
+    grads = {n: torch.empty_like(p).normal_(std=1e-3, generator=gen)
+             for n, p in params.items()}
+    st = O.init(params)
+    opt = O.OptConfig(warmup_steps=1, clip_norm=1e-3)
+    names = list(params)
+    gl = [grads[n] for n in names]
+    # the norm pass against `global_norm` and the clip's formula
+    gnorm, scale = aops.clip_scale(gl, opt.clip_norm)
+    want = O.global_norm(grads)
+    norm_err = abs(float(gnorm) - float(want))
+    again = aops.clip_scale(gl, opt.clip_norm)
+    assert norm_err <= ADAMW_NORM_RTOL * float(want), \
+        f"{label}: norm {float(gnorm)} against global_norm {float(want)}"
+    assert torch.equal(scale, O.clip_factor(opt.clip_norm, gnorm)), \
+        f"{label}: the clip's scale is not its formula on the norm"
+    assert float(scale) < 1, f"{label}: the clip is not active"
+    assert torch.equal(gnorm, again[0]) and torch.equal(scale, again[1]), \
+        f"{label}: the norm repeats apart"
+    norm_ms = timer(lambda: aops.clip_scale(gl, opt.clip_norm))
+    norm_plain_ms = timer(lambda: O.clip_factor(
+        opt.clip_norm, O.global_norm(grads)), iters=3)
+    # the update pass, its bits on ``check`` leaves
+    lr, bc1, bc2 = (torch.full((), x, device="cuda") for x in
+                    (3e-4, 0.19, 0.0975))
+    consts = (opt.b1, 1 - opt.b1, opt.b2, 1 - opt.b2, opt.eps,
+              opt.weight_decay)
+    few = names[:check] + [n for n in names[check:]
+                           if params[n].dtype == torch.float32][:1]
+
+    def copy():
+        return ({n: params[n].clone() for n in few},
+                {k: {n: st[k][n].clone() for n in few}
+                 for k in ("m", "v", "master")})
+    (fp, fs), (pp, ps) = copy(), copy()
+    aops.adamw_update([grads[n] for n in few],
+                      *([fs[k][n] for n in few] for k in ("m", "v",
+                                                          "master")),
+                      [fp[n] for n in few], scale, lr, bc1, bc2, consts)
+    O._adamw(opt, few, grads, ps, pp, scale, lr, bc1, bc2)
+    upd_err = max(float((fp[n].float() - pp[n].float()).abs().max())
+                  for n in few)
+    bitwise = all(torch.equal(fp[n], pp[n])
+                  and all(torch.equal(fs[k][n], ps[k][n]) for k in fs)
+                  for n in few)
+    assert bitwise, f"{label}: the update pass's bits differ"
+    del fp, fs, pp, ps
+    ms_lists = [[st[k][n] for n in names] for k in ("m", "v", "master")]
+    pl = [params[n] for n in names]
+    upd_ms = timer(lambda: aops.adamw_update(gl, *ms_lists, pl, scale, lr,
+                                             bc1, bc2, consts))
+    upd_plain_ms = timer(lambda: [
+        O._adamw(opt, grp, grads, st, params, scale, lr, bc1, bc2)
+        for grp in O.groups(names, params)], iters=3)
+    whole_ms = timer(lambda: O.update(opt, grads, st, params))
+    n = sum(p.numel() for p in params.values())
+    g_bytes = sum(g.numel() * g.element_size() for g in gl)
+    upd_bytes = g_bytes + sum(p.numel() * (24 + p.element_size())
+                              for p in pl)
+    case = f"{label}: {len(leaves)} leaves, {n:,} parameters"
+    del params, grads, st, gl, pl, ms_lists
+    torch.cuda.empty_cache()
+    out = {}
+    for name, ms, plain, nbytes, err in (
+            ("adamw_clip_scale", norm_ms, norm_plain_ms, g_bytes, norm_err),
+            ("adamw_update", upd_ms, upd_plain_ms, upd_bytes, upd_err)):
+        b_ms, b_by = bound(nbytes, 0, torch.float32)
+        out[name] = dict(case=case, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                         bound_by=b_by, roofline_pct=100 * b_ms / ms,
+                         max_abs_err=err, library_ms=None)
+    out["adamw_clip_scale"].update(norm_rel_err=norm_err / float(want),
+                                   repeat_bitwise_equal=True)
+    out["adamw_update"].update(bitwise_equal=bitwise, checked_leaves=few,
+                               update_whole_ms=whole_ms)
+    return out
+
+
+#: the norm pass against `global_norm` (relative): the two differ only in
+#: the order of their sums, f64 partials against per-tensor f32 sums
+ADAMW_NORM_RTOL = 1e-6
+
+
 #: kernel 3's log-sum-exp against the plain one in f32 on the same values
 #: (absolute: the two differ only in the order of f32 sums)
 DECODE_LSE_TOL = 1e-4
@@ -1017,6 +1146,14 @@ def phase_kernels(torch, seed):
     for args in [(1, 300, 4), (2, 4096, 128)]:
         r = mla_case(torch, timer, *args, gen=gen("mla", *args))
         emit("kernel", name="flash_attention_mla", **r)
+    # AdamW's two passes over the trained cells' leaf sets (danube's,
+    # phase 9a's, first)
+    for i, (label, leaves) in enumerate(adamw_leaf_sets().items()):
+        recs = adamw_case(torch, timer, label, leaves, gen("adamw", label))
+        for name, r in recs.items():
+            emit("kernel", name=name, **r)
+            if i == 0:
+                main[name] = r
     return main
 
 
@@ -1537,11 +1674,13 @@ def kernel_wrappers():
     from repro_torch.kernels.knn_ivf.ops import ivf_scan, ivfpq_adc
     from repro_torch.kernels.knn_topk.ops import knn_topk
     from repro_torch.kernels.ssd_scan.ops import ssd_intra, ssd_intra_bwd
+    from repro_torch.kernels.adamw.ops import adamw_update, clip_scale
     return {"knn_topk": knn_topk, "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention, "ivf_topk": ivf_scan,
             "ivfpq_adc": ivfpq_adc, "ssd_intra": ssd_intra,
-            "ssd_intra_bwd": ssd_intra_bwd}
+            "ssd_intra_bwd": ssd_intra_bwd, "adamw_clip_scale": clip_scale,
+            "adamw_update": adamw_update}
 
 
 def stage_timer(torch, stages):
@@ -3361,8 +3500,11 @@ def phase_train_attention(torch, wrappers):
                launches={n: launches[n] for n in ("flash_attention",
                                                   "flash_attention_bwd")},
                flash_attention_tc_launches=tc_launches,
+               optimizer_launches={n: launches[n] for n in
+                                   ("adamw_clip_scale", "adamw_update")},
                other_launches={n: v for n, v in launches.items() if n not in
-                               ("flash_attention", "flash_attention_bwd")},
+                               ("flash_attention", "flash_attention_bwd",
+                                "adamw_clip_scale", "adamw_update")},
                checkpoint_bytes=ck_bytes, checkpoint_read_s=read_s,
                checkpoint_bitwise_equal=equal)
     emit("train_attention", **rec)
@@ -3375,6 +3517,10 @@ def phase_train_attention(torch, wrappers):
     # bf16: every forward on the tensor-core kernel
     assert tc_launches == launches["flash_attention"], (tc_launches,
                                                         launches)
+    # AdamW on its two passes: 219 leaves a step in 4 launches of at most
+    # 64, the norm pass's 4 and its finishing one
+    assert (launches["adamw_clip_scale"], launches["adamw_update"]) == (
+        5 * TRAIN9["steps"], 4 * TRAIN9["steps"]), launches
     assert equal, "the checkpoint read back differs from the weights"
     torch.cuda.empty_cache()
 
@@ -4945,6 +5091,11 @@ def phase_sharded_steps(torch, smi, ep13):
         assert dan[part]["launches"].get(kname, 0) > 0, (part, dan[part])
     for kname in ("ssd_intra", "ssd_intra_bwd"):
         assert mam["train"]["launches"].get(kname, 0) > 0, mam["train"]
+    # the sharded steps' AdamW on its two passes (the norm over the local
+    # shards, `optimizer.sharded_sumsq`)
+    for rec in (dan, mam):
+        for kname in ("adamw_clip_scale", "adamw_update"):
+            assert rec["train"]["launches"].get(kname, 0) > 0, rec["train"]
     assert all(v <= EP13_TOL for v in b["rel_l2"].values()), b
     assert wall < PHASE13_BUDGET_S, f"phase 13 took {wall:.1f} s"
     return a, b
@@ -5040,7 +5191,8 @@ def main(argv=None):
         phase_sharded_steps(torch, smi, ep13)
         path_of = {"ivf_topk": second, "ivfpq_adc": second,
                    "ssd_intra": third, "ssd_intra_bwd": third,
-                   "flash_attention_bwd": ninth}
+                   "flash_attention_bwd": ninth, "adamw_clip_scale": ninth,
+                   "adamw_update": ninth}
         launches = {n: path_of.get(n, first)[n] for n in main_cases}
     assert "jax" not in sys.modules and "repro" not in sys.modules
 

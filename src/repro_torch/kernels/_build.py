@@ -29,7 +29,8 @@ KERNELS = {"knn_topk": "knn_topk/kernel.cu",
            "ivf_topk": "knn_ivf/kernel.cu",
            "ivfpq_adc": "knn_ivf/pq_kernel.cu",
            "ssd_intra": "ssd_scan/kernel.cu",
-           "ssd_intra_bwd": "ssd_scan/bwd_kernel.cu"}
+           "ssd_intra_bwd": "ssd_scan/bwd_kernel.cu",
+           "adamw": "adamw/kernel.cu"}
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE.parents[2] / "build" / "torch_kernels"

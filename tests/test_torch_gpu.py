@@ -2018,3 +2018,306 @@ def test_gpu_deepseek_step_runs_the_mla_kernels(monkeypatch):
             fops.flash_attention_bwd.launches - n0[1]) == (4, 2)
     del lm, st
     torch.cuda.empty_cache()
+
+
+# ---- AdamW's two passes (`kernels.adamw`) ---------------------------------
+
+def _adamw_leaf_shapes(kind):
+    """A reduced count of a trained cell's leaves at their shapes and
+    dtypes, with odd sizes beside them: h2o-danube-1.8b's embedding and
+    one layer; DeepSeek-V2's first MoE layer with 2 held experts (its
+    router f32)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    if kind == "danube":
+        d, kv, f = 2560, 640, 6912
+        shapes = {"embed": (32000, d), "final_norm": (d,), "norm1": (d,),
+                  "wq": (d, d), "wk": (d, kv), "wv": (d, kv), "wo": (d, d),
+                  "norm2": (d,), "w_gate": (d, f), "w_up": (d, f),
+                  "w_down": (f, d)}
+        leaves = {k: (s, bf16) for k, s in shapes.items()}
+    else:
+        d, e = 5120, 1536
+        shapes = {"norm1": (d,), "w_dkv": (d, 576), "w_uk": (512, 16384),
+                  "w_uv": (512, 16384), "wo": (16384, d), "w_dq": (d, e),
+                  "w_uq": (e, 24576), "kv_norm": (512,), "q_norm": (e,),
+                  "norm2": (d,), "w_gate": (2, d, e), "w_up": (2, d, e),
+                  "w_down": (2, e, d), "shared.w_gate": (d, 3072),
+                  "shared.w_up": (d, 3072), "shared.w_down": (3072, d)}
+        leaves = {k: (s, bf16) for k, s in shapes.items()}
+        leaves["router"] = ((d, 160), f32)
+    leaves.update({"one": ((1,), bf16), "three": ((3,), f32),
+                   "chunk+1": ((16385,), bf16), "odd": ((7, 4099), f32)})
+    return leaves
+
+
+def _adamw_tensors(kind, seed):
+    """Parameters and gradients on the card of `_adamw_leaf_shapes`, and
+    two leaves whose parameter and gradient start off a 4-element
+    boundary (views one element into a buffer): the one-element path."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape, dt, std, skew=0):
+        n = int(np.prod(shape))
+        buf = torch.empty(n + skew, device="cuda", dtype=dt).normal_(
+            std=std, generator=g)
+        return buf[skew:].view(shape)
+    leaves = _adamw_leaf_shapes(kind)
+    params = {k: draw(s, dt, 0.02) for k, (s, dt) in leaves.items()}
+    grads = {k: draw(s, dt, 1e-3) for k, (s, dt) in leaves.items()}
+    for k, dt in (("skew_bf16", torch.bfloat16), ("skew_f32", torch.float32)):
+        params[k] = draw((4099,), dt, 0.02, skew=1)
+        grads[k] = draw((4099,), dt, 1e-3, skew=3)
+    return params, grads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["danube", "dsv2"])
+def test_gpu_adamw_update_is_the_foreach_bits(kind):
+    """Two steps of the update pass and of the `_foreach` chain from the
+    same state with the same scale, learning rate and bias corrections
+    (the clip active): m, v, the master and the parameters are the same
+    bits, leaf by leaf, on the vector and the one-element paths."""
+    _need_cuda()
+    from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.training import optimizer as O
+    params, grads = _adamw_tensors(kind, 1)
+    names = list(params)
+    twin = {k: p.clone() for k, p in params.items()}
+    st, st2 = O.init(params), O.init(twin)
+    opt = O.OptConfig(warmup_steps=1, clip_norm=1e-3)
+    consts = (opt.b1, 1 - opt.b1, opt.b2, 1 - opt.b2, opt.eps,
+              opt.weight_decay)
+    n0 = aops.adamw_update.launches
+    for step in (1, 2):
+        gnorm = O.global_norm(grads)
+        scale = torch.clamp(opt.clip_norm / (gnorm + 1e-9), max=1.0)
+        assert float(scale) < 1
+        stepf = torch.tensor(float(step), device="cuda")
+        lr = O.schedule(opt, stepf)
+        bc1, bc2 = 1 - opt.b1 ** stepf, 1 - opt.b2 ** stepf
+        aops.adamw_update([grads[k] for k in names],
+                          *([st[s][k] for k in names]
+                            for s in ("m", "v", "master")),
+                          [params[k] for k in names], scale, lr, bc1, bc2,
+                          consts)
+        O._adamw(opt, names, grads, st2, twin, scale, lr, bc1, bc2)
+        for k in names:
+            assert torch.equal(params[k], twin[k]), (step, k)
+            for s in ("m", "v", "master"):
+                assert torch.equal(st[s][k], st2[s][k]), (step, s, k)
+    assert aops.adamw_update.launches - n0 == 2
+    del params, twin, grads, st, st2
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["danube", "dsv2"])
+def test_gpu_adamw_norm_is_close_and_repeats(kind):
+    """The norm pass against `global_norm`'s per-tensor sums: within 1e-6
+    relative (the order of the sums); two calls the same bits; the scale
+    the clip's formula on that norm, bit for bit."""
+    _need_cuda()
+    from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.training import optimizer as O
+    _, grads = _adamw_tensors(kind, 2)
+    gl = list(grads.values())
+    gnorm, scale = aops.clip_scale(gl, 1e-3)
+    again = aops.clip_scale(gl, 1e-3)
+    want = O.global_norm(grads)
+    torch.testing.assert_close(gnorm, want, rtol=1e-6, atol=0)
+    assert torch.equal(gnorm, again[0]) and torch.equal(scale, again[1])
+    assert torch.equal(scale, torch.clamp(1e-3 / (gnorm + 1e-9), max=1.0))
+    big = aops.clip_scale(gl, 1e9)[1]
+    assert float(big) == 1.0
+    del grads, gl
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_gpu_adamw_update_waits_for_nothing():
+    """`training.optimizer.update` on the card under `SyncCounter`: no
+    call waits for the card or copies from pageable memory; every leaf
+    (bf16, f32, off a vector boundary) takes the passes."""
+    _need_cuda()
+    from repro_torch import tracing
+    from repro_torch.analysis.sanitizers import SyncCounter
+    from repro_torch.training import optimizer as O
+    params, grads = _adamw_tensors("dsv2", 3)
+    st = O.init(params)
+    opt = O.OptConfig(warmup_steps=1)
+    O.update(opt, grads, st, params)
+    torch.cuda.synchronize()
+    tracing.reset()
+    tracing.enable()
+    try:
+        with SyncCounter() as sc:
+            O.update(opt, grads, st, params)
+        counters = tracing.summary()["counters"]
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert sc.records == [], sc.by_site()
+    assert counters["optimizer.fused_leaves"]["total"] == \
+        counters["optimizer.leaves"]["total"] == len(params)
+    del params, grads, st
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_gpu_adamw_graphed_step_replays_the_eager_steps():
+    """A training step ending in `update`, replayed from a CUDA graph by
+    `nn_utils._GraphedStep` (three eager calls on a side stream, then the
+    capture), against the same six steps run eagerly: every parameter,
+    moment and master, and the step counter, the same bits."""
+    _need_cuda()
+    from repro_torch.core.routers.nn_utils import _GraphedStep
+    from repro_torch.training import optimizer as O
+    opt = O.OptConfig(lr=1e-2, warmup_steps=2, total_steps=6,
+                      clip_norm=0.5)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    data = {"x": torch.randn(64, 70, device="cuda", generator=gen)}
+    rows = [torch.randperm(64, device="cuda", generator=gen)[:16]
+            for _ in range(6)]
+
+    def model():
+        g = torch.Generator(device="cuda").manual_seed(10)
+        params = {"w": torch.randn(300, 70, device="cuda",
+                                   generator=g).bfloat16(),
+                  "b": torch.randn(70, device="cuda", generator=g),
+                  "r": torch.randn(16385, device="cuda",
+                                   generator=g).bfloat16()}
+        st = O.init(params)
+
+        def step(batch):
+            x = batch["x"].mean(0)
+            grads = {"w": (params["w"].float() * x).bfloat16(),
+                     "b": params["b"] * x,
+                     "r": (params["r"].float().sin() * x.sum()).bfloat16()}
+            O.update(opt, grads, st, params)
+            return x.sum()
+        return params, st, step
+
+    ep, est, estep = model()
+    for r in rows:
+        estep({k: v[r] for k, v in data.items()})
+    gp, gst, gstep = model()
+    graphed = _GraphedStep(gstep, data, 16, "cuda")
+    for r in rows:
+        graphed(r)
+    torch.cuda.synchronize()
+    assert graphed.graph is not None
+    assert torch.equal(est["step"], gst["step"]) and int(gst["step"]) == 6
+    for k in ep:
+        assert torch.equal(ep[k], gp[k]), k
+        for s in ("m", "v", "master"):
+            assert torch.equal(est[s][k], gst[s][k]), (s, k)
+
+
+@pytest.mark.gpu
+def test_gpu_danube_step_takes_every_leaf_through_the_adamw_passes():
+    """One step of h2o-danube-1.8b at its published widths and depth: all
+    219 leaves take the update pass (`optimizer.fused_leaves`), in 4
+    launches of at most 64 leaves, and the norm pass 4 more and its
+    finishing one."""
+    _need_cuda()
+    from repro_torch import tracing
+    from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.launch import train
+    n0 = (aops.clip_scale.launches, aops.adamw_update.launches)
+    tracing.reset()
+    tracing.enable()
+    try:
+        hist = train.main(["--arch", "h2o-danube-1.8b", "--steps", "1",
+                           "--batch", "1", "--seq", "256", "--log-every",
+                           "1"])
+        counters = tracing.summary()["counters"]
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert np.isfinite(hist[0]["loss"])
+    assert counters["optimizer.fused_leaves"]["total"] == \
+        counters["optimizer.leaves"]["total"] == 219
+    assert (aops.clip_scale.launches - n0[0],
+            aops.adamw_update.launches - n0[1]) == (5, 4)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["f16", "transposed"])
+def test_gpu_adamw_refuses_a_leaf_it_cannot_take(bad):
+    """On the card every leaf goes to the passes, and a leaf they cannot
+    take (an f16 one, a transposed one) raises before any leaf is
+    written: nothing falls back to plain code."""
+    _need_cuda()
+    from repro_torch.training import optimizer as O
+    params, grads = _adamw_tensors("danube", 4)
+    if bad == "f16":
+        params[bad] = torch.randn(40, device="cuda").half()
+        grads[bad] = torch.randn(40, device="cuda").half()
+    else:
+        params[bad] = torch.randn(6, 9, device="cuda").t()
+        grads[bad] = torch.randn(9, 6, device="cuda")
+    st = O.init(params)
+    before = {k: p.clone() for k, p in params.items()}
+    with pytest.raises(ValueError):
+        O.update(O.OptConfig(warmup_steps=1), grads, st, params)
+    for k in params:
+        assert torch.equal(params[k], before[k]), k
+    del params, grads, st, before
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_gpu_adamw_sharded_update_world1():
+    """A sharded model's leaves (DTensors on a world-1 NCCL mesh: sharded
+    over "model", replicated, sharded over both axes) through `update`:
+    the norm over the local shards (`optimizer.sharded_sumsq`, one
+    all-reduced scalar a placement) within 1e-6 of the plain leaves' norm
+    pass, every leaf through the update pass, and m, v and the master
+    within 1e-6 of the plain leaves' (the same bits where the two scales
+    are), each parameter its master in its dtype."""
+    _need_cuda()
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch import tracing
+    from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.training import optimizer as O
+    mesh = _nccl_mesh()
+    params, grads = _adamw_tensors("dsv2", 5)
+    names = list(params)
+    lay = {}
+    for i, k in enumerate(names):
+        sub = ([mesh["model"], [Shard(0)]], [mesh, [Replicate()] * 2],
+               [mesh, [Shard(0), Shard(params[k].dim() - 1)]])[i % 3]
+        lay[k] = sub
+    plain = {k: p.clone() for k, p in params.items()}
+    sp = {k: DTensor.from_local(params[k], *lay[k], run_check=False)
+          for k in names}
+    sg = {k: DTensor.from_local(grads[k], *lay[k], run_check=False)
+          for k in names}
+    st, pst = O.init(sp), O.init(plain)
+    opt = O.OptConfig(warmup_steps=1, clip_norm=1e-3)
+    n0 = (aops.clip_scale.launches, aops.adamw_update.launches)
+    tracing.reset()
+    tracing.enable()
+    try:
+        for _ in range(2):
+            got = O.update(opt, sg, st, sp)
+            want = O.update(opt, grads, pst, plain)
+            torch.testing.assert_close(got["grad_norm"], want["grad_norm"],
+                                       rtol=1e-6, atol=0)
+        counters = tracing.summary()["counters"]
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert counters["optimizer.fused_leaves"]["total"] == \
+        counters["optimizer.leaves"]["total"] == 4 * len(names)
+    assert aops.clip_scale.launches - n0[0] > 2
+    assert aops.adamw_update.launches - n0[1] == 4
+    for k in names:
+        for s in ("m", "v", "master"):
+            torch.testing.assert_close(st[s][k].to_local(), pst[s][k],
+                                       rtol=1e-6, atol=0)
+        assert torch.equal(sp[k].to_local(), st["master"][k].to_local().to(
+            sp[k].dtype)), k
+    del params, grads, plain, sp, sg, st, pst
+    torch.cuda.empty_cache()

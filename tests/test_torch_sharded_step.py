@@ -25,7 +25,10 @@ f32 on reduced configs (4 sequences of 32 tokens, 4 decode steps):
 - a bf16 MoE model's f32 router (sharded over the whole mesh by hand):
   its gradient within 0.2 relative L2 of the unsharded one's (bf16
   rounding gives 0.07 at both worlds; an unaveraged data-parallel
-  gradient would be off by 0.5 or more at world 4).
+  gradient would be off by 0.5 or more at world 4);
+- the same model's gradient norm by the card's clip over local shards
+  (`optimizer.sharded_sumsq`, an all-reduced scalar for each placement)
+  within 1e-6 of `global_norm`'s.
 """
 import os
 import subprocess
@@ -194,6 +197,20 @@ def test_f32_router_of_a_bf16_model(runs, world):
             assert out[f"router{ep}_placements"].all()
             assert rel_l2(out[f"router{ep}_grad"],
                           out[f"router{ep}_grad_ref"]) < 0.2
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_norm_pass_matches_global_norm(runs, world):
+    """The clip's norm over the bf16 MoE model's gradients (replicated,
+    sharded over "model", over "data" and "model", and by hand over the
+    whole mesh), by the card's scheme (`optimizer.sharded_sumsq`), within
+    1e-6 of `global_norm`'s, the same on every rank."""
+    for ep in (0, 1):
+        got = [float(out[f"norm{ep}_sharded"]) for out in runs[world]]
+        want = float(runs[world][0][f"norm{ep}_ref"])
+        assert len(runs[world][0][f"norm{ep}_placements"]) >= 3
+        assert got == [got[0]] * world
+        np.testing.assert_allclose(got[0], want, rtol=1e-6, atol=0)
 
 
 def test_unsharded_step_matches_reference(runs):

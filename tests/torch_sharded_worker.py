@@ -259,6 +259,22 @@ def ep_grad_case(mesh, out):
             .numpy()
 
 
+def norm_case(lm, out, name):
+    """The card's clip over a sharded model's gradients
+    (`optimizer.sharded_sumsq`: the norm pass over each placement's local
+    shards, here its plain version, one all-reduced scalar each) against
+    `global_norm`'s per-tensor whole sums."""
+    import torch
+    from repro_torch.training import optimizer as O
+    grads = {n: p.grad for n, p in lm.named_parameters()
+             if p.grad is not None}
+    out[f"{name}_sharded"] = np.array(float(torch.sqrt(
+        O.sharded_sumsq(list(grads.values())).float())))
+    out[f"{name}_ref"] = np.array(float(O.global_norm(grads)))
+    out[f"{name}_placements"] = np.array(sorted({
+        str(tuple(g.placements)) for g in grads.values()}))
+
+
 def router_case(mesh, out):
     """A bf16 MoE model's f32 router, which FSDP2 cannot group with the
     bf16 leaves of its unit (`shard_lm` shards it over the whole mesh by
@@ -292,6 +308,7 @@ def router_case(mesh, out):
             total, _ = M.loss_fn(lm, cfg, local)
             total.backward()
         lm.sharding.sync_grads(lm)
+        norm_case(lm, out, f"norm{int(ep)}")
         name = "blocks.1.moe.router"
         p = lm.get_parameter(name)
         out[f"router{int(ep)}_grad"] = p.grad.full_tensor().numpy()
